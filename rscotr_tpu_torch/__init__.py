@@ -2,9 +2,10 @@
 
 Module paths mirror ``rscotr_tpu/``. The port imports ``torch`` and never
 ``jax``, and nothing of the JAX package: it reads the config files under
-``configs/`` with its own loader (``utils/config.py``). On CUDA tensors the
-multi-scale
-deformable attention core and the Swin window attention core launch the
-hand-written kernels in ``csrc/`` (built with nvcc at first use); on CPU
-tensors they run their plain PyTorch versions.
+``configs/`` with its own loader (``utils/config.py``). It serves
+(``engine.make_infer_steps``) and trains (``engine.make_train_step``) the
+MTL's cls and det tasks. On CUDA tensors the multi-scale deformable
+attention core and the Swin window attention core, forward and backward,
+launch the hand-written kernels in ``csrc/`` (built with nvcc at first use);
+on CPU tensors they run their plain PyTorch versions.
 """

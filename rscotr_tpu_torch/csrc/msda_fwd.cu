@@ -24,17 +24,6 @@
 // TPU kernel). D > 32 loops over lanes (up to 128); D < 32 idles lanes.
 #include "common.cuh"
 
-#define MSDA_MAX_LEVELS 8
-#define MSDA_MAX_D 128
-#define MSDA_THREADS 256
-
-struct Levels {
-  int num;
-  int h[MSDA_MAX_LEVELS];
-  int w[MSDA_MAX_LEVELS];
-  int start[MSDA_MAX_LEVELS];
-};
-
 template <typename T, typename W>
 __global__ void __launch_bounds__(MSDA_THREADS) msda_fwd_kernel(
     const T* __restrict__ value,      // (B, Nv, H, D)
@@ -118,15 +107,7 @@ extern "C" int msda_fwd(const void* value, int value_dtype, const void* loc,
       Q < 1 || H < 1 || P < 1)
     return (int)cudaErrorInvalidValue;
   Levels lv;
-  lv.num = L;
-  int s = 0;
-  for (int l = 0; l < L; ++l) {
-    lv.h[l] = shapes[2 * l];
-    lv.w[l] = shapes[2 * l + 1];
-    lv.start[l] = s;
-    s += lv.h[l] * lv.w[l];
-  }
-  if (s != Nv) return (int)cudaErrorInvalidValue;
+  if (!make_levels(shapes, L, Nv, &lv)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (value_dtype == kF32 && w_dtype == kF32)
     return (int)launch<float, float>(value, loc, attw, out, B, Nv, Q, H, D, P,

@@ -26,23 +26,6 @@
 
 #define WA_THREADS 128
 
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1)
-    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
-
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
-
-struct Strides {  // element strides over (image * window, head, token)
-  long long b, h, n;
-};
-
 template <typename T>
 __global__ void __launch_bounds__(WA_THREADS) window_attn_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,

@@ -1,0 +1,195 @@
+"""Per-task train steps (PyTorch counterpart of
+rscotr_tpu/engine/train_step.py): forward the single-task batch, sum the
+loss dict, scale it by ``task_weight[task]``, backpropagate and apply the
+optimizer under the task's parameter mask.
+
+JAX's step is functional, ``(params, opt_state, batch, rng) -> (params,
+opt_state, log_vars)``. The port's ``step(batch, generator) -> log_vars``
+updates the model's parameters and the optimizer's state IN PLACE, and
+takes an explicit ``torch.Generator`` for everything random in the step
+(drop path, dropout, CDN noise, the cls batch augment); a CPU generator
+keeps those draws off the device's critical path. ``log_vars`` holds every
+weighted loss term, their sum ``loss`` and ``grad_norm``, as device scalars.
+
+Ported: the cls and det steps. The seg step (ROADMAP P1), the on-device
+augment branches (ROADMAP P5) and the K-step scanned dispatch (not carried
+over, ROADMAP P5) are not.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Optional, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from rscotr_tpu_torch.engine.infer import device_normalize
+from rscotr_tpu_torch.models.heads.cdn import (CdnConfig, cdn_self_attn_mask,
+                                               draw_cdn_noise,
+                                               generate_cdn_queries)
+from rscotr_tpu_torch.models.heads.dino_loss import DetLossConfig, dino_loss
+from rscotr_tpu_torch.ops.box_ops import bbox_xyxy_to_cxcywh
+from rscotr_tpu_torch.ops.losses import label_smooth_loss
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainStepConfig:
+    task_weight: Dict[str, float]
+    cls_num_classes: int = 45
+    cls_label_smooth: float = 0.1
+    cls_mixup_alpha: float = 0.8
+    cls_cutmix_alpha: float = 1.0
+    cls_use_augments: bool = True
+    cdn: Optional[CdnConfig] = None
+    det: Optional[DetLossConfig] = None
+    # (mean, std) in 0-255 range for uint8 batches; None = ImageNet stats
+    img_norm: Optional[Tuple[Tuple[float, ...], Tuple[float, ...]]] = None
+
+
+# ---------------------------------------------------------------------------
+# cls batch augments (mmcls BatchMixup / BatchCutMix, one chosen per batch)
+# ---------------------------------------------------------------------------
+
+def draw_cls_augment(generator: torch.Generator, B: int, H: int, W: int,
+                     mixup_alpha: float = 0.8,
+                     cutmix_alpha: float = 1.0) -> dict:
+    """The random draws of ``cls_batch_augment``: a seed from ``generator``
+    drives a numpy generator (torch has no seeded Beta sampler)."""
+    seed = int(torch.randint(0, 2 ** 62, (1,), generator=generator,
+                             device=generator.device))
+    rng = np.random.default_rng(seed)
+    return dict(perm=rng.permutation(B),
+                lam_m=np.float32(rng.beta(mixup_alpha, mixup_alpha)),
+                lam_c=np.float32(rng.beta(cutmix_alpha, cutmix_alpha)),
+                cx=int(rng.integers(0, W)), cy=int(rng.integers(0, H)),
+                use_cutmix=bool(rng.random() < 0.5))
+
+
+def cls_batch_augment(img: torch.Tensor, labels: torch.Tensor,
+                      num_classes: int, draws: dict):
+    """Mixup or cutmix of the batch with its permutation ``draws['perm']``
+    (train_step.py:79-113 of the JAX package): returns the mixed images and
+    the soft targets (B, num_classes)."""
+    B, H, W, _ = img.shape
+    perm = torch.as_tensor(draws["perm"], device=img.device)
+    one = F.one_hot(labels.long(), num_classes).float()
+    if draws["use_cutmix"]:
+        ratio = np.sqrt(np.float32(1.0) - draws["lam_c"])
+        cw = int(np.float32(W) * ratio)
+        ch = int(np.float32(H) * ratio)
+        cx, cy = draws["cx"], draws["cy"]
+        x1, x2 = np.clip([cx - cw // 2, cx + cw // 2], 0, W)
+        y1, y2 = np.clip([cy - ch // 2, cy + ch // 2], 0, H)
+        out = img.clone()
+        out[:, y1:y2, x1:x2] = img[perm][:, y1:y2, x1:x2]
+        lam = np.float32(1.0) - np.float32((x2 - x1) * (y2 - y1)) / \
+            np.float32(H * W)
+    else:
+        lam = draws["lam_m"]
+        out = float(lam) * img + float(np.float32(1.0) - lam) * img[perm]
+    target = float(lam) * one + float(np.float32(1.0) - lam) * one[perm]
+    return out, target
+
+
+# ---------------------------------------------------------------------------
+# per-task loss functions
+# ---------------------------------------------------------------------------
+
+def cls_loss_fn(model, batch, generator, cfg: TrainStepConfig):
+    img = device_normalize(batch["img"], cfg.img_norm)
+    target = batch["gt_label"]
+    if cfg.cls_use_augments:
+        draws = draw_cls_augment(generator, *img.shape[:3],
+                                 cfg.cls_mixup_alpha, cfg.cls_cutmix_alpha)
+        img, target = cls_batch_augment(img, target, cfg.cls_num_classes,
+                                        draws)
+    logits = model.forward_cls(img, generator)
+    return {"loss_cls": label_smooth_loss(
+        logits, target, label_smooth_val=cfg.cls_label_smooth)}
+
+
+def det_loss_fn(model, batch, generator, cfg: TrainStepConfig,
+                mask_cache: Optional[dict] = None):
+    img_hw = batch["img_hw"]
+    img = device_normalize(batch["img"], cfg.img_norm, img_hw)
+    gt_bboxes, gt_labels = batch["gt_bboxes"], batch["gt_labels"]
+    gt_valid = batch["gt_valid"].bool()
+    h, w = img_hw[:, 0].float(), img_hw[:, 1].float()
+    gt_norm = bbox_xyxy_to_cxcywh(
+        gt_bboxes / torch.stack([w, h, w, h], -1)[:, None, :])
+
+    # DN group widening: the collate encodes the ladder width it chose in
+    # the SHAPE of the zero-width ``dn_wide`` entry (ROADMAP C1)
+    cdn_cfg = cfg.cdn
+    if "dn_wide" in batch:
+        s_sel = int(batch["dn_wide"].shape[1])
+        if s_sel != cdn_cfg.single_pad:
+            cdn_cfg = dataclasses.replace(cdn_cfg, dn_max_gt=s_sel)
+    # a batch may carry pre-drawn CDN noise (dn_noise_* entries) so a test
+    # drives this and the JAX step with identical draws
+    if "dn_noise_p" in batch:
+        noise = {k: batch[f"dn_noise_{k}"]
+                 for k in ("p", "new_label", "sign", "part")}
+    else:
+        noise = draw_cdn_noise(generator, img.shape[0], cdn_cfg)
+    dn_label_q, dn_bbox_q = generate_cdn_queries(
+        gt_norm, gt_labels, gt_valid,
+        model.bbox_head.label_embedding.weight, cdn_cfg, noise)
+    cache = mask_cache if mask_cache is not None else {}
+    if cdn_cfg not in cache:
+        cache[cdn_cfg] = torch.as_tensor(cdn_self_attn_mask(cdn_cfg),
+                                         device=img.device)
+    outs = model.forward_det(img, img_hw, dn_label_q, dn_bbox_q,
+                             cache[cdn_cfg], generator)
+    return dino_loss(*outs, gt_bboxes, gt_labels, gt_valid, img_hw, cdn_cfg,
+                     cfg.det)
+
+
+def parse_losses(losses: Dict[str, torch.Tensor]):
+    """Sum all entries into the total loss (reference _parse_losses)."""
+    total = sum(losses.values())
+    log_vars = dict(losses)
+    log_vars["loss"] = total
+    return total, log_vars
+
+
+# ---------------------------------------------------------------------------
+# step factory
+# ---------------------------------------------------------------------------
+
+def make_train_step(model, optimizer, task: str, cfg: TrainStepConfig,
+                    task_mask: Optional[Dict[str, float]] = None):
+    """Returns ``step(batch, generator) -> log_vars``; ``batch`` holds numpy
+    arrays or tensors, moved to the model's device."""
+    if task == "seg":
+        raise NotImplementedError(
+            "the seg train step is not ported to rscotr_tpu_torch yet: "
+            "ROADMAP P1 (seg serving and the seg loss)")
+    if task not in ("cls", "det"):
+        raise ValueError(f"unknown task {task!r}")
+    weight = float(cfg.task_weight.get(task, 1.0))
+    params = dict(model.named_parameters())
+    device = next(model.parameters()).device
+    mask_cache: dict = {}
+
+    def step(batch, generator: torch.Generator) -> Dict[str, torch.Tensor]:
+        batch = {k: torch.as_tensor(v).to(device) for k, v in batch.items()}
+        model.train()
+        for p in params.values():
+            p.grad = None
+        if task == "cls":
+            losses = cls_loss_fn(model, batch, generator, cfg)
+        else:
+            losses = det_loss_fn(model, batch, generator, cfg, mask_cache)
+        total, log_vars = parse_losses(losses)
+        (total * weight).backward()
+        log_vars = {k: v.detach() * weight for k, v in log_vars.items()}
+        log_vars["grad_norm"] = optimizer.update(
+            {n: p.grad for n, p in params.items()}, task_mask)
+        for p in params.values():
+            p.grad = None
+        return log_vars
+
+    return step

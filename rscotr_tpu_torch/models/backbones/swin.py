@@ -13,6 +13,11 @@ Parameter names follow mmdet's SwinTransformer (``patch_embed.proj/norm``,
   [x00; x10; x01; x11] and its converter permutes the weights instead.
 * Maps are padded to a multiple of the window; the shift is off when
   min(H, W) <= window. LayerNorm eps 1e-5; exact (erf) GELU.
+* In training mode (``model.train()``) the blocks apply stochastic depth
+  with the linearly increasing ``drop_path_rate`` schedule, and dropout at
+  ``drop_rate``, drawing from the ``generator`` passed to ``forward``.
+  Attention dropout (``attn_drop_rate``) is not supported: the K2 kernels
+  have none.
 """
 
 from __future__ import annotations
@@ -24,8 +29,10 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from rscotr_tpu_torch.models.layers.common import (FFN, Conv2d, LayerNorm,
-                                                   Linear, trunc_normal_)
+from rscotr_tpu_torch.models.layers.common import (FFN, Conv2d, DropPath,
+                                                   Dropout, LayerNorm, Linear,
+                                                   drop_path_rates,
+                                                   trunc_normal_)
 from rscotr_tpu_torch.ops.window_attention import window_attention
 
 
@@ -75,8 +82,8 @@ class WindowMSA(nn.Module):
     """Window multi-head self-attention (mmdet ``WindowMSA`` names)."""
 
     def __init__(self, dim: int, num_heads: int, window_size: int,
-                 qkv_bias: bool = True, qk_scale=None, dtype=torch.float32,
-                 device=None):
+                 qkv_bias: bool = True, qk_scale=None, proj_drop: float = 0.0,
+                 dtype=torch.float32, device=None):
         super().__init__()
         self.dim, self.num_heads, self.window_size = dim, num_heads, \
             window_size
@@ -90,11 +97,12 @@ class WindowMSA(nn.Module):
         self.qkv = Linear(dim, 3 * dim, bias=qkv_bias, dtype=dtype,
                           device=device)
         self.proj = Linear(dim, dim, dtype=dtype, device=device)
+        self.proj_drop = Dropout(proj_drop)
 
     def _init_params(self, g):
         trunc_normal_(self.relative_position_bias_table, 0.02, g)
 
-    def forward(self, x, nW: int, mask=None):
+    def forward(self, x, nW: int, mask=None, generator=None):
         """x: (B_, n, C) windows, B_ = images * nW; mask (nW, n, n) or None."""
         B_, n, C = x.shape
         H = self.num_heads
@@ -106,7 +114,7 @@ class WindowMSA(nn.Module):
         out = window_attention(q, k, v, rel_bias.contiguous(), mask,
                                self.scale)                # (B, nW, H, n, hd)
         out = out.reshape(B_, H, n, hd).transpose(1, 2).reshape(B_, n, C)
-        return self.proj(out)
+        return self.proj_drop(self.proj(out), generator)
 
 
 class ShiftWindowMSA(nn.Module):
@@ -120,17 +128,20 @@ class ShiftWindowMSA(nn.Module):
 class SwinBlock(nn.Module):
     def __init__(self, dim: int, num_heads: int, window_size: int = 7,
                  shift: int = 0, mlp_ratio: float = 4.0,
-                 qkv_bias: bool = True, qk_scale=None, dtype=torch.float32,
-                 device=None):
+                 qkv_bias: bool = True, qk_scale=None, drop: float = 0.0,
+                 drop_path: float = 0.0, dtype=torch.float32, device=None):
         super().__init__()
         self.window_size, self.shift = window_size, shift
         self.norm1 = LayerNorm(dim, device=device)
         self.attn = ShiftWindowMSA(dim, num_heads, window_size, qkv_bias,
-                                   qk_scale, dtype=dtype, device=device)
+                                   qk_scale, proj_drop=drop, dtype=dtype,
+                                   device=device)
+        self.drop_path = DropPath(drop_path)
         self.norm2 = LayerNorm(dim, device=device)
         self.ffn = FFN(dim, int(dim * mlp_ratio),
                        act=lambda t: F.gelu(t, approximate="none"),
-                       dtype=dtype, device=device)
+                       drop=drop, drop_path=drop_path, dtype=dtype,
+                       device=device)
         self._masks: Dict[Tuple, torch.Tensor] = {}
 
     def _mask(self, Hp, Wp, shift, device):
@@ -141,7 +152,7 @@ class SwinBlock(nn.Module):
                 device=device)
         return self._masks[key]
 
-    def forward(self, x):
+    def forward(self, x, generator=None):
         """x: (B, H, W, C)."""
         B, H, W, C = x.shape
         win = self.window_size
@@ -158,12 +169,12 @@ class SwinBlock(nn.Module):
         else:
             mask = None
         nW = (Hp // win) * (Wp // win)
-        xw = self.attn.w_msa(window_partition(x, win), nW, mask)
+        xw = self.attn.w_msa(window_partition(x, win), nW, mask, generator)
         x = window_unpartition(xw, win, Hp, Wp, B)
         if shift > 0:
             x = torch.roll(x, (shift, shift), dims=(1, 2))
-        x = shortcut + x[:, :H, :W]
-        return self.ffn(self.norm2(x), identity=x)
+        x = shortcut + self.drop_path(x[:, :H, :W], generator)
+        return self.ffn(self.norm2(x), identity=x, generator=generator)
 
 
 class PatchMerging(nn.Module):
@@ -210,27 +221,32 @@ class SwinStage(nn.Module):
 
 class SwinTransformer(nn.Module):
     """Swin backbone returning per-stage NHWC maps for ``out_indices``.
-    Dropout and drop-path are identity at inference."""
+    Dropout and drop-path are identity at inference (eval mode)."""
 
     def __init__(self, embed_dims: int = 96,
                  depths: Sequence[int] = (2, 2, 6, 2),
                  num_heads: Sequence[int] = (3, 6, 12, 24),
                  window_size: int = 7, patch_size: int = 4,
                  mlp_ratio: float = 4.0, qkv_bias: bool = True,
-                 qk_scale=None, patch_norm: bool = True,
+                 qk_scale=None, drop_rate: float = 0.0,
+                 drop_path_rate: float = 0.0, patch_norm: bool = True,
                  out_indices: Sequence[int] = (0, 1, 2, 3),
                  dtype=torch.float32, device=None):
         super().__init__()
         self.out_indices = tuple(out_indices)
         self.patch_embed = PatchEmbed(embed_dims, patch_size, patch_norm,
                                       dtype=dtype, device=device)
+        self.drop = Dropout(drop_rate)
+        dprs = drop_path_rates(drop_path_rate, depths)
         stages = []
         dim = embed_dims
         for si, depth in enumerate(depths):
             blocks = [SwinBlock(dim, num_heads[si], window_size,
                                 shift=0 if bi % 2 == 0 else window_size // 2,
                                 mlp_ratio=mlp_ratio, qkv_bias=qkv_bias,
-                                qk_scale=qk_scale, dtype=dtype, device=device)
+                                qk_scale=qk_scale, drop=drop_rate,
+                                drop_path=dprs[si][bi], dtype=dtype,
+                                device=device)
                       for bi in range(depth)]
             down = (PatchMerging(dim, dtype=dtype, device=device)
                     if si < len(depths) - 1 else None)
@@ -241,13 +257,13 @@ class SwinTransformer(nn.Module):
                 dim *= 2
         self.stages = nn.ModuleList(stages)
 
-    def forward(self, x):
+    def forward(self, x, generator=None):
         """x: (B, H, W, 3) -> tuple of (B, H/s, W/s, C_i)."""
-        x = self.patch_embed(x)
+        x = self.drop(self.patch_embed(x), generator)
         outs = []
         for si, stage in enumerate(self.stages):
             for block in stage.blocks:
-                x = block(x)
+                x = block(x, generator)
             if si in self.out_indices:
                 outs.append(getattr(self, f"norm{si}")(x))
             if stage.downsample is not None:

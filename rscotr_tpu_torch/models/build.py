@@ -41,10 +41,20 @@ def _pop_type(cfg: dict):
     return t, cfg
 
 
+def _no_dropout(name: str, **rates) -> None:
+    """The port runs no dropout where the kernels have none, nor in the
+    transformer layers (every config sets 0 there)."""
+    bad = {k: v for k, v in rates.items() if v}
+    if bad:
+        raise NotImplementedError(f"{name}: non-zero {bad} is not supported "
+                                  "by rscotr_tpu_torch")
+
+
 def build_backbone(cfg: dict, dtype, device):
     t, c = _pop_type(cfg)
     if t != "SwinTransformer":
         raise KeyError(f"unknown backbone type {t}")
+    _no_dropout(t, attn_drop_rate=c.get("attn_drop_rate", 0.0))
     return SwinTransformer(
         embed_dims=c.get("embed_dims", 96),
         depths=tuple(c.get("depths", (2, 2, 6, 2))),
@@ -53,6 +63,8 @@ def build_backbone(cfg: dict, dtype, device):
         mlp_ratio=c.get("mlp_ratio", 4),
         qkv_bias=c.get("qkv_bias", True),
         qk_scale=c.get("qk_scale", None),
+        drop_rate=c.get("drop_rate", 0.0),
+        drop_path_rate=c.get("drop_path_rate", 0.2),
         patch_norm=c.get("patch_norm", True),
         out_indices=tuple(c.get("out_indices", (0, 1, 2, 3))),
         dtype=dtype, device=device)
@@ -82,6 +94,8 @@ def build_shared_encoder(cfg: dict, dtype, device):
     layers = c.get("transformerlayers", {})
     attn = layers.get("attn_cfgs", {})
     ffn = layers.get("ffn_cfgs", {})
+    _no_dropout(t, dropout=attn.get("dropout", 0.0),
+                ffn_drop=ffn.get("ffn_drop", 0.0))
     return DeformableEncoder(
         num_layers=c.get("num_layers", 6),
         embed_dims=attn.get("embed_dims", 256),
@@ -108,7 +122,11 @@ def build_bbox_head(cfg: dict, dtype, device):
     decoder = c.get("transformer", {}).get("decoder", {})
     dec_layers = decoder.get("transformerlayers", {})
     attn_cfgs = dec_layers.get("attn_cfgs", [{}, {}])
-    msda = attn_cfgs[1] if isinstance(attn_cfgs, (list, tuple)) else attn_cfgs
+    if not isinstance(attn_cfgs, (list, tuple)):
+        attn_cfgs = [attn_cfgs, attn_cfgs]
+    msda = attn_cfgs[1]
+    _no_dropout(t, dropout=max(a.get("dropout", 0.0) for a in attn_cfgs),
+                ffn_drop=dec_layers.get("ffn_cfgs", {}).get("ffn_drop", 0.0))
     return DINOHead(
         num_classes=c.get("num_classes", 20),
         num_query=c.get("num_query", 600),

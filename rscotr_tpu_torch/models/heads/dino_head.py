@@ -1,4 +1,4 @@
-"""DINO detection head, serving path (PyTorch counterpart of
+"""DINO detection head (PyTorch counterpart of
 rscotr_tpu/models/heads/dino_head.py).
 
 Two-stage deformable DETR: encoder proposals (finite ``BIG`` masking), the
@@ -6,15 +6,18 @@ top-``num_query`` selection over max class logits, decoder layers with box
 refinement (look forward twice) and per-layer outputs. The encoder is the
 MTL's shared encoder, passed in as ``encode_fn``. Parameter names follow the
 reference (``transformer.*``, ``cls_branches.{i}``,
-``reg_branches.{i}.{0,2,4}``, ``label_embedding``). Contrastive denoising
-queries belong to training (ROADMAP P3); serving runs the ``num_query``
-matching queries only.
+``reg_branches.{i}.{0,2,4}``, ``label_embedding``). In training the
+contrastive-denoising queries (``models/heads/cdn.py``) are prepended to the
+matching queries under the CDN self-attention mask; the top-k proposal
+coordinates are detached, and so is the reference passed between decoder
+layers, while the per-layer outputs keep the non-detached refinement (look
+forward twice). Serving runs the ``num_query`` matching queries only.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Callable, Sequence
+from typing import Callable, Optional, Sequence
 
 import torch
 from torch import nn
@@ -125,15 +128,22 @@ class DINOHead(nn.Module):
             constant_(reg[4].weight, 0.0)
             constant_(reg[4].bias, 0.0)
 
-    def forward(self, neck_feats, img_hw: torch.Tensor, encode_fn: Callable):
+    def forward(self, neck_feats, img_hw: torch.Tensor, encode_fn: Callable,
+                dn_label_query: Optional[torch.Tensor] = None,
+                dn_bbox_query: Optional[torch.Tensor] = None,
+                attn_mask: Optional[torch.Tensor] = None):
         """
         Args:
             neck_feats: NHWC maps, high->low resolution (strides 8..64).
             img_hw: (B, 2) int content size of each padded image.
             encode_fn: the shared encoder.
+            dn_label_query (B, P, C), dn_bbox_query (B, P, 4) unsigmoided,
+                attn_mask (P + num_query, P + num_query) bool (True = not
+                allowed): the CDN queries and their mask, or None.
         Returns:
-            all_cls (L, B, N, K), all_coords (L, B, N, 4),
-            topk_score (B, N, K), topk_anchor (B, N, 4); N = num_query.
+            all_cls (L, B, N, K), all_coords (L, B, N, 4) with
+            N = P + num_query, topk_score (B, num_query, K), topk_anchor
+            (B, num_query, 4).
         """
         tr = self.transformer
         B = neck_feats[0].shape[0]
@@ -169,10 +179,15 @@ class DINOHead(nn.Module):
         topk_coords_unact = enc_coord_unact.gather(
             1, topk_idx[..., None].expand(-1, -1, 4))
         topk_anchor = topk_coords_unact.sigmoid()
+        topk_coords_unact = topk_coords_unact.detach()
 
-        # ---- decoder with box refinement (look forward twice) -----------
+        # ---- decoder queries (CDN first) and box refinement --------------
         x = tr.query_embed.weight[None].expand(B, -1, -1)
-        ref = topk_coords_unact.sigmoid()
+        ref_unact = topk_coords_unact
+        if dn_label_query is not None:
+            x = torch.cat([dn_label_query, x], 1)
+            ref_unact = torch.cat([dn_bbox_query, topk_coords_unact], 1)
+        ref = ref_unact.sigmoid()
         ratios4 = torch.cat([valid_ratios, valid_ratios], -1)[:, None]
         dec = tr.decoder
         inter_states, inter_refs = [], [ref]
@@ -181,10 +196,10 @@ class DINOHead(nn.Module):
             query_pos = dec.ref_point_head(coordinate_sine_embedding(
                 ref_input[:, :, 0, :], num_feats=C // 2))
             x = layer(x, query_pos, memory, ref_input, shapes,
-                      key_padding_mask=mask_flat)
+                      self_attn_mask=attn_mask, key_padding_mask=mask_flat)
             new_ref = (self.reg_branches[lid](x) +
                        inverse_sigmoid(ref, eps=1e-3)).sigmoid()
-            ref = new_ref
+            ref = new_ref.detach()
             inter_states.append(dec.norm(x))
             inter_refs.append(new_ref)
 

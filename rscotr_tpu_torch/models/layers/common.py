@@ -8,6 +8,11 @@ float32 (flax norms with no ``dtype`` promote bf16 input to their f32
 params). Parameters stay float32. Activations are NHWC / (B, N, C) as in the
 JAX package; parameter names follow the reference's mm state-dict layout.
 
+``DropPath`` and ``Dropout`` are active only in training mode
+(``module.train()``, JAX's ``deterministic=False``) with a non-zero rate, and
+draw their masks from an explicit ``torch.Generator`` passed down through
+the forward (on the generator's device, then moved to the input's).
+
 Initialisation mirrors the flax initialisers' distributions from an explicit
 ``torch.Generator`` (``init_weights``): modules define ``_init_params(g)``,
 which runs after their children's, so a parent can override a child's
@@ -17,7 +22,7 @@ default (zero-initialised branches, prior-probability biases).
 from __future__ import annotations
 
 import math
-from typing import Callable, Optional
+from typing import Callable, List, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -156,6 +161,60 @@ class GroupNorm(nn.GroupNorm):
         return y.permute(0, 2, 3, 1)
 
 
+def drop_path_rates(drop_path_rate: float,
+                    depths: Sequence[int]) -> List[List[float]]:
+    """Linearly increasing stochastic-depth rates across all blocks, per
+    stage."""
+    total = sum(depths)
+    rates = [float(drop_path_rate) * i / max(total - 1, 1)
+             for i in range(total)]
+    out, k = [], 0
+    for d in depths:
+        out.append(rates[k:k + d])
+        k += d
+    return out
+
+
+def _keep_mask(shape, keep: float, g: Optional[torch.Generator],
+               like: torch.Tensor) -> torch.Tensor:
+    if g is None:
+        raise ValueError("a training-mode DropPath / Dropout needs a "
+                         "torch.Generator")
+    u = torch.rand(shape, generator=g, device=g.device)
+    return (u < keep).to(like.device, like.dtype)
+
+
+class DropPath(nn.Module):
+    """Stochastic depth per sample (timm semantics): in training, each
+    sample's branch is zeroed with probability ``drop_prob`` and the kept
+    ones scaled by 1 / (1 - drop_prob)."""
+
+    def __init__(self, drop_prob: float = 0.0):
+        super().__init__()
+        self.drop_prob = float(drop_prob)
+
+    def forward(self, x, generator: Optional[torch.Generator] = None):
+        if not self.training or self.drop_prob == 0.0:
+            return x
+        keep = 1.0 - self.drop_prob
+        shape = (x.shape[0],) + (1,) * (x.dim() - 1)
+        return x * _keep_mask(shape, keep, generator, x) / keep
+
+
+class Dropout(nn.Module):
+    """Elementwise dropout (flax ``nn.Dropout``) drawing from a generator."""
+
+    def __init__(self, rate: float = 0.0):
+        super().__init__()
+        self.rate = float(rate)
+
+    def forward(self, x, generator: Optional[torch.Generator] = None):
+        if not self.training or self.rate == 0.0:
+            return x
+        keep = 1.0 - self.rate
+        return x * _keep_mask(x.shape, keep, generator, x) / keep
+
+
 class Mlp(nn.Module):
     """build_MLP: Linear-ReLU x (num_layers - 1) -> Linear."""
 
@@ -177,10 +236,13 @@ class Mlp(nn.Module):
 
 class FFN(nn.Module):
     """mmcv FFN with two fcs (keys ``layers.0.0`` and ``layers.1``):
-    identity + fc1(act(fc0(x))). Dropout is identity at inference."""
+    identity + drop_path(drop(fc1(drop(act(fc0(x)))))). ``drop`` is the
+    dropout after the activation and after fc1 (mmcv ``ffn_drop``, Swin's
+    ``drop_rate``); ``drop_path`` the Swin block's stochastic depth."""
 
     def __init__(self, embed_dims: int, feedforward_channels: int,
-                 act: Callable = F.relu, dtype=torch.float32, device=None):
+                 act: Callable = F.relu, drop: float = 0.0,
+                 drop_path: float = 0.0, dtype=torch.float32, device=None):
         super().__init__()
         self.layers = nn.ModuleList([
             nn.ModuleList([Linear(embed_dims, feedforward_channels,
@@ -188,7 +250,12 @@ class FFN(nn.Module):
             Linear(feedforward_channels, embed_dims, dtype=dtype,
                    device=device)])
         self.act = act
+        self.dropout = Dropout(drop)
+        self.drop_path = DropPath(drop_path)
 
-    def forward(self, x, identity: Optional[torch.Tensor] = None):
-        out = self.layers[1](self.act(self.layers[0][0](x)))
+    def forward(self, x, identity: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None):
+        out = self.dropout(self.act(self.layers[0][0](x)), generator)
+        out = self.dropout(self.layers[1](out), generator)
+        out = self.drop_path(out, generator)
         return (x if identity is None else identity) + out

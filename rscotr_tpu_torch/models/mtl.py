@@ -1,10 +1,12 @@
-"""MTL — the multi-task model, serving the cls and det tasks (PyTorch
-counterpart of rscotr_tpu/models/mtl.py).
+"""MTL — the multi-task model, its cls and det tasks (PyTorch counterpart
+of rscotr_tpu/models/mtl.py).
 
 Shared backbone -> ChannelMapper neck over the last ``neck_in_levels``
 backbone levels -> shared deformable encoder, passed to the det head as
 ``encode_fn`` (one module, so its parameters appear once). Task outputs are
-cast to float32 at the model boundary (``outputs_f32``).
+cast to float32 at the model boundary (``outputs_f32``). JAX's
+``deterministic`` flag is the module mode: ``model.train()`` turns on drop
+path and dropout, which draw from the ``generator`` given to the forward.
 """
 
 from __future__ import annotations
@@ -38,20 +40,26 @@ class MTL(nn.Module):
         self.bbox_head = bbox_head
         self.neck_in_levels = neck_in_levels
 
-    def extract_feat(self, img):
+    def extract_feat(self, img, generator=None):
         """img (B, H, W, 3) -> (neck_feats, backbone_feats)."""
-        bb = self.backbone(img)
+        bb = self.backbone(img, generator)
         if self.neck is None:
             return bb, bb
         return self.neck(bb[len(bb) - self.neck_in_levels:]), bb
 
-    def forward_cls(self, img):
+    def forward_cls(self, img, generator: Optional[torch.Generator] = None):
         # SlvlClsHead reads only the last backbone map. Under jit XLA drops
         # the unused neck of the JAX forward; eagerly it would run, so the
         # backbone is called alone.
-        return outputs_f32(self.cls_head(self.backbone(img)))
+        return outputs_f32(self.cls_head(self.backbone(img, generator)))
 
-    def forward_det(self, img, img_hw):
-        nk, _ = self.extract_feat(img)
-        return outputs_f32(self.bbox_head(nk, img_hw,
-                                          encode_fn=self.shared_encoder))
+    def forward_det(self, img, img_hw, dn_label_query=None,
+                    dn_bbox_query=None, attn_mask=None,
+                    generator: Optional[torch.Generator] = None):
+        """-> (all_cls, all_coords, topk_score, topk_anchor), see
+        ``DINOHead.forward``; the CDN queries and mask are for training."""
+        nk, _ = self.extract_feat(img, generator)
+        return outputs_f32(self.bbox_head(
+            nk, img_hw, encode_fn=self.shared_encoder,
+            dn_label_query=dn_label_query, dn_bbox_query=dn_bbox_query,
+            attn_mask=attn_mask))

@@ -1,10 +1,11 @@
 """Build and bind the port's hand-written CUDA kernels.
 
 The sources in ``rscotr_tpu_torch/csrc/*.cu`` expose plain C functions. At
-first use they are compiled with ``nvcc`` for ``sm_90a`` into one shared
-library under ``build/rscotr_tpu_torch/`` (its name carries a hash of the
-sources and flags, so an edited source never loads a stale build) and bound
-with ``ctypes``. Nothing is built or imported when this module is imported:
+first use each is compiled with its own ``nvcc`` for ``sm_90a`` (all started
+together) and the objects are linked into one shared library under
+``build/rscotr_tpu_torch/`` (its name carries a hash of the sources and
+flags, so an edited source never loads a stale build), bound with
+``ctypes``. Nothing is built or imported when this module is imported:
 ``load()`` runs on the first CUDA launch.
 """
 
@@ -24,7 +25,7 @@ import torch
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "rscotr_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 # dtype codes of csrc/common.cuh
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -65,14 +66,32 @@ def build() -> Build:
         return Build(out, False, 0.0, "")
     t0 = time.perf_counter()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    tag = f"{digest.hexdigest()[:16]}.{os.getpid()}"
+    objs, procs = [], []
+    for src in sorted(CSRC.glob("*.cu")):
+        obj = BUILD_DIR / f"{src.stem}.{tag}.o"
+        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+        objs.append(obj)
+        procs.append((cmd, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+    log, failed = "", []
+    for cmd, proc in procs:
+        out_text = proc.communicate()[0]
+        log += out_text
+        if proc.returncode != 0:
+            failed.append(f"{' '.join(cmd)}\n{out_text}")
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *map(str, sorted(CSRC.glob("*.cu")))]
+    cmd = [nvcc, "-shared", "-o", str(tmp), *map(str, objs)]
     res = subprocess.run(cmd, capture_output=True, text=True)
-    log = res.stdout + res.stderr
     if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}): "
-                           f"{' '.join(cmd)}\n{log}")
+        raise RuntimeError(f"nvcc link failed ({res.returncode}): "
+                           f"{' '.join(cmd)}\n{res.stdout}{res.stderr}")
+    for obj in objs:
+        obj.unlink()
     os.replace(tmp, out)
     return Build(out, True, time.perf_counter() - t0, log)
 
@@ -89,6 +108,16 @@ def load() -> ctypes.CDLL:
             _P, _P, _P, _I, ctypes.POINTER(ctypes.c_longlong), _P, _P, _P,
             _I, _I, _I, _I, _I, ctypes.c_float, _P]
         lib.window_attn_fwd.restype = _I
+        lib.msda_bwd.argtypes = [_P, _I, _P, _P, _I, _P, _P, _P, _P, _P, _I,
+                                 _I, _I, _I, _I, _I, _I,
+                                 ctypes.POINTER(ctypes.c_int), _P]
+        lib.msda_bwd.restype = _I
+        lib.scatter_add.argtypes = [_P, _I, _P, _P, _I, _I, _I, _I, _P]
+        lib.scatter_add.restype = _I
+        lib.window_attn_bwd.argtypes = [
+            _P, _P, _P, _I, ctypes.POINTER(ctypes.c_longlong), _P, _P, _P,
+            _P, _P, _P, _P, _I, _I, _I, _I, _I, ctypes.c_float, _P]
+        lib.window_attn_bwd.restype = _I
         _LIB = lib
     return _LIB
 
@@ -108,12 +137,3 @@ def dtype_code(t: torch.Tensor, name: str) -> int:
 
 def stream_ptr(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
-
-
-def require_no_grad(name: str, roadmap_item: str, *tensors) -> None:
-    """The kernels are forward-only: refuse tensors that want a gradient."""
-    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors
-                                       if t is not None):
-        raise NotImplementedError(
-            f"{name} on CUDA is forward-only; its backward kernel is "
-            f"ROADMAP {roadmap_item}. Run under torch.inference_mode().")

@@ -1,11 +1,11 @@
-"""Model-config reader of the port.
+"""Config reader of the port.
 
 Reads the reference-shaped Python config files under ``configs/``: runs a
 file, composes its ``_base_`` chain (later bases and the child deep-merged
 over earlier ones; a dict holding ``_delete_=True`` replaces the base
-subtree) and returns the ``model`` dict. This is the subset of
-rscotr_tpu.config's loader that model dicts use. The port carries its own
-because ``chip_smoke.py``, which drives the port on a machine without JAX,
+subtree) and returns the composed dict or its ``model`` part. This is the
+subset of rscotr_tpu.config's loader that the port uses. The port carries
+its own because ``chip_smoke.py``, which drives the port on a machine without JAX,
 imports nothing of the JAX package, and because that loader imports
 ``rscotr_tpu.models`` (and so jax) for a config with ``custom_imports``.
 """
@@ -46,9 +46,15 @@ def _load(path: str) -> dict:
     return _merge(merged, cfg)
 
 
-def load_model_cfg(path: str) -> dict:
-    """The composed ``model`` dict of a config file."""
+def load_cfg(path: str) -> dict:
+    """The whole composed config of a file (``model``, ``data``,
+    ``optimizer``, ``lr_config``, ...)."""
     path = os.path.abspath(path)
     if not os.path.isfile(path):
         raise FileNotFoundError(f"config file not found: {path}")
-    return copy.deepcopy(_load(path)["model"])
+    return copy.deepcopy(_load(path))
+
+
+def load_model_cfg(path: str) -> dict:
+    """The composed ``model`` dict of a config file."""
+    return load_cfg(path)["model"]

@@ -5,8 +5,9 @@ the numpy oracle and the Pallas kernel in interpret mode;
 ``window_attention_torch`` (plain version of K2) against the Pallas kernel
 in interpret mode. Tolerance 1e-4 relative / 1e-5 absolute (float32; the
 two stacks sum in other orders).
-The kernel-vs-plain cases need a card (marker ``cuda``) and skip without
-one. On the machine with the card, which has no JAX, run them with
+The kernel-vs-plain cases, forward and backward (K1, K1b, K3', K2, K2b),
+need a card (marker ``cuda``) and skip without one. On the machine with the
+card, which has no JAX, run them with
 ``python -m pytest --noconftest -m cuda tests/test_torch_port_kernels.py``;
 ``python3 chip_smoke.py`` runs the same comparisons at the flagship shapes.
 """
@@ -214,10 +215,92 @@ def test_window_attention_kernel_vs_plain(cuda_device, dtype, masked, hd):
         q.float(), k.float(), v.float(), bias, mask), dtype)
 
 
+# backward kernels against the plain decomposition on the same CUDA
+# tensors. The gradients are sums whose order differs (warp reductions,
+# atomics in an order that changes from run to run), so the bound is
+# scaled by the largest reference entry: |got - ref| <= atol * max|ref| +
+# rtol * |ref|. bf16 outputs may differ by one bf16 ulp (2^-7 relative).
+BTOL = {torch.float32: (1e-5, 1e-4), torch.bfloat16: (1e-5, 2.0 ** -7)}
+
+
+def _assert_grad_close(got, ref, dtype):
+    atol, rtol = BTOL[dtype]
+    got, ref = got.float(), ref.float()
+    assert torch.isfinite(got).all()
+    bound = atol * ref.abs().max().item() + rtol * ref.abs()
+    assert ((got - ref).abs() - bound).max().item() <= 0
+
+
 @pytest.mark.cuda
-def test_kernels_refuse_grad(cuda_device):
-    value, shapes, loc, aw = msda_inputs(8)
-    v = torch.from_numpy(value).to(cuda_device).requires_grad_()
-    with pytest.raises(NotImplementedError, match="ROADMAP P3"):
-        ms_deform_attn(v, shapes, torch.from_numpy(loc).to(cuda_device),
-                       torch.from_numpy(aw).to(cuda_device))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D,ref_dim", [(16, 2), (32, 4), (64, 2)])
+def test_msda_backward_kernels_vs_plain(cuda_device, dtype, D, ref_dim):
+    from rscotr_tpu_torch.ops.ms_deform_attn import (ms_deform_attn_bwd_torch,
+                                                     msda_bwd_rows)
+    from rscotr_tpu_torch.ops.scatter_mm import scatter_add_mm
+    value, shapes, loc, aw = msda_inputs(9 + ref_dim, D=D)
+    v = torch.from_numpy(value).to(cuda_device, dtype).requires_grad_()
+    w = torch.from_numpy(aw).to(cuda_device, dtype).requires_grad_()
+    loc_t = torch.from_numpy(loc).to(cuda_device).requires_grad_()
+    out = ms_deform_attn(v, shapes, loc_t, w)
+    d_out = torch.randn(out.shape, device=cuda_device,
+                        generator=torch.Generator(cuda_device).manual_seed(0)
+                        ).to(dtype)
+    k1b, k3 = msda_bwd_rows.launches, scatter_add_mm.launches
+    got = torch.autograd.grad(out, (v, loc_t, w), d_out)
+    torch.cuda.synchronize()
+    assert msda_bwd_rows.launches == k1b + 1
+    assert scatter_add_mm.launches == k3 + 1
+    want = ms_deform_attn_bwd_torch(v.detach(), shapes, loc_t.detach(),
+                                    w.detach(), d_out)
+    for g, r, t in zip(got, want, (v, loc_t, w)):
+        assert g.dtype == t.dtype and g.shape == t.shape
+        _assert_grad_close(g, r, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_scatter_add_kernel_vs_plain(cuda_device, dtype):
+    from rscotr_tpu_torch.ops.scatter_mm import (scatter_add_mm,
+                                                 scatter_add_mm_torch)
+    rng = np.random.default_rng(10)
+    G, K, C, rows = 6, 1000, 128, 97
+    upd = torch.from_numpy(rng.normal(size=(G, K, C)).astype(np.float32))
+    # repeated targets and out-of-range ones (dropped)
+    idx = torch.from_numpy(rng.integers(-3, rows + 3, (G, K)).astype(
+        np.int32))
+    upd, idx = upd.to(cuda_device, dtype), idx.to(cuda_device)
+    before = scatter_add_mm.launches
+    got = scatter_add_mm(upd, idx, rows)
+    torch.cuda.synchronize()
+    assert scatter_add_mm.launches == before + 1
+    assert got.dtype == torch.float32 and got.shape == (G, rows, C)
+    _assert_grad_close(got, scatter_add_mm_torch(upd, idx, rows),
+                       torch.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("masked,hd", [(False, 32), (True, 32), (True, 64)])
+def test_window_attention_backward_kernel_vs_plain(cuda_device, dtype,
+                                                   masked, hd):
+    from rscotr_tpu_torch.ops.window_attention import (
+        window_attention_bwd, window_attention_bwd_torch)
+    q, k, v, bias, mask = wa_inputs(2, B=2, nW=4, H=3, hd=hd, masked=masked)
+    q, k, v = (torch.from_numpy(t).to(cuda_device, dtype).requires_grad_()
+               for t in (q, k, v))
+    bias = torch.from_numpy(bias).to(cuda_device).requires_grad_()
+    mask = None if mask is None else torch.from_numpy(mask).to(cuda_device)
+    out = window_attention(q, k, v, bias, mask)
+    d_out = torch.randn(out.shape, device=cuda_device,
+                        generator=torch.Generator(cuda_device).manual_seed(1)
+                        ).to(dtype)
+    before = window_attention_bwd.launches
+    got = torch.autograd.grad(out, (q, k, v, bias), d_out)
+    torch.cuda.synchronize()
+    assert window_attention_bwd.launches == before + 1
+    want = window_attention_bwd_torch(q.detach(), k.detach(), v.detach(),
+                                      bias.detach(), mask, hd ** -0.5, d_out)
+    for g, r, t in zip(got, want, (q, k, v, bias)):
+        assert g.dtype == t.dtype and g.shape == t.shape
+        _assert_grad_close(g, r, dtype)
