@@ -8,33 +8,47 @@ Phases, each of which raises on failure (exit code 1, no result line):
 2. build the hand-written CUDA kernels from rscotr_tpu_torch/csrc (one nvcc
    per source, in parallel);
 3. kernels: K1 (MSDA forward) and K2 (Swin window attention) against their
-   plain PyTorch versions at the flagship's shapes, in float32 and bfloat16,
-   with kernel and plain times from CUDA events;
+   plain PyTorch versions at the flagship's shapes (the det and seg
+   encoders, the det decoder; the Swin stages of det 800^2, cls 224^2 and
+   seg 512^2), in float32 and bfloat16, with kernel and plain times from
+   CUDA events;
 4. backward kernels: K1b (MSDA backward rows), K3' (its value-gradient
    scatter) and K2b (window attention backward), through
    ``torch.autograd.grad`` of the CUDA Functions, against the plain
    decomposition at the flagship's shapes, float32 and bfloat16, timed;
-5. slice parity: the tiny config's cls and det tasks on the CPU (plain
-   versions) and on the card (kernels), float32, TF32 off;
-6. training parity: the tiny config trains cls, det, det, cls on the CPU
+5. quad-gather MSDA at the det encoder: ``ms_deform_attn(impl="quad")``
+   forward + backward once (K4 and K5 launches counted), K4 (corner-weighted
+   sum) and K5 (its gradients) against their plain versions, the quad path's
+   output and gradients against the K1 path's, float32 and bfloat16; K4, K5
+   and both paths timed, with their peak memory;
+6. K6 through the probe tool (``rscotr_tpu_torch.tools.
+   probe_msda_weighted_gather_mm``): its parity check, K6 against its plain
+   version at the four det-encoder level shapes, float32 and bfloat16, then
+   the tool's per-level timing against the plain gather x weight (K6
+   launches counted);
+7. slice parity: the tiny config's cls, det and seg (whole and slide mode)
+   tasks on the CPU (plain versions) and on the card (kernels), float32,
+   TF32 off;
+8. training parity: the tiny config trains cls, det, det, cls on the CPU
    and on the card from the same weights and batches; every loss term per
    step and the final parameters are compared;
-7. serving: the flagship MTL (Swin-T, 6-layer shared MSDA encoder,
-   600-query DINO head; bf16 compute, random weights from a seed) answers
-   cls 16x224^2, det 1x800^2 and det 4x800^2 requests; outputs are checked,
-   kernel launches counted, median latency (CUDA events) and peak memory
+9. serving: the flagship MTL (Swin-T, 6-layer shared MSDA encoder,
+   600-query DINO head, 9-layer Mask2Former head; bf16 compute, random
+   weights from a seed) answers cls 16x224^2, det 1x800^2, det 4x800^2,
+   seg 4x512^2 and seg 1x512^2 requests; outputs are checked, kernel
+   launches counted, median latency (CUDA events) and peak memory
    reported;
-8. training: the flagship trains cls 16x224^2 (mixup / cutmix) and det
-   1x800^2 (18 GT boxes padded to 100, 5 CDN groups: 200 DN + 600 matching
-   queries) interleaved under the per-task masks, drop path 0.2; losses and
-   grad norms are checked finite, the masked modules bit-identical, kernel
-   launches counted per step; median step time (CUDA events around the
-   whole step, host matcher included), the host matcher's time and peak
-   memory reported.
+10. training: the flagship trains cls 16x224^2 (mixup / cutmix) and det
+    1x800^2 (18 GT boxes padded to 100, 5 CDN groups: 200 DN + 600 matching
+    queries) interleaved under the per-task masks, drop path 0.2; losses
+    and grad norms are checked finite, the masked modules bit-identical,
+    kernel launches counted per step; median step time (CUDA events around
+    the whole step, host matcher included), the host matcher's time and
+    peak memory reported.
 
-The line before the last is {"kernels": [...]}; the last line is
-{"ok": true, "device": {...}}. Without a CUDA device the script exits 1
-before printing any result.
+The line before the last is {"kernels": [...]} (eight kernels); the last
+line is {"ok": true, "device": {...}}. Without a CUDA device the script
+exits 1 before printing any result.
 """
 
 from __future__ import annotations
@@ -78,13 +92,17 @@ SLICE_TOL = 1e-4
 TRAIN_RTOL, TRAIN_ATOL = 2e-3, 2e-4
 PARAM_ATOL, PARAM_RTOL, PARAM_FRAC, PARAM_MAX = 2e-4, 5e-3, 1e-3, 8e-4
 
-# flagship shapes: det 800^2 encoder levels (strides 8..64) and Swin stages
+# flagship shapes: det 800^2 and seg 512^2 encoder levels (strides 8..64)
+# and Swin stages (maps padded to a multiple of the 7-wide window)
 DET_SHAPES = ((100, 100), (50, 50), (25, 25), (13, 13))
+SEG_SHAPES = ((64, 64), (32, 32), (16, 16), (8, 8))
 K2_SHAPES = {  # name: (B, nW, H, shifted)
     "det800.s0": (1, 841, 3, True), "det800.s1": (1, 225, 6, True),
     "det800.s2": (1, 64, 12, True), "det800.s3": (1, 16, 24, True),
     "cls224.s0": (16, 64, 3, True), "cls224.s1": (16, 16, 6, True),
     "cls224.s2": (16, 4, 12, True), "cls224.s3": (16, 1, 24, False),
+    "seg512.s0": (4, 361, 3, True), "seg512.s1": (4, 100, 6, True),
+    "seg512.s2": (4, 25, 12, True), "seg512.s3": (4, 9, 24, True),
 }
 
 
@@ -160,11 +178,15 @@ def kernel_phase():
     times = {}
     log("kernel phase: K1 msda_fwd vs ms_deform_attn_torch")
     Nv = sum(h * w for h, w in DET_SHAPES)
+    seg_nv = sum(h * w for h, w in SEG_SHAPES)
     for dtype in (torch.float32, torch.bfloat16):
-        for name, B, Q in (("det-encoder B=1", 1, Nv),
-                           ("decoder B=1 Q=600", 1, 600),
-                           ("det-encoder B=4", 4, Nv)):
-            v, shapes, loc, w = msda_inputs(B, Q, dtype, g)
+        for name, B, Q, lvls in (
+                ("det-encoder B=1", 1, Nv, DET_SHAPES),
+                ("decoder B=1 Q=600", 1, 600, DET_SHAPES),
+                ("det-encoder B=4", 4, Nv, DET_SHAPES),
+                ("seg-encoder B=1", 1, seg_nv, SEG_SHAPES),
+                ("seg-encoder B=4", 4, seg_nv, SEG_SHAPES)):
+            v, shapes, loc, w = msda_inputs(B, Q, dtype, g, shapes=lvls)
             got = ms_deform_attn(v, shapes, loc, w)
             torch.cuda.synchronize()
             ref = ms_deform_attn_torch(v.float(), shapes, loc, w.float())
@@ -191,7 +213,7 @@ def kernel_phase():
                 err["K2"][dtype == torch.bfloat16] = max(
                     err["K2"][dtype == torch.bfloat16], e)
                 if dtype == torch.bfloat16 and masked == shifted and \
-                        name in ("det800.s0", "cls224.s0"):
+                        name in ("det800.s0", "cls224.s0", "seg512.s0"):
                     times[f"K2 {name}"] = (
                         cuda_ms(lambda: window_attention(q, k, v, bias, mask,
                                                          scale), 50),
@@ -203,6 +225,168 @@ def kernel_phase():
     return err, times
 
 
+def quad_phase():
+    """K4 / K5 and the quad-gather MSDA at the det encoder: the main path's
+    run (``impl="quad"`` forward + backward, bf16), K4 / K5 against their
+    plain versions, the quad path against the K1 path, times and peak
+    memory."""
+    from rscotr_tpu_torch.ops.ms_deform_attn import ms_deform_attn
+    from rscotr_tpu_torch.ops.msda_ws import (ws_bwd, ws_bwd_torch, ws_fwd,
+                                              ws_fwd_torch)
+    g = torch.Generator(device="cuda").manual_seed(2)
+    Nv = sum(h * w for h, w in DET_SHAPES)
+    G, KP, D = 8, 16, 32
+    log("quad phase: ms_deform_attn(impl=\"quad\") at the det encoder B=1 "
+        "Q=Nv=13294 H=8 L=4 P=4 D=32")
+    # -- the main path's run: one quad forward + backward, bf16 ----------
+    v, shapes, loc, w = msda_inputs(1, Nv, torch.bfloat16, g)
+    leaves = tuple(t.requires_grad_() for t in (v, loc, w))
+    d_out = torch.randn(1, Nv, 8 * D, device="cuda",
+                        generator=g).to(torch.bfloat16)
+    ws_fwd.launches = 0
+    ws_bwd.launches = 0
+    out = ms_deform_attn(v, shapes, loc, w, impl="quad")
+    grads = torch.autograd.grad(out, leaves, d_out)
+    torch.cuda.synchronize()
+    launches = {"K4": ws_fwd.launches, "K5": ws_bwd.launches}
+    log(f"  launches in the main path's run: K4 {launches['K4']}, K5 "
+        f"{launches['K5']} (want 1, 1)")
+    if launches != {"K4": 1, "K5": 1}:
+        fail(f"quad path: kernel launches {launches} != K4 1, K5 1")
+    if not (torch.isfinite(out).all() and
+            all(torch.isfinite(t).all() for t in grads)):
+        fail("quad path: non-finite output or gradient")
+    del out, grads
+
+    log("quad phase: K4 ws_fwd vs ws_fwd_torch, K5 ws_bwd vs ws_bwd_torch "
+        "at g (8, 13294, 16, 128)")
+    err = {"K4": [0.0, 0.0], "K5": [0.0, 0.0]}   # [f32, bf16]
+    times = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        bf = int(dtype == torch.bfloat16)
+        gq = torch.randn(G, Nv, KP, 4 * D, device="cuda",
+                         generator=g).to(dtype)
+        # the quad path hands K4 / K5 its slot weights in value's dtype
+        wt = torch.rand(G, Nv, 4 * KP, device="cuda", generator=g).to(dtype)
+        dq = torch.randn(G, Nv, D, device="cuda", generator=g)
+        got = ws_fwd(gq, wt)
+        torch.cuda.synchronize()
+        err["K4"][bf] = check_close("K4 det-encoder", got,
+                                    ws_fwd_torch(gq, wt), dtype)
+        got = ws_bwd(gq, wt, dq)
+        torch.cuda.synchronize()
+        ref = ws_bwd_torch(gq, wt, dq)
+        # d_g is one f32 product rounded once to g's dtype on both sides
+        if not torch.equal(got[0], ref[0]):
+            fail("K5 d_g differs from its plain version")
+        err["K5"][bf] = check_grads("K5 det-encoder", got, ref,
+                                    ("d_g", "d_wt"), dtype)
+        del got, ref
+        if bf:
+            times["K4"] = (cuda_ms(lambda: ws_fwd(gq, wt), 50),
+                           cuda_ms(lambda: ws_fwd_torch(gq, wt), 10))
+            times["K5"] = (cuda_ms(lambda: ws_bwd(gq, wt, dq), 50),
+                           cuda_ms(lambda: ws_bwd_torch(gq, wt, dq), 10))
+        del gq, wt, dq
+
+    # f32: the two paths sum in other orders (BTOL); bf16: the quad path
+    # rounds its slot weights to bf16 before K4 (as JAX's
+    # _ms_deform_attn_xla) and d_wt back to bf16 after K5, the K1 path keeps
+    # corner weights in f32, and both round the output: two bf16 ulps of the
+    # largest entry
+    log("quad phase: impl=\"quad\" vs impl=\"kernel\" (K1, K1b + K3'), "
+        "forward and torch.autograd.grad")
+    qtol = {torch.float32: BTOL[torch.float32], torch.bfloat16: (2.0 ** -6,
+                                                                 0.0)}
+    for dtype in (torch.float32, torch.bfloat16):
+        v, shapes, loc, w = msda_inputs(1, Nv, dtype, g)
+        leaves = tuple(t.requires_grad_() for t in (v, loc, w))
+        d_out = torch.randn(1, Nv, 8 * D, device="cuda", generator=g).to(dtype)
+        res = {}
+        for impl in ("quad", "kernel"):
+            o = ms_deform_attn(v, shapes, loc, w, impl=impl)
+            res[impl] = (o.detach(),) + torch.autograd.grad(o, leaves, d_out)
+        torch.cuda.synchronize()
+        check_grads("quad vs kernel", res["quad"], res["kernel"],
+                    ("out", "d_value", "d_loc", "d_attn"), dtype,
+                    tol=qtol[dtype])
+        del res
+        if dtype == torch.bfloat16:
+            for impl in ("quad", "kernel"):
+                def fwd():
+                    with torch.no_grad():
+                        ms_deform_attn(v, shapes, loc, w, impl=impl)
+
+                def fwd_bwd():
+                    o = ms_deform_attn(v, shapes, loc, w, impl=impl)
+                    torch.autograd.grad(o, leaves, d_out)
+
+                torch.cuda.synchronize()
+                base = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+                fwd_bwd()
+                torch.cuda.synchronize()
+                peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 20
+                times[f"MSDA {impl}"] = (cuda_ms(fwd, 20),
+                                         cuda_ms(fwd_bwd, 20), peak)
+    for name in ("K4", "K5"):
+        ms, plain = times[name]
+        log(f"  time bf16 {name} det-encoder   kernel {ms:.4f} ms   plain "
+            f"{plain:.4f} ms")
+    for impl in ("quad", "kernel"):
+        fwd, fwd_bwd, peak = times[f"MSDA {impl}"]
+        log(f"  time bf16 MSDA impl={impl:<6} forward {fwd:.4f} ms, forward "
+            f"+ backward {fwd_bwd:.4f} ms; peak {peak:.1f} MiB above the "
+            "inputs")
+    return err, times, launches
+
+
+def k6_phase():
+    """K6 through the probe tool: its parity check, K6 against its plain
+    version at the tool's det-encoder level shapes, then the tool's
+    per-level timing (the main path's run)."""
+    from rscotr_tpu_torch.tools import probe_msda_weighted_gather_mm as probe
+    dev = torch.device("cuda")
+    log("K6 phase: probe_msda_weighted_gather_mm parity check")
+    probe.parity(dev)
+    log("K6 phase: weighted_gather_mm vs weighted_gather_mm_torch at G=8, "
+        "K=53376, C=128, indices in [-2, Nv + 2)")
+    g = torch.Generator(device="cuda").manual_seed(3)
+    err = [0.0, 0.0]                               # [f32, bf16]
+    for h, wd in probe.LEVELS:
+        nv = h * wd
+        for dtype in (torch.float32, torch.bfloat16):
+            table = torch.randn(8, nv, 128, device="cuda",
+                                generator=g).to(dtype)
+            idx = torch.randint(-2, nv + 2, (8, 53376), device="cuda",
+                                generator=g, dtype=torch.int32)
+            w = torch.rand(8, 53376, device="cuda", generator=g)
+            got = probe.weighted_gather_mm(table, idx, w, acc_dtype=dtype)
+            torch.cuda.synchronize()
+            ref = probe.weighted_gather_mm_torch(table, idx, w,
+                                                 acc_dtype=dtype)
+            d = (got - ref).abs()
+            e = d.max().item()
+            log(f"  K6 nv={nv:<6} {str(dtype)[6:]:<8} max_abs_err {e:.3e} "
+                f"(tol {probe.PLAIN_RTOL:g}*|ref|: the same one product)")
+            if (d - probe.PLAIN_RTOL * ref.abs()).max().item() > 0:
+                fail(f"K6 nv={nv}: kernel disagrees with its plain version")
+            err[dtype == torch.bfloat16] = max(err[dtype == torch.bfloat16],
+                                               e)
+    # -- the main path's run: the tool's per-level timing -----------------
+    log("K6 phase: the probe's per-level timing (K6 vs production_level_"
+        "slice, bf16, 20 x 8 chained calls per level)")
+    iters, chain = 20, 8
+    probe.weighted_gather_mm.launches = 0
+    levels = probe.time_levels(dev, iters=iters, chain=chain)
+    launches = probe.weighted_gather_mm.launches
+    want = len(probe.LEVELS) * (iters + 1) * chain
+    log(f"  launches in the main path's run: K6 {launches} (want {want})")
+    if launches != want:
+        fail(f"K6: {launches} launches in the probe's timing, want {want}")
+    return err, levels, launches
+
+
 def tiny_inputs():
     rng = np.random.default_rng(0)
     cls_img = rng.integers(0, 256, (2, 64, 64, 3)).astype(np.uint8)
@@ -211,39 +395,91 @@ def tiny_inputs():
     return cls_img, det_img, hw
 
 
+def tiny_seg_inputs():
+    """A 2 x 64^2 batch (whole mode) and a 1 x 64 x 96 one (slide mode: two
+    64^2 windows at stride 32). Seed 3 keeps every attention-mask logit of
+    the seed-0 tiny model at least 1.7e-3 from the threshold."""
+    rng = np.random.default_rng(3)
+    return (rng.integers(0, 256, (2, 64, 64, 3)).astype(np.uint8),
+            rng.integers(0, 256, (1, 64, 96, 3)).astype(np.uint8))
+
+
+SEG_SLIDE = dict(mode="slide", crop_size=(64, 64), stride=(32, 32))
+
+
+def seg_mask_margin(model, imgs, seg_test_cfg):
+    """The smallest |resized mask logit| entering any attention-mask
+    threshold of the seg head over ``infer["seg"]`` of each image batch (a
+    logit within float error of 0 would flip a mask bit between devices)."""
+    from rscotr_tpu_torch.engine import make_infer_steps
+    from rscotr_tpu_torch.models.heads import mask2former_head as m2f
+    seen = []
+    resize = m2f._interpolate
+
+    def spy(x, hw):
+        out = resize(x, hw)
+        seen.append(out.abs().min().item())
+        return out
+
+    m2f._interpolate = spy
+    try:
+        steps = make_infer_steps(model, seg_test_cfg=seg_test_cfg)
+        for img in imgs:
+            steps["seg"](img)
+    finally:
+        m2f._interpolate = resize
+    return min(seen)
+
+
 def slice_parity_phase():
     from rscotr_tpu_torch.engine import device_normalize, make_infer_steps
     from rscotr_tpu_torch.models import build_model
     from rscotr_tpu_torch.utils.config import load_model_cfg
-    log("slice parity phase: tiny config, CPU (plain) vs CUDA (kernels), "
-        "float32, TF32 off")
+    log("slice parity phase: tiny config (cls, det, seg), CPU (plain) vs "
+        "CUDA (kernels), float32, TF32 off")
     tf32 = (torch.backends.cuda.matmul.allow_tf32,
             torch.backends.cudnn.allow_tf32)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     cfg = load_model_cfg(TINY_CFG)
-    cpu = build_model(cfg, tasks=("cls", "det"), device="cpu",
+    cpu = build_model(cfg, device="cpu",
                       generator=torch.Generator().manual_seed(0))
-    gpu = build_model(cfg, tasks=("cls", "det"), device="cuda")
+    gpu = build_model(cfg, device="cuda")
     gpu.load_state_dict(cpu.state_dict(), strict=True)
     cls_img, det_img, hw = tiny_inputs()
+    seg_whole, seg_slide = tiny_seg_inputs()
+    slide = (seg_slide[:, :, :64], seg_slide[:, :, 32:])
+    margin = min(seg_mask_margin(cpu, (seg_whole,), cfg["test_cfg"]["seg"]),
+                 seg_mask_margin(cpu, slide, None))
+    log(f"  seg: smallest |resized mask logit| at an attention-mask "
+        f"threshold {margin:.3e} (must exceed 10 x {SLICE_TOL:g})")
+    if not margin > 10 * SLICE_TOL:
+        fail("slice parity: a seg attention-mask logit lies within 10x the "
+             "tolerance of the threshold; pick other inputs")
     sf = np.ones((2, 4), np.float32)
     results = {}
     for key, model in (("cpu", cpu), ("cuda", gpu)):
         dev = next(model.parameters()).device
-        steps = make_infer_steps(model, max_per_img=50)
+        steps = make_infer_steps(model, max_per_img=50,
+                                 seg_test_cfg=cfg["test_cfg"]["seg"])
+        slide_steps = make_infer_steps(model, seg_test_cfg=SEG_SLIDE)
         with torch.inference_mode():
             img_hw = torch.as_tensor(hw, device=dev)
             img = device_normalize(torch.as_tensor(det_img, device=dev),
                                    None, img_hw)
             all_cls, all_coords, _, _ = model.forward_det(img, img_hw)
         det, labels = steps["det"](det_img, hw, sf)
-        results[key] = dict(cls=steps["cls"](cls_img), all_cls=all_cls,
-                            all_coords=all_coords, det=det,
-                            labels=labels)
+        results[key] = dict(
+            cls=steps["cls"](cls_img), all_cls=all_cls,
+            all_coords=all_coords, det=det, labels=labels,
+            seg_whole=steps["seg_logits"](seg_whole),
+            seg_slide=slide_steps["seg_logits"](seg_slide),
+            seg_labels=(steps["seg"](seg_whole),
+                        slide_steps["seg"](seg_slide)))
     (torch.backends.cuda.matmul.allow_tf32,
      torch.backends.cudnn.allow_tf32) = tf32
-    for key in ("cls", "all_cls", "all_coords", "det"):
+    for key in ("cls", "all_cls", "all_coords", "det", "seg_whole",
+                "seg_slide"):
         a, b = results["cpu"][key], results["cuda"][key].cpu()
         e = (a - b).abs().max().item()
         tol = SLICE_TOL * (max(hw.max(), 1) if key == "det" else 1)
@@ -254,13 +490,29 @@ def slice_parity_phase():
     if not torch.equal(results["cpu"]["labels"],
                        results["cuda"]["labels"].cpu()):
         fail("slice parity: det labels differ between CPU and CUDA")
+    # seg labels: equal wherever the top two logits are more than 10x the
+    # tolerance apart (elsewhere either label is right)
+    for mode, logits, a, b in (
+            ("whole", results["cpu"]["seg_whole"],
+             *[r["seg_labels"][0].cpu() for r in results.values()]),
+            ("slide", results["cpu"]["seg_slide"],
+             *[r["seg_labels"][1].cpu() for r in results.values()])):
+        top2 = logits.topk(2, -1).values
+        clear = top2[..., 0] - top2[..., 1] > 10 * SLICE_TOL
+        log(f"  seg labels ({mode}) {tuple(a.shape)}: equal on the "
+            f"{clear.float().mean().item():.4f} of pixels whose top two "
+            "logits are more than 10x the tolerance apart")
+        if clear.float().mean() < 0.99 or not torch.equal(a[clear],
+                                                          b[clear]):
+            fail(f"slice parity: seg labels ({mode}) differ between CPU and "
+                 "CUDA")
 
 
-def check_grads(name, gots, refs, names, dtype) -> float:
+def check_grads(name, gots, refs, names, dtype, tol=None) -> float:
     """Hold each gradient against its plain version; one log line per case
     with each gradient's max abs error / max|ref|. Returns the largest
-    max abs error."""
-    atol, rtol = BTOL[dtype]
+    max abs error. ``tol`` (atol scale, rtol) defaults to ``BTOL``."""
+    atol, rtol = tol or BTOL[dtype]
     parts, worst = [], 0.0
     for gname, got, ref in zip(names, gots, refs):
         got, ref = got.float(), ref.float()
@@ -469,17 +721,20 @@ def serving_phase():
     from rscotr_tpu_torch.ops.ms_deform_attn import ms_deform_attn
     from rscotr_tpu_torch.ops.window_attention import window_attention
     from rscotr_tpu_torch.utils.config import load_model_cfg
-    log("serving phase: flagship MTL (cls + det), bf16, random weights "
-        "(seed 0)")
+    log("serving phase: flagship MTL (cls + det + seg), bf16, random "
+        "weights (seed 0)")
     cfg = load_model_cfg(FLAGSHIP_CFG)
     t0 = time.perf_counter()
-    model = build_model(cfg, tasks=("cls", "det"), device="cuda",
+    model = build_model(cfg, device="cuda",
                         generator=torch.Generator().manual_seed(0))
     torch.cuda.synchronize()
     n_params = sum(p.numel() for p in model.parameters())
     log(f"  built {n_params} params on cuda in "
         f"{time.perf_counter() - t0:.2f} s")
-    steps = make_infer_steps(model, max_per_img=300)
+    steps = make_infer_steps(model, max_per_img=300,
+                             seg_test_cfg=cfg["test_cfg"]["seg"])
+    if cfg["test_cfg"]["seg"].get("mode", "whole") != "whole":
+        fail("flagship seg test_cfg: expected whole mode")
     rng = np.random.default_rng(0)
     reqs = {
         "cls 16x224^2": ("cls", (rng.integers(
@@ -491,11 +746,15 @@ def serving_phase():
             rng.integers(0, 256, (4, 800, 800, 3)).astype(np.uint8),
             np.array([[800, 800], [800, 704], [640, 800], [512, 600]],
                      np.int32), np.ones((4, 4), np.float32))),
+        "seg 4x512^2": ("seg", (rng.integers(
+            0, 256, (4, 512, 512, 3)).astype(np.uint8),)),
+        "seg 1x512^2": ("seg", (rng.integers(
+            0, 256, (1, 512, 512, 3)).astype(np.uint8),)),
     }
     # -- the main path's run: one request of each kind, counted -----------
-    # K1: 6 encoder + 6 decoder layers per det forward; K2: 12 Swin blocks
-    # per backbone pass
-    want = {"cls": (0, 12), "det": (12, 12)}
+    # K1: 6 encoder + 6 decoder layers per det forward, 6 encoder layers per
+    # seg forward (the pixel decoder); K2: 12 Swin blocks per backbone pass
+    want = {"cls": (0, 12), "det": (12, 12), "seg": (6, 12)}
     ms_deform_attn.launches = 0
     window_attention.launches = 0
     outs = {}
@@ -536,6 +795,24 @@ def serving_phase():
         log(f"  {name}: det {tuple(det.shape)}, labels {tuple(labels.shape)}"
             f", finite, boxes inside the image, labels in [0, 20), top "
             f"score {score.max().item():.4f}")
+    # scheme 2: one logit channel per query (100), argmaxed over all of them
+    C = cfg["seg_head"]["num_queries"]
+    for name in ("seg 4x512^2", "seg 1x512^2"):
+        labels = outs[name]
+        B = reqs[name][1][0].shape[0]
+        if tuple(labels.shape) != (B, 512, 512) or \
+                labels.dtype != torch.int64 or \
+                not bool(((labels >= 0) & (labels < C)).all()):
+            fail(f"{name}: labels invalid: {tuple(labels.shape)} "
+                 f"{labels.dtype}")
+        log(f"  {name}: labels {tuple(labels.shape)} in [0, {C}), "
+            f"{labels.unique().numel()} distinct")
+    logits = steps["seg_logits"](*reqs["seg 1x512^2"][1])
+    if tuple(logits.shape) != (1, 512, 512, C) or \
+            logits.dtype != torch.float32 or not torch.isfinite(logits).all():
+        fail(f"seg logits invalid: {tuple(logits.shape)} {logits.dtype}")
+    log(f"  seg 1x512^2: logits {tuple(logits.shape)} float32, finite")
+    del logits
 
     # -- latency and memory ----------------------------------------------
     lat = {}
@@ -732,6 +1009,8 @@ def main() -> int:
 
     err, times = kernel_phase()
     berr, btimes = backward_phase()
+    qerr, qtimes, qlaunches = quad_phase()
+    k6err, k6levels, k6launches = k6_phase()
     slice_parity_phase()
     train_parity_phase()
     launches, lat = serving_phase()
@@ -741,14 +1020,19 @@ def main() -> int:
         f"serve {n} {ms:.3f} ms, peak {mb:.0f} MiB"
         for n, (ms, mb) in lat.items()) + "; " + "; ".join(
         f"train {t} {r['median_ms']:.2f} ms, peak {r['peak_mib']:.0f} MiB"
-        for t, r in train.items()))
+        for t, r in train.items()) + "; " + "; ".join(
+        f"MSDA impl={i} fwd+bwd {qtimes[f'MSDA {i}'][1]:.4f} ms"
+        for i in ("quad", "kernel")))
     log(smi)
     k1_ms, k1_plain = times["K1 det-encoder B=1"]
     k2_ms, k2_plain = times["K2 det800.s0"]
     k1b_ms, k1b_plain = btimes["K1b det-encoder B=1"]
     k3_ms, k3_plain = btimes["K3' det-encoder B=1"]
     k2b_ms, k2b_plain = btimes["K2b det800.s0"]
+    k4_ms, k4_plain = qtimes["K4"]
+    k5_ms, k5_plain = qtimes["K5"]
     det_enc = "det encoder B=1 Q=Nv=13294 H=8 L=4 P=4 D=32 bf16"
+    ws_at = "det encoder g (8, 13294, 16, 128) bf16, wt (8, 13294, 64) bf16"
     det_s0 = "det 800^2 stage 0 B=1 nW=841 H=3 n=49 hd=32 shifted bf16"
     print(json.dumps({"kernels": [
         {"name": "msda_fwd", "route": "cuda",
@@ -787,6 +1071,28 @@ def main() -> int:
          "launches": tlaunches["K2b"],
          "max_abs_err": berr["K2b"][0], "max_abs_err_bf16": berr["K2b"][1],
          "ms": k2b_ms, "plain_ms": k2b_plain, "timed_at": det_s0},
+        {"name": "ws_fwd", "route": "cuda",
+         "source": "rscotr_tpu_torch/csrc/msda_ws.cu",
+         "replaces": "rscotr_tpu/ops/pallas/msda_ws.py:110",
+         "launches": qlaunches["K4"],
+         "max_abs_err": qerr["K4"][0], "max_abs_err_bf16": qerr["K4"][1],
+         "ms": k4_ms, "plain_ms": k4_plain, "timed_at": ws_at},
+        {"name": "ws_bwd", "route": "cuda",
+         "source": "rscotr_tpu_torch/csrc/msda_ws.cu",
+         "replaces": "rscotr_tpu/ops/pallas/msda_ws.py:135",
+         "launches": qlaunches["K5"],
+         "max_abs_err": qerr["K5"][0], "max_abs_err_bf16": qerr["K5"][1],
+         "ms": k5_ms, "plain_ms": k5_plain, "timed_at": ws_at},
+        {"name": "weighted_gather", "route": "cuda",
+         "source": "rscotr_tpu_torch/csrc/weighted_gather.cu",
+         "replaces": "tools/probe_msda_weighted_gather_mm.py:103",
+         "launches": k6launches,
+         "max_abs_err": k6err[0], "max_abs_err_bf16": k6err[1],
+         "ms": k6levels[10000]["weighted_mm"],
+         "plain_ms": k6levels[10000]["prod_gather"],
+         "plain": "production_level_slice (gather, then x w in f32)",
+         "levels_ms": k6levels,
+         "timed_at": "G=8 K=53376 Nv=10000 C=128 bf16"},
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

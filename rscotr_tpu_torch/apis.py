@@ -53,7 +53,7 @@ def make_step_config(cfg: dict) -> TrainStepConfig:
         if wanted:
             raise NotImplementedError(
                 f"loader options {wanted}: on-device augmentation is not "
-                "ported to rscotr_tpu_torch yet (ROADMAP P5)")
+                "ported to rscotr_tpu_torch yet (ROADMAP P4)")
     tw = dict(model_cfg.get("task_weight", {"cls": 1, "det": 1, "seg": 1}))
     cdn_cfg = det_cfg = None
     if model_cfg.get("bbox_head"):

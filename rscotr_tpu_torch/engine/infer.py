@@ -1,5 +1,6 @@
 """Per-task inference steps (PyTorch counterpart of
-rscotr_tpu/engine/train_step.py::make_infer_steps and device_normalize).
+rscotr_tpu/engine/train_step.py::make_infer_steps, _slide_origins and
+device_normalize).
 
 The steps take the JAX steps' arguments minus ``params`` (an ``nn.Module``
 carries its weights), move numpy or tensor inputs to the model's device and
@@ -13,6 +14,7 @@ from typing import Optional
 import torch
 
 from rscotr_tpu_torch.models.heads.dino_loss import dino_get_bboxes
+from rscotr_tpu_torch.models.heads.pixel_decoders import _resize_bilinear
 
 _DEFAULT_NORM = ((123.675, 116.28, 103.53), (58.395, 57.12, 57.375))
 
@@ -36,11 +38,39 @@ def device_normalize(img: torch.Tensor, img_norm=None,
     return x
 
 
+def _slide_origins(size: int, crop: int, stride: int):
+    """mmseg slide_inference window origins along one axis."""
+    n = max(size - crop + stride - 1, 0) // stride + 1
+    return sorted({min(i * stride, size - crop) for i in range(n)})
+
+
+def upsample_logits(logits: torch.Tensor, hw) -> torch.Tensor:
+    """(B, h, w, C) -> (B, H, W, C) float32, bilinear with half-pixel
+    centres (``F.interpolate(align_corners=False)``). For upsampling this
+    equals the JAX package's ``jax.image.resize(method="linear")``; for
+    downsampling it would not (jax antialiases), so only upsampling is
+    taken."""
+    H, W = int(hw[0]), int(hw[1])
+    if H < logits.shape[1] or W < logits.shape[2]:
+        raise ValueError(f"upsample_logits: {tuple(logits.shape[1:3])} -> "
+                         f"{(H, W)} is not an upsampling")
+    return _resize_bilinear(logits.float(), (H, W))
+
+
 def make_infer_steps(model, max_per_img: int = 300, img_norm=None,
-                     device=None):
+                     device=None, seg_test_cfg=None):
     """{"cls": infer_cls(img) -> probabilities (B, num_classes),
         "det": infer_det(img, img_hw, scale_factor) -> (det_bboxes
-        (B, max_per_img, 5), det_labels (B, max_per_img))}."""
+        (B, max_per_img, 5), det_labels (B, max_per_img)),
+        "seg": infer_seg(img) -> label map (B, H, W) int64,
+        "seg_logits": infer_seg_logits(img) -> f32 logits (B, H, W, C) at
+        the input resolution}.
+
+    ``seg_test_cfg`` is the config's ``model.test_cfg.seg``: ``mode``
+    ``"whole"`` (default) upsamples the logits of the whole image;
+    ``"slide"`` runs overlapping ``crop_size`` windows at ``stride`` (mmseg
+    ``slide_inference``), adds each window's upsampled logits into a canvas
+    and divides by the per-pixel window count before the argmax."""
     device = torch.device(device) if device is not None else \
         next(model.parameters()).device
 
@@ -61,4 +91,39 @@ def make_infer_steps(model, max_per_img: int = 300, img_norm=None,
                                to_dev(scale_factor), max_per_img=max_per_img,
                                rescale=True)
 
-    return {"cls": infer_cls, "det": infer_det}
+    stc = dict(seg_test_cfg or {})
+    if stc.get("mode", "whole") == "slide":
+        hc, wc = (int(v) for v in stc["crop_size"])
+        hs, ws = (int(v) for v in stc["stride"])
+
+        def seg_logits(img):
+            B, H, W, _ = img.shape
+            if H < hc or W < wc:
+                raise ValueError(
+                    f"slide inference needs image >= crop_size; got "
+                    f"({H},{W}) < ({hc},{wc}): pad in the test pipeline")
+            pred = cnt = None
+            for y in _slide_origins(H, hc, hs):
+                for x in _slide_origins(W, wc, ws):
+                    logits = upsample_logits(model.forward_seg(
+                        img[:, y:y + hc, x:x + wc]), (hc, wc))
+                    if pred is None:
+                        pred = logits.new_zeros((B, H, W, logits.shape[-1]))
+                        cnt = logits.new_zeros((H, W))
+                    pred[:, y:y + hc, x:x + wc] += logits
+                    cnt[y:y + hc, x:x + wc] += 1.0
+            return pred / cnt[None, :, :, None]
+    else:
+        def seg_logits(img):
+            return upsample_logits(model.forward_seg(img), img.shape[1:3])
+
+    @torch.inference_mode()
+    def infer_seg_logits(img):
+        return seg_logits(device_normalize(to_dev(img), img_norm))
+
+    @torch.inference_mode()
+    def infer_seg(img):
+        return infer_seg_logits(img).argmax(-1)
+
+    return {"cls": infer_cls, "det": infer_det, "seg": infer_seg,
+            "seg_logits": infer_seg_logits}

@@ -11,9 +11,9 @@ takes an explicit ``torch.Generator`` for everything random in the step
 keeps those draws off the device's critical path. ``log_vars`` holds every
 weighted loss term, their sum ``loss`` and ``grad_norm``, as device scalars.
 
-Ported: the cls and det steps. The seg step (ROADMAP P1), the on-device
-augment branches (ROADMAP P5) and the K-step scanned dispatch (not carried
-over, ROADMAP P5) are not.
+Ported: the cls and det steps. The seg step (ROADMAP P2), the on-device
+augment branches (ROADMAP P4) and the K-step scanned dispatch (not carried
+over, ROADMAP P4) are not.
 """
 
 from __future__ import annotations
@@ -166,7 +166,7 @@ def make_train_step(model, optimizer, task: str, cfg: TrainStepConfig,
     if task == "seg":
         raise NotImplementedError(
             "the seg train step is not ported to rscotr_tpu_torch yet: "
-            "ROADMAP P1 (seg serving and the seg loss)")
+            "ROADMAP P2 (seg training: the seg loss and task mask)")
     if task not in ("cls", "det"):
         raise ValueError(f"unknown task {task!r}")
     weight = float(cfg.task_weight.get(task, 1.0))

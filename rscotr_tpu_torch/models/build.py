@@ -17,15 +17,15 @@ import torch
 from rscotr_tpu_torch.models.backbones.swin import SwinTransformer
 from rscotr_tpu_torch.models.heads.cls_heads import SlvlClsHead
 from rscotr_tpu_torch.models.heads.dino_head import DINOHead
+from rscotr_tpu_torch.models.heads.mask2former_head import Mask2FormerHead
 from rscotr_tpu_torch.models.layers.common import init_weights
 from rscotr_tpu_torch.models.layers.transformer import DeformableEncoder
 from rscotr_tpu_torch.models.mtl import MTL
 from rscotr_tpu_torch.models.necks.channel_mapper import ChannelMapper
 
 _NOT_PORTED = {
-    "ResNet": "P2 (ResNet-50 backbone)",
-    "MlvlClsHead": "P2 (MlvlClsHead)",
-    "Mask2FormerHead": "P1 (seg serving: Mask2FormerHead)",
+    "ResNet": "P3 (ResNet-50 backbone)",
+    "MlvlClsHead": "P3 (MlvlClsHead)",
 }
 _HEAD_KEYS = {"cls": "cls_head", "det": "bbox_head", "seg": "seg_head"}
 
@@ -36,8 +36,8 @@ def _pop_type(cfg: dict):
     if t in _NOT_PORTED:
         raise NotImplementedError(
             f"{t} is not ported to rscotr_tpu_torch yet: ROADMAP "
-            f"{_NOT_PORTED[t]}. Build with tasks=('cls', 'det') to leave "
-            "an unported head out.")
+            f"{_NOT_PORTED[t]}. Leave an unported head out with the "
+            "``tasks`` argument of build_model.")
     return t, cfg
 
 
@@ -142,6 +142,31 @@ def build_bbox_head(cfg: dict, dtype, device):
         dtype=dtype, device=device)
 
 
+def build_seg_head(cfg: dict, dtype, device):
+    t, c = _pop_type(cfg)
+    if t != "Mask2FormerHead":
+        raise KeyError(f"unknown seg head type {t}")
+    td = c.get("transformer_decoder", {})
+    tl = td.get("transformerlayers", {})
+    attn = tl.get("attn_cfgs", {})
+    ffn = tl.get("ffn_cfgs", {})
+    # as in rscotr_tpu: the seg head runs no dropout, whatever the config
+    return Mask2FormerHead(
+        in_channels=tuple(c.get("in_channels", (96, 192, 384, 768))),
+        feat_channels=c.get("feat_channels", 256),
+        out_channels=c.get("out_channels", 256),
+        num_classes=c.get("num_classes", 5),
+        num_queries=c.get("num_queries", 100),
+        num_transformer_feat_level=c.get("num_transformer_feat_level", 4),
+        scheme=c.get("scheme", 1),
+        num_heads=attn.get("num_heads", 8),
+        num_decoder_layers=td.get("num_layers", 9),
+        feedforward_channels=ffn.get("feedforward_channels", 2048),
+        pos_temperature=c.get("positional_encoding", {}).get(
+            "temperature", 10000),
+        dtype=dtype, device=device)
+
+
 def build_model(cfg: dict, tasks: Optional[Sequence[str]] = None,
                 device="cpu", generator: Optional[torch.Generator] = None):
     """Build the MTL model from a reference-shaped model config, in eval
@@ -156,16 +181,13 @@ def build_model(cfg: dict, tasks: Optional[Sequence[str]] = None,
     t = cfg.get("type", "MTL")
     if t != "MTL":
         raise NotImplementedError(
-            f"model type {t} is not ported to rscotr_tpu_torch (MTL only)")
+            f"model type {t} is not ported to rscotr_tpu_torch (MTL only; "
+            "the standalone RSCoTrSeg segmentor is ROADMAP P3)")
     if tasks is None:
         tasks = tuple(k for k, key in _HEAD_KEYS.items() if cfg.get(key))
     unknown = set(tasks) - set(_HEAD_KEYS)
     if unknown:
         raise ValueError(f"unknown tasks {sorted(unknown)}")
-    if "seg" in tasks:
-        raise NotImplementedError(
-            "the seg task is not ported to rscotr_tpu_torch yet: ROADMAP P1 "
-            "(seg serving). Build with tasks=('cls', 'det').")
     dtype = {None: torch.float32, "float32": torch.float32,
              "bfloat16": torch.bfloat16}[cfg.get("compute_dtype")]
     device = torch.device(device)
@@ -179,6 +201,8 @@ def build_model(cfg: dict, tasks: Optional[Sequence[str]] = None,
                   if "cls" in tasks else None),
         bbox_head=(build_bbox_head(cfg["bbox_head"], dtype, device)
                    if "det" in tasks else None),
+        seg_head=(build_seg_head(cfg["seg_head"], dtype, device)
+                  if "seg" in tasks else None),
         neck_in_levels=len(neck_cfg["in_channels"]) if neck_cfg else 0)
     if device.type != "meta":
         init_weights(model, generator if generator is not None

@@ -1,6 +1,6 @@
 """Classification heads (PyTorch counterpart of
 rscotr_tpu/models/heads/cls_heads.py). Only ``SlvlClsHead`` is ported;
-``MlvlClsHead`` is ROADMAP P2."""
+``MlvlClsHead`` is ROADMAP P3."""
 
 from __future__ import annotations
 

@@ -22,8 +22,9 @@ from typing import Callable, Optional, Sequence
 import torch
 from torch import nn
 
-from rscotr_tpu_torch.models.layers.common import (LayerNorm, Linear, Mlp,
-                                                   constant_, normal_)
+from rscotr_tpu_torch.models.layers.common import (Embedding, LayerNorm,
+                                                   Linear, Mlp, constant_,
+                                                   normal_)
 from rscotr_tpu_torch.models.layers.transformer import DinoDecoderLayer
 from rscotr_tpu_torch.ops.box_ops import inverse_sigmoid
 from rscotr_tpu_torch.ops.point_generator import encoder_reference_points
@@ -49,17 +50,6 @@ def mlvl_masks_and_ratios(spatial_shapes, strides, img_hw):
         ratios.append(torch.stack([valid_x.float().sum(1) / w,
                                    valid_y.float().sum(1) / h], -1))
     return masks, torch.stack(ratios, dim=1)
-
-
-class Embedding(nn.Module):
-    """A ``weight`` table initialised N(0, 1) (flax normal(1.0))."""
-
-    def __init__(self, num: int, dim: int, device=None):
-        super().__init__()
-        self.weight = nn.Parameter(torch.empty(num, dim, device=device))
-
-    def _init_params(self, g):
-        normal_(self.weight, 1.0, g)
 
 
 class DinoTransformerDecoder(nn.Module):

@@ -4,11 +4,12 @@ rscotr_tpu/models/layers/attention.py).
 Explicit matmuls + softmax over parameters laid out as mmcv's
 ``MultiheadAttention`` wrapper of ``torch.nn.MultiheadAttention``: keys
 ``attn.in_proj_weight`` (rows [q; k; v]), ``attn.in_proj_bias`` and
-``attn.out_proj``. Batch-first (B, N, C); self-attention only (the DINO
-decoder's; cross-attention comes with the seg head, ROADMAP P1). Masks
-follow torch: ``attn_mask`` bool (N, N) or (B*heads, N, N), True = not
-allowed; ``key_padding_mask`` bool (B, N), True = padded. An all-masked row
-falls back to uniform attention, as in the JAX module.
+``attn.out_proj``. Batch-first (B, N, C). Self-attention (the DINO
+decoder's, the Mask2Former decoder's) and cross-attention (the Mask2Former
+decoder's, ``key`` / ``value`` / ``key_pos``). Masks follow torch:
+``attn_mask`` bool (Nq, Nk) or (B*heads, Nq, Nk), True = not allowed;
+``key_padding_mask`` bool (B, Nk), True = padded. An all-masked row falls
+back to uniform attention, as in the JAX module.
 """
 
 from __future__ import annotations
@@ -54,24 +55,38 @@ class MultiheadAttention(nn.Module):
         b = self.attn.in_proj_bias[i * C:(i + 1) * C].to(dt)
         return F.linear(x.to(dt), w, b)
 
-    def forward(self, query, query_pos=None, attn_mask=None,
+    def forward(self, query, key=None, value=None, identity=None,
+                query_pos=None, key_pos=None, attn_mask=None,
                 key_padding_mask=None):
-        """Self-attention of ``query`` (B, N, C); ``query_pos`` is added to
-        the queries and keys, not the values."""
+        """Attention of ``query`` (B, Nq, C) over ``key`` (B, Nk, C; default
+        ``query``). ``query_pos`` is added to the queries, ``key_pos`` to
+        the keys (default ``query_pos`` when the key is the query); the
+        value projection reads ``value`` (default ``key``) without its pos.
+        Returns ``identity`` (default ``query``) + the output projection."""
+        if key is None:
+            key = query
+        if value is None:
+            value = key
+        if identity is None:
+            identity = query
+        if key_pos is None and key is query:
+            key_pos = query_pos
         q = query + query_pos if query_pos is not None else query
-        B, N, C = q.shape
+        k = key + key_pos if key_pos is not None else key
+        B, Nq, C = q.shape
+        Nk = k.shape[1]
         H = self.num_heads
         hd = C // H
-        qp = self._proj(q, 0).reshape(B, N, H, hd).transpose(1, 2)
-        kp = self._proj(q, 1).reshape(B, N, H, hd).transpose(1, 2)
-        vp = self._proj(query, 2).reshape(B, N, H, hd).transpose(1, 2)
+        qp = self._proj(q, 0).reshape(B, Nq, H, hd).transpose(1, 2)
+        kp = self._proj(k, 1).reshape(B, Nk, H, hd).transpose(1, 2)
+        vp = self._proj(value, 2).reshape(B, Nk, H, hd).transpose(1, 2)
 
         logits = torch.matmul(qp, kp.transpose(-1, -2)) / torch.sqrt(
             torch.tensor(float(hd), dtype=qp.dtype, device=qp.device))
         if attn_mask is not None or key_padding_mask is not None:
             if attn_mask is not None:
                 m = (attn_mask[None, None] if attn_mask.dim() == 2
-                     else attn_mask.reshape(B, H, N, N))
+                     else attn_mask.reshape(B, H, Nq, Nk))
                 logits = logits.masked_fill(m, NEG_INF)
             if key_padding_mask is not None:
                 logits = logits.masked_fill(
@@ -79,5 +94,5 @@ class MultiheadAttention(nn.Module):
             all_masked = (logits <= NEG_INF / 2).all(-1, keepdim=True)
             logits = logits.masked_fill(all_masked, 0.0)
         attn = torch.softmax(logits, dim=-1)
-        out = torch.matmul(attn, vp).transpose(1, 2).reshape(B, N, C)
-        return query + self.attn.out_proj(out)
+        out = torch.matmul(attn, vp).transpose(1, 2).reshape(B, Nq, C)
+        return identity + self.attn.out_proj(out)

@@ -215,6 +215,17 @@ class Dropout(nn.Module):
         return x * _keep_mask(x.shape, keep, generator, x) / keep
 
 
+class Embedding(nn.Module):
+    """A ``weight`` table initialised N(0, 1) (flax normal(1.0))."""
+
+    def __init__(self, num: int, dim: int, device=None):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(num, dim, device=device))
+
+    def _init_params(self, g):
+        normal_(self.weight, 1.0, g)
+
+
 class Mlp(nn.Module):
     """build_MLP: Linear-ReLU x (num_layers - 1) -> Linear."""
 

@@ -6,7 +6,9 @@ layout: ``attentions.{i}``, ``ffns.0``, ``norms.{i}``.
   encoder).
 * DinoDecoderLayer: self-attn (MHA) -> norm -> MSDA cross-attn -> norm ->
   FFN -> norm.
-The Mask2Former masked-attention layer comes with the seg head (ROADMAP P1).
+* MaskedAttentionDecoderLayer: cross-attn (MHA over the pixel features,
+  masked) -> norm -> self-attn (MHA) -> norm -> FFN -> norm (the
+  Mask2Former decoder).
 """
 
 from __future__ import annotations
@@ -90,6 +92,32 @@ class DinoDecoderLayer(nn.Module):
                                key_padding_mask=key_padding_mask,
                                reference_points=reference_points,
                                spatial_shapes=spatial_shapes)
+        x = self.norms[1](x)
+        x = self.ffns[0](x)
+        return self.norms[2](x)
+
+
+class MaskedAttentionDecoderLayer(nn.Module):
+    """Mask2Former decoder layer: ``attentions.0`` is the cross-attention,
+    ``attentions.1`` the self-attention."""
+
+    def __init__(self, embed_dims=256, num_heads=8, feedforward_channels=2048,
+                 dtype=torch.float32, device=None):
+        super().__init__()
+        self.attentions = nn.ModuleList(
+            MultiheadAttention(embed_dims, num_heads, dtype=dtype,
+                               device=device) for _ in range(2))
+        self.ffns = nn.ModuleList([FFN(embed_dims, feedforward_channels,
+                                       dtype=dtype, device=device)])
+        self.norms = nn.ModuleList([LayerNorm(embed_dims, device=device)
+                                    for _ in range(3)])
+
+    def forward(self, x, memory, query_pos, key_pos, cross_attn_mask=None):
+        x = self.attentions[0](query=x, key=memory, value=memory,
+                               query_pos=query_pos, key_pos=key_pos,
+                               attn_mask=cross_attn_mask)
+        x = self.norms[0](x)
+        x = self.attentions[1](query=x, query_pos=query_pos)
         x = self.norms[1](x)
         x = self.ffns[0](x)
         return self.norms[2](x)

@@ -1,10 +1,10 @@
-"""MTL — the multi-task model, its cls and det tasks (PyTorch counterpart
-of rscotr_tpu/models/mtl.py).
+"""MTL — the multi-task model and its cls, det and seg tasks (PyTorch
+counterpart of rscotr_tpu/models/mtl.py).
 
 Shared backbone -> ChannelMapper neck over the last ``neck_in_levels``
-backbone levels -> shared deformable encoder, passed to the det head as
-``encode_fn`` (one module, so its parameters appear once). Task outputs are
-cast to float32 at the model boundary (``outputs_f32``). JAX's
+backbone levels -> shared deformable encoder, passed to the det and seg
+heads as ``encode_fn`` (one module, so its parameters appear once). Task
+outputs are cast to float32 at the model boundary (``outputs_f32``). JAX's
 ``deterministic`` flag is the module mode: ``model.train()`` turns on drop
 path and dropout, which draw from the ``generator`` given to the forward.
 """
@@ -31,6 +31,7 @@ class MTL(nn.Module):
                  shared_encoder: nn.Module,
                  cls_head: Optional[nn.Module] = None,
                  bbox_head: Optional[nn.Module] = None,
+                 seg_head: Optional[nn.Module] = None,
                  neck_in_levels: int = 3):
         super().__init__()
         self.backbone = backbone
@@ -38,6 +39,7 @@ class MTL(nn.Module):
         self.shared_encoder = shared_encoder
         self.cls_head = cls_head
         self.bbox_head = bbox_head
+        self.seg_head = seg_head
         self.neck_in_levels = neck_in_levels
 
     def extract_feat(self, img, generator=None):
@@ -63,3 +65,11 @@ class MTL(nn.Module):
             nk, img_hw, encode_fn=self.shared_encoder,
             dn_label_query=dn_label_query, dn_bbox_query=dn_bbox_query,
             attn_mask=attn_mask))
+
+    def forward_seg(self, img, generator: Optional[torch.Generator] = None):
+        """-> seg logits (B, H/8, W/8, channels), see
+        ``Mask2FormerHead.forward``; the head reads the neck levels and the
+        backbone maps."""
+        nk, bb = self.extract_feat(img, generator)
+        return outputs_f32(self.seg_head(nk, bb,
+                                         encode_fn=self.shared_encoder))

@@ -32,6 +32,7 @@ DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 
 
 @dataclasses.dataclass(frozen=True)
@@ -118,6 +119,13 @@ def load() -> ctypes.CDLL:
             _P, _P, _P, _I, ctypes.POINTER(ctypes.c_longlong), _P, _P, _P,
             _P, _P, _P, _P, _I, _I, _I, _I, _I, ctypes.c_float, _P]
         lib.window_attn_bwd.restype = _I
+        lib.ws_fwd.argtypes = [_P, _P, _I, _P, _L, _I, _I, _P]
+        lib.ws_fwd.restype = _I
+        lib.ws_bwd.argtypes = [_P, _P, _I, _P, _P, _P, _L, _I, _I, _P]
+        lib.ws_bwd.restype = _I
+        lib.weighted_gather.argtypes = [_P, _I, _P, _P, _I, _I, _P, _I, _I,
+                                        _I, _I, _P]
+        lib.weighted_gather.restype = _I
         _LIB = lib
     return _LIB
 

@@ -1,5 +1,5 @@
 """Multi-scale deformable attention sampling core (PyTorch + CUDA kernels
-K1, K1b and K3').
+K1, K1b and K3'; K4 / K5 and K3' on the quad-gather path).
 
 Counterpart of rscotr_tpu/ops/ms_deform_attn.py. Sampling semantics match
 ``F.grid_sample(align_corners=False, padding_mode="zeros")`` on per-level
@@ -21,6 +21,13 @@ tensors the forward is the plain ``ms_deform_attn_torch`` and the backward
 the plain decomposition ``ms_deform_attn_bwd_torch`` (``msda_bwd_rows_torch``,
 ``scatter_add_mm_torch``, the fold); any other device raises.
 
+``impl="quad"`` runs the quad-gather formulation instead, the counterpart
+of the JAX package's ``_ms_deform_attn_xla`` (its ``impl="xla"``): a quad
+table of each level's 2x2 neighbourhoods, one row gather per sampling
+point (backward K3' and the fold), and the corner-weighted sum of
+``ops/msda_ws.py`` (K4 forward, K5 backward). The model's layers call the
+default, as JAX's pass no ``impl``.
+
 Gradient semantics are JAX autodiff's: ``floor`` has zero gradient, the
 corner validity factors are constants, and the gradients come back in the
 primal dtypes.
@@ -35,6 +42,7 @@ import torch
 import torch.nn.functional as F
 
 from rscotr_tpu_torch.ops import kernel_lib
+from rscotr_tpu_torch.ops.msda_ws import corner_weighted_sum
 from rscotr_tpu_torch.ops.scatter_mm import (scatter_add_mm,
                                              scatter_add_mm_torch)
 
@@ -63,7 +71,8 @@ class _MsDeformAttn(torch.autograd.Function):
 def ms_deform_attn(value: torch.Tensor,
                    spatial_shapes: Sequence[Tuple[int, int]],
                    sampling_locations: torch.Tensor,
-                   attention_weights: torch.Tensor) -> torch.Tensor:
+                   attention_weights: torch.Tensor,
+                   impl: str = "kernel") -> torch.Tensor:
     """Multi-scale deformable attention aggregation (differentiable in
     value, sampling_locations and attention_weights).
 
@@ -74,13 +83,23 @@ def ms_deform_attn(value: torch.Tensor,
             num_points, 2) in [0, 1] per level, (x, y) order; float32.
         attention_weights: (B, num_query, num_heads, num_levels, num_points),
             softmax-normalized over (levels * points).
+        impl: ``"kernel"`` (default; the fused K1 forward, K1b + K3'
+            backward: JAX ``impl="pallas"``) or ``"quad"`` (the quad-gather
+            formulation, ``_ms_deform_attn_quad``: JAX ``impl="xla"``).
     Returns:
         (B, num_query, num_heads * head_dim) in value's dtype.
     """
     if value.device.type not in ("cpu", "cuda"):
         raise ValueError(f"ms_deform_attn: no path for device {value.device}")
+    shapes = _shapes(spatial_shapes)
+    if impl == "quad":
+        return _ms_deform_attn_quad(value, shapes, sampling_locations,
+                                    attention_weights)
+    if impl != "kernel":
+        raise ValueError(f"ms_deform_attn: unknown impl {impl!r} "
+                         "('kernel' or 'quad')")
     return _MsDeformAttn.apply(value, sampling_locations, attention_weights,
-                               _shapes(spatial_shapes))
+                               shapes)
 
 
 ms_deform_attn.launches = 0
@@ -287,6 +306,109 @@ def msda_bwd_rows_torch(value, spatial_shapes, sampling_locations,
         B * H, Q * L * P).int()
     return (d_g, gidx, d_loc.to(sampling_locations.dtype),
             d_attn.to(attention_weights.dtype))
+
+
+def _quad_table(value, shapes):
+    """(B, Nv, H, D) -> (B*H, Nv, 4*D): row (y*W + x) of each level holds
+    the 2x2 neighbourhood [v(y,x), v(y,x+1), v(y+1,x), v(y+1,x+1)], zeros
+    past the map's edge (pad + four shifted slices concatenated)."""
+    B, _, H, D = value.shape
+    vh = value.permute(0, 2, 1, 3)                        # (B, H, Nv, D)
+    quads, off = [], 0
+    for h, w in shapes:
+        vp = F.pad(vh[:, :, off:off + h * w].reshape(B, H, h, w, D),
+                   (0, 0, 0, 1, 0, 1))
+        quads.append(torch.cat([vp[:, :, :h, :w], vp[:, :, :h, 1:],
+                                vp[:, :, 1:, :w], vp[:, :, 1:, 1:]],
+                               -1).reshape(B * H, h * w, 4 * D))
+        off += h * w
+    return torch.cat(quads, 1)
+
+
+class _QuadGather(torch.autograd.Function):
+    """One quad-table row per sampling point. Forward: the quad table and a
+    plain row gather (JAX gathers with XLA, outside any Pallas kernel).
+    Backward: K3' (``scatter_add_mm``) scatters the row gradients into the
+    quad-table gradient in float32, and ``_fold_quad_grad`` folds it back
+    to d_value, as JAX's ``_quad_gather_bwd`` plus the transpose of the
+    table build."""
+
+    @staticmethod
+    def forward(ctx, value, gidx, shapes):
+        B, Nv, H, D = value.shape
+        ctx.meta = (shapes, B, Nv, H, D, value.dtype)
+        ctx.save_for_backward(gidx)
+        qt = _quad_table(value, shapes).reshape(B * H * Nv, 4 * D)
+        base = torch.arange(B * H, device=gidx.device)[:, None] * Nv
+        return qt.index_select(0, (gidx.long() + base).reshape(-1))
+
+    @staticmethod
+    def backward(ctx, d_g):
+        gidx, = ctx.saved_tensors
+        shapes, B, Nv, H, D, dtype = ctx.meta
+        d_qt = scatter_add_mm(d_g.reshape(B * H, -1, 4 * D).contiguous(),
+                              gidx, Nv)
+        return _fold_quad_grad(d_qt, shapes, B, H, D, dtype), None, None
+
+
+def _ms_deform_attn_quad(value, shapes, sampling_locations,
+                         attention_weights):
+    """Quad-gather formulation, the counterpart of JAX's
+    ``_ms_deform_attn_xla``: the clamped start row of each sampling point's
+    2x2 neighbourhood, its four corner weights routed to quad slots by the
+    same one-hot contraction (so autograd gives JAX's gradients: ``floor``
+    has zero gradient, the validity factors are constants), ONE row gather
+    per point (``_QuadGather``), then ``corner_weighted_sum`` (K4 / K5)."""
+    B, Nv, Hn, D = value.shape
+    _, Q, _, L, P, _ = sampling_locations.shape
+    if Nv != sum(h * w for h, w in shapes) or len(shapes) != L:
+        raise ValueError(f"ms_deform_attn: value rows {Nv} / levels {L} do "
+                         f"not match spatial_shapes {shapes}")
+    dev = value.device
+    Hs = torch.tensor([h for h, _ in shapes], dtype=torch.float32,
+                      device=dev)[:, None]
+    Ws = torch.tensor([w for _, w in shapes], dtype=torch.float32,
+                      device=dev)[:, None]
+    starts = torch.tensor([sum(h * w for h, w in shapes[:i])
+                           for i in range(L)], device=dev)[:, None]
+    Hi, Wi = Hs.long(), Ws.long()
+    x = sampling_locations[..., 0] * Ws - 0.5             # (B, Q, H, L, P)
+    y = sampling_locations[..., 1] * Hs - 0.5
+    x0, y0 = torch.floor(x), torch.floor(y)
+    fx, fy = x - x0, y - y0
+    x0i, y0i = x0.long(), y0.long()
+    xl = torch.minimum(x0i.clamp(min=0), Wi - 1)
+    yl = torch.minimum(y0i.clamp(min=0), Hi - 1)
+    idx = yl * Wi + xl + starts                           # level-local rows
+
+    aw = attention_weights.float()
+    vy0 = ((y0i >= 0) & (y0i < Hi)).float()
+    vy1 = ((y0i + 1 >= 0) & (y0i + 1 < Hi)).float()
+    vx0 = ((x0i >= 0) & (x0i < Wi)).float()
+    vx1 = ((x0i + 1 >= 0) & (x0i + 1 < Wi)).float()
+    wy = torch.stack([(1.0 - fy) * vy0, fy * vy1], -1)
+    wx = torch.stack([(1.0 - fx) * vx0, fx * vx1], -1)
+    # corner axis m = 2*dy + dx; slot of corner m = 2*(dy+sy) + (dx+sx)
+    wxy = (wy[..., :, None] * wx[..., None, :]).reshape(
+        aw.shape + (4,)) * aw[..., None]                  # (B,Q,H,L,P,4)
+    dy_m = torch.tensor([0, 0, 1, 1], device=dev)
+    dx_m = torch.tensor([0, 1, 0, 1], device=dev)
+    slot = 2 * ((y0i - yl)[..., None] + dy_m) + ((x0i - xl)[..., None] + dx_m)
+    # an off-map slot (outside [0, 4)) gets a zero one-hot row, as jax's.
+    # The contraction is a broadcast multiply and a sum, not an einsum: on
+    # the card einsum lowers it to batched 4x4 gemvs (2.2 ms at the det
+    # encoder against ~0.1 ms); each corner has at most one slot, so both
+    # give the same bits.
+    onehot = (slot[..., None] == torch.arange(4, device=dev)).float()
+    wslot = (onehot * wxy[..., None]).sum(-2)
+
+    KP = L * P
+    gidx = idx.permute(0, 2, 1, 3, 4).reshape(B * Hn, Q * KP).int()
+    g = _QuadGather.apply(value, gidx.contiguous(), shapes)
+    g = g.reshape(B, Hn, Q, KP, 4 * D)
+    wt = wslot.reshape(B, Q, Hn, KP, 4).permute(0, 2, 1, 3, 4).to(value.dtype)
+    out = corner_weighted_sum(g, wt)                      # (B, H, Q, D) f32
+    return out.permute(0, 2, 1, 3).reshape(B, Q, Hn * D).to(value.dtype)
 
 
 def ms_deform_attn_torch(value: torch.Tensor,

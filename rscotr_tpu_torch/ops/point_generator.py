@@ -1,11 +1,25 @@
-"""Deformable-DETR encoder reference points (PyTorch counterpart of
-rscotr_tpu/ops/point_generator.py::encoder_reference_points)."""
+"""Reference point grids (PyTorch counterpart of
+rscotr_tpu/ops/point_generator.py: ``single_level_grid_points`` for the
+pixel decoders, ``encoder_reference_points`` for the det path)."""
 
 from __future__ import annotations
 
 from typing import Sequence, Tuple
 
 import torch
+
+
+def single_level_grid_points(h: int, w: int, stride: int,
+                             offset: float = 0.5,
+                             device=None) -> torch.Tensor:
+    """(h*w, 2) un-normalized (x, y) points at pixel centres * stride,
+    row-major."""
+    xs = (torch.arange(w, dtype=torch.float32, device=device) + offset) * \
+        stride
+    ys = (torch.arange(h, dtype=torch.float32, device=device) + offset) * \
+        stride
+    gy, gx = torch.meshgrid(ys, xs, indexing="ij")
+    return torch.stack([gx.reshape(-1), gy.reshape(-1)], dim=-1)
 
 
 def encoder_reference_points(spatial_shapes: Sequence[Tuple[int, int]],

@@ -6,8 +6,8 @@ the port's own, so ``MTL.load_state_dict(..., strict=True)`` takes it as it
 is (and so will the reference's published ``.pth`` files). The mapping is
 the one of rscotr_tpu/utils/torch_convert.py::reverse_mtl_checkpoint
 (reverse_swin_mm, reverse_channel_mapper, reverse_deformable_encoder,
-reverse_cls_head, reverse_dino_head), written out again here because
-importing that package pulls in jax:
+reverse_cls_head, reverse_dino_head, reverse_mask2former_head), written out
+again here because importing that package pulls in jax:
 
 * flax Dense kernel (in, out) -> Linear weight (out, in); Conv kernel
   (kh, kw, I, O) -> (O, I, kh, kw); norm scale/bias -> weight/bias.
@@ -15,7 +15,10 @@ importing that package pulls in jax:
 * Swin PatchMerging: the JAX block order [x00; x10; x01; x11] -> mmdet's
   unfold order on ``reduction`` columns and the ``norm`` (inverse of
   ``_unfold_perm``).
-The seg head is not ported (ROADMAP P1): a ``seg_head`` subtree is skipped.
+* Mask2Former: ``decoder_layers_{i}`` cross / self attention ->
+  ``attentions.0`` / ``.1``; ``mask_embed`` layers -> ``mask_embed.{0,2,4}``;
+  the pixel decoder's FPN level ``lvl`` -> ``lateral_convs`` /
+  ``output_convs`` index ``num_fpn - 1 - lvl``.
 """
 
 from __future__ import annotations
@@ -141,7 +144,7 @@ def _encoder(tree, prefix="shared_encoder.") -> Dict[str, np.ndarray]:
 def _cls_head(tree, prefix="cls_head.") -> Dict[str, np.ndarray]:
     if set(tree) != {"fc"}:
         raise NotImplementedError(
-            "only SlvlClsHead is ported (MlvlClsHead: ROADMAP P2)")
+            "only SlvlClsHead is ported (MlvlClsHead: ROADMAP P3)")
     out: Dict[str, np.ndarray] = {}
     _dense(out, f"{prefix}fc", tree["fc"])
     return out
@@ -184,9 +187,57 @@ def _dino_head(tree, prefix="bbox_head.") -> Dict[str, np.ndarray]:
     return out
 
 
+def _mask2former_head(tree, prefix="seg_head.") -> Dict[str, np.ndarray]:
+    out: Dict[str, np.ndarray] = {}
+    for name in ("query_embed", "query_feat", "level_embed"):
+        out[f"{prefix}{name}.weight"] = np.asarray(tree[name])
+    for j, seq in enumerate((0, 2, 4)):
+        _dense(out, f"{prefix}mask_embed.{seq}",
+               tree["mask_embed"][f"layers_{j}"])
+    if "cls_embed" in tree:
+        _dense(out, f"{prefix}cls_embed", tree["cls_embed"])
+    dec = f"{prefix}transformer_decoder"
+    _ln(out, f"{dec}.post_norm", tree["post_norm"])
+    i = 0
+    while f"decoder_layers_{i}" in tree:
+        lyr = tree[f"decoder_layers_{i}"]
+        src = f"{dec}.layers.{i}"
+        _mha(out, f"{src}.attentions.0.attn", lyr["cross_attn"])
+        _mha(out, f"{src}.attentions.1.attn", lyr["self_attn"])
+        _ffn(out, f"{src}.ffns.0", lyr["ffn"])
+        for n in range(3):
+            _ln(out, f"{src}.norms.{n}", lyr[f"norm{n + 1}"])
+        i += 1
+    out.update(_seg_pixel_decoder(tree["pixel_decoder"],
+                                  f"{prefix}pixel_decoder."))
+    return out
+
+
+def _seg_pixel_decoder(pd_tree, pd) -> Dict[str, np.ndarray]:
+    out: Dict[str, np.ndarray] = {}
+    out[f"{pd}level_encoding.weight"] = np.asarray(pd_tree["level_encoding"])
+    _conv(out, f"{pd}mask_feature", pd_tree["mask_feature"])
+    lvls = sorted(int(k.split("_")[-1]) for k in pd_tree
+                  if k.startswith("lateral_conv_"))
+    for lvl in lvls:
+        k = len(lvls) - 1 - lvl
+        for src, dst in (("lateral", "lateral_convs"),
+                         ("output", "output_convs")):
+            _conv(out, f"{pd}{dst}.{k}.conv", pd_tree[f"{src}_conv_{lvl}"])
+            _ln(out, f"{pd}{dst}.{k}.gn",
+                pd_tree[f"{src}_gn_{lvl}"]["GroupNorm_0"])
+    i = 0
+    while f"input_conv_{i}" in pd_tree:
+        _conv(out, f"{pd}input_convs.{i}.conv", pd_tree[f"input_conv_{i}"])
+        _ln(out, f"{pd}input_convs.{i}.gn",
+            pd_tree[f"input_gn_{i}"]["GroupNorm_0"])
+        i += 1
+    return out
+
+
 _PARTS = {"backbone": _swin, "neck": _channel_mapper,
           "shared_encoder": _encoder, "cls_head": _cls_head,
-          "bbox_head": _dino_head}
+          "bbox_head": _dino_head, "seg_head": _mask2former_head}
 
 
 def state_dict_from_jax(tree: dict) -> Dict[str, torch.Tensor]:
@@ -194,8 +245,6 @@ def state_dict_from_jax(tree: dict) -> Dict[str, torch.Tensor]:
     dict of float32 CPU tensors that own their memory."""
     out: Dict[str, np.ndarray] = {}
     for name, sub in tree.items():
-        if name == "seg_head":
-            continue
         if name not in _PARTS:
             raise KeyError(f"unknown MTL part {name!r}")
         out.update(_PARTS[name](sub))

@@ -1,8 +1,8 @@
 """The port's weight bridge, parameter layout and initialisation.
 
 * ``state_dict_from_jax`` equals the JAX package's
-  ``reverse_mtl_checkpoint`` key for key and bit for bit (tiny config, seg
-  head left out) and the port's MTL loads it with ``strict=True``.
+  ``reverse_mtl_checkpoint`` key for key and bit for bit (tiny config, all
+  three heads) and the port's MTL loads it with ``strict=True``.
 * At full width, the flagship port built on the ``meta`` device has exactly
   the keys and shapes of ``state_dict_from_jax`` applied to the flagship's
   JAX parameter shapes (``jax.eval_shape`` of its init; parameters do not
@@ -36,7 +36,8 @@ def jax_init(model, det_hw=128):
     return lambda key: model.init(
         key, cls_img=jnp.zeros((1, 64, 64, 3)),
         det_img=jnp.zeros((1, det_hw, det_hw, 3)),
-        det_img_hw=jnp.array([[det_hw, det_hw]], jnp.int32))
+        det_img_hw=jnp.array([[det_hw, det_hw]], jnp.int32),
+        seg_img=jnp.zeros((1, 64, 64, 3)))
 
 
 @pytest.fixture(scope="module")
@@ -65,10 +66,11 @@ def test_state_dict_equals_reverse_converter(tiny_tree):
     cfg, tree = tiny_tree
     want = reverse_mtl_checkpoint(tree,
                                   depths=tuple(cfg["backbone"]["depths"]))
-    # a seg head subtree (not ported) is skipped
-    got = state_dict_from_jax(
-        dict(tree, seg_head={"query_embed": np.ones((16, 64), np.float32)}))
+    got = state_dict_from_jax(tree)
     assert set(got) == set(want)
+    # Mask2Former: cross-attention under attentions.0, self under .1
+    assert "seg_head.transformer_decoder.layers.2.attentions.1.attn." \
+        "in_proj_weight" in got
     for k, v in want.items():
         assert got[k].dtype == torch.float32
         np.testing.assert_array_equal(got[k].numpy(), v, err_msg=k)
@@ -76,7 +78,7 @@ def test_state_dict_equals_reverse_converter(tiny_tree):
 
 def test_tiny_mtl_loads_strict(tiny_tree):
     cfg, tree = tiny_tree
-    model = build_model(cfg, tasks=("cls", "det"))
+    model = build_model(cfg)
     sd = state_dict_from_jax(tree)
     model.load_state_dict(sd, strict=True)
     for k, v in model.state_dict().items():
@@ -89,24 +91,25 @@ def test_flagship_meta_keys_and_shapes():
                             jax.random.key(0))
     sd = state_dict_from_jax(jax.tree.map(
         lambda s: np.zeros(s.shape, np.float32), shapes["params"]))
-    model = build_model(cfg, tasks=("cls", "det"), device="meta")
+    model = build_model(cfg, device="meta")
     msd = model.state_dict()
     assert set(msd) == set(sd)
     assert {k: tuple(v.shape) for k, v in msd.items()} == \
         {k: tuple(v.shape) for k, v in sd.items()}
-    assert sum(v.numel() for v in sd.values()) == 48_027_023
+    assert sum(v.numel() for v in sd.values()) == 62_552_719
 
 
 def test_build_refuses_unported_parts():
     cfg = load_model_cfg(TINY)
-    with pytest.raises(NotImplementedError, match="ROADMAP P1"):
-        build_model(cfg, device="meta")
+    with pytest.raises(NotImplementedError, match="ROADMAP P3"):
+        build_model(dict(cfg, type="RSCoTrSeg"), device="meta")
     mlvl = dict(cfg, cls_head=dict(type="MlvlClsHead", num_classes=45))
-    with pytest.raises(NotImplementedError, match="ROADMAP P2"):
+    with pytest.raises(NotImplementedError, match="ROADMAP P3"):
         build_model(mlvl, tasks=("cls", "det"), device="meta")
     resnet = dict(cfg, backbone=dict(type="ResNet", depth=50))
-    with pytest.raises(NotImplementedError, match="ROADMAP P2"):
+    with pytest.raises(NotImplementedError, match="ROADMAP P3"):
         build_model(resnet, tasks=("cls", "det"), device="meta")
+    assert build_model(cfg, device="meta").seg_head is not None
     det_only = build_model(cfg, tasks=("det",), device="meta")
     assert det_only.cls_head is None and det_only.bbox_head is not None
 
@@ -117,8 +120,7 @@ def test_init_matches_flax_initialisers(tiny_tree):
     and zero mean within 0.1 std."""
     cfg, tree = tiny_tree
     want = state_dict_from_jax(tree)
-    got = build_model(cfg, tasks=("cls", "det"),
-                      generator=torch.Generator().manual_seed(1)
+    got = build_model(cfg, generator=torch.Generator().manual_seed(1)
                       ).state_dict()
     n_random = 0
     for k, w in want.items():

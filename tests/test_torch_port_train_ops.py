@@ -675,7 +675,7 @@ def test_step_config_names_roadmap_for_unported():
     from rscotr_tpu_torch.utils.config import load_cfg
     cfg = load_cfg(TINY)
     cfg["data"]["resisc"]["loader"]["cls_device_augment"] = True
-    with pytest.raises(NotImplementedError, match="ROADMAP P5"):
+    with pytest.raises(NotImplementedError, match="ROADMAP P4"):
         make_step_config(cfg)
-    with pytest.raises(NotImplementedError, match="ROADMAP P1"):
+    with pytest.raises(NotImplementedError, match="ROADMAP P2"):
         make_train_step(torch.nn.Linear(1, 1), None, "seg", None)
