@@ -11,11 +11,17 @@ Phases, each of which raises on failure (exit code 1, no result line):
    plain PyTorch versions at the flagship's shapes (the det and seg
    encoders, the det decoder; the Swin stages of det 800^2, cls 224^2 and
    seg 512^2), in float32 and bfloat16, with kernel and plain times from
-   CUDA events;
+   CUDA events. K2 also with q, k, v as strided views of the fused qkv
+   projection, with a window count that the per-block run of windows does
+   not divide, and at a head width that takes its CUDA-core instantiation
+   in bf16. Each timed kernel stands beside its bound (the larger of bytes
+   moved once over 3.35 TB/s and operations over the published peak);
 4. backward kernels: K1b (MSDA backward rows), K3' (its value-gradient
    scatter) and K2b (window attention backward), through
    ``torch.autograd.grad`` of the CUDA Functions, against the plain
-   decomposition at the flagship's shapes, float32 and bfloat16, timed;
+   decomposition at the flagship's shapes (K2b at K2's extra cases too),
+   float32 and bfloat16, timed, with bounds, and K3' beside one
+   ``index_add_`` call, its library yardstick;
 5. quad-gather MSDA at the det encoder: ``ms_deform_attn(impl="quad")``
    forward + backward once (K4 and K5 launches counted), K4 (corner-weighted
    sum) and K5 (its gradients) against their plain versions, the quad path's
@@ -46,9 +52,24 @@ Phases, each of which raises on failure (exit code 1, no result line):
     the whole step, host matcher included), the host matcher's time and
     peak memory reported.
 
-The line before the last is {"kernels": [...]} (eight kernels); the last
-line is {"ok": true, "device": {...}}. Without a CUDA device the script
-exits 1 before printing any result.
+11. library yardsticks of K2 and K2b, last because cuDNN keeps workspace
+    once it has run under graph capture: ``scaled_dot_product_attention``
+    with the additive bias + mask, and its autograd backward, on the timed
+    stages' own tensors (rebuilt from their seed), under every backend that
+    takes them; the fastest is the yardstick. The port never calls it.
+
+The line before the last is {"kernels": [...]}: eight kernels, each with
+``launches`` (the main path's run), ``max_abs_err``, ``ms`` and ``plain_ms``
+(kernel and plain version, same inputs), ``bound_ms`` / ``bound_by`` (the
+least time the card could take, computed from this run's tensors),
+``library_ms`` / ``library`` (the one-call yardstick, null where there is
+none; timed here, called nowhere in the port; for K2 and K2b the fastest
+SDPA backend, named in ``library_backend``). K2 and K2b are shorter than
+their wrapper's host time, so their ``ms`` and ``library_ms`` are device
+times from a CUDA-graph replay, ``eager_ms`` is the eager-call time, and
+``stages`` holds all three timed stage shapes. The last line is
+{"ok": true, "device": {...}}. Without a CUDA device the script exits 1
+before printing any result.
 """
 
 from __future__ import annotations
@@ -78,6 +99,20 @@ TOL = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (1e-3, 2.0 ** -7)}
 # the largest reference entry: |got - ref| <= atol * max|ref| + rtol * |ref|;
 # bf16 outputs may differ by one bf16 ulp (2^-7 relative).
 BTOL = {torch.float32: (1e-5, 1e-4), torch.bfloat16: (1e-5, 2.0 ** -7)}
+# K2 / K2b in bf16 round P (and dS) to bf16 as operands of the tensor-core
+# products, and so does the plain version. The two f32 values of an entry
+# differ in their last bits (other summation order in the softmax), so where
+# one lies on a rounding boundary the two bf16 operands differ by one bf16
+# ulp, 2^-7 relative. That is rare, so of the n operand x factor terms that
+# sum to one output at most P_FLIPS are taken to be off at once: on top of
+# TOL / BTOL the bf16 comparisons allow P_FLIPS * P_ULP * max_j (|operand_ij|
+# |factor_jd|) (``k2_ulp_slack``): the terms are P |v| for the output,
+# P^T |dO| for dV, scale |dS| |k| for dQ and scale |dS|^T |q| for dK; nothing
+# more for d_rel_bias (f32 dS) and nothing for f32 inputs, which round
+# nowhere. The log line of each comparison gives the share of outputs that
+# lie outside TOL / BTOL alone.
+P_ULP = 2.0 ** -7
+P_FLIPS = 2
 # slice parity, CPU (plain versions) vs card (kernels), float32
 SLICE_TOL = 1e-4
 # training parity, CPU vs card, float32, TF32 off. The sums run in another
@@ -106,6 +141,27 @@ K2_SHAPES = {  # name: (B, nW, H, shifted)
 }
 
 
+TIMED_K2 = ("det800.s0", "cls224.s0", "seg512.s0")
+
+# published peaks of one H100 SXM, dense (NVIDIA's data sheet): device memory
+# rate, bf16 tensor-core rate, float32 rate outside the tensor cores
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {"bf16 tensor": 989e12, "f32": 67e12}
+
+
+def bound(tensors, flops: float, rate: str):
+    """The least time the card could take: (ms, "bytes" or "operations").
+    ``tensors`` are the call's inputs and outputs (or their size in bytes),
+    each moved once at the device-memory rate; ``flops`` the operations
+    these inputs need, at the published peak of ``rate``."""
+    nbytes = tensors if isinstance(tensors, int) else sum(
+        t.numel() * t.element_size() for t in tensors if t is not None)
+    by_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
+    by_ops = 1e3 * flops / PEAK_FLOPS[rate]
+    return max(by_bytes, by_ops), "bytes" if by_bytes >= by_ops else \
+        "operations"
+
+
 def log(msg: str) -> None:
     print(msg, flush=True)
 
@@ -128,20 +184,134 @@ def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def check_close(name, got, ref, dtype) -> float:
+def graph_ms(fn, iters: int = 20, reps: int = 5) -> float:
+    """Device time of one ``fn()``: ``iters`` calls captured in one CUDA
+    graph, the median over ``reps`` replays (CUDA events). Unlike
+    ``cuda_ms`` the host's cost of issuing a call stays out of the number,
+    which matters once a kernel is shorter than its wrapper's host time."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / iters)
+    graph.reset()   # hand the capture's memory pool back
+    return float(np.median(times))
+
+
+def check_close(name, got, ref, dtype, slack=None) -> float:
     atol, rtol = TOL[dtype]
     got = got.float()
     err = (got - ref).abs()
     if not torch.isfinite(got).all():
         fail(f"{name}: non-finite kernel output")
-    excess = (err - rtol * ref.abs()).max().item()
+    over = err - rtol * ref.abs()
+    excess = (over - (0 if slack is None else slack)).max().item()
     max_err = err.max().item()
+    share = "" if slack is None else \
+        f"; {(over > atol).float().mean().item():.1e} of outputs need P_FLIPS"
     log(f"  {name:<34} {str(dtype)[6:]:<8} max_abs_err {max_err:.3e}  "
-        f"(tol {atol:g} + {rtol:g}*|ref|)")
+        f"(tol {atol:g} + {rtol:g}*|ref|{share})")
     if excess > atol:
         fail(f"{name}: kernel disagrees with its plain version "
              f"(max_abs_err {max_err:.3e})")
     return max_err
+
+
+def timed_wa_inputs(name):
+    """The bf16 inputs (and d_out) of a timed K2 / K2b stage, from a seed of
+    their own: ``library_phase``, which runs last, rebuilds the same
+    tensors for the library call."""
+    B, nW, H, shifted = K2_SHAPES[name]
+    g = torch.Generator(device="cuda").manual_seed(100 + TIMED_K2.index(name))
+    inputs = wa_inputs(B, nW, H, shifted, torch.bfloat16, g)
+    d_out = torch.randn(inputs[0].shape, device="cuda",
+                        generator=g).to(torch.bfloat16)
+    return inputs + (d_out,)
+
+
+def library_phase(times, btimes) -> None:
+    """Fill ``library_ms`` of the timed K2 / K2b stages. It runs after every
+    other phase: under graph capture cuDNN's SDPA keeps ~100 MiB of
+    workspace allocated for good, which would otherwise sit in the peak
+    memory that the serving and training phases report."""
+    log("library phase: scaled_dot_product_attention on the timed K2 / K2b "
+        "inputs")
+    for name in TIMED_K2:
+        fwd, bwd = sdpa_yardstick(name, *timed_wa_inputs(name))
+        times[f"K2 {name}"].update(library_ms=fwd[0],
+                                   library_backend=fwd[1])
+        btimes[f"K2b {name}"].update(library_ms=bwd[0],
+                                     library_backend=bwd[1])
+    log_times({k: r for t in (times, btimes) for k, r in t.items()
+               if k.startswith("K2")})
+
+
+def k2_ulp_slack(q, k, v, bias, mask, scale, d_out=None):
+    """What P_FLIPS entries of P (and dS), one bf16 ulp off, may move the
+    bf16 kernels' results by (see P_ULP): a tensor for the forward output,
+    or, given ``d_out``, one per gradient (dq, dk, dv, d_rel_bias)."""
+    from rscotr_tpu_torch.ops.window_attention import _probs
+
+    def largest_term(operand, factor, over_rows=False):
+        # operand (..., i, j), factor (..., j, d) -> max_j of the (i, d)
+        # terms; ``over_rows``: factor (..., i, d) -> max_i of the (j, d)
+        if over_rows:
+            return (operand[..., None] * factor[..., :, None, :]).amax(-3)
+        return (operand[..., None] * factor[..., None, :, :]).amax(-2)
+
+    allow = P_FLIPS * P_ULP
+    p = _probs(q, k, bias, mask, scale)
+    if d_out is None:
+        return allow * largest_term(p, v.float().abs())
+    do = d_out.float()
+    dp = torch.einsum("bwhqd,bwhkd->bwhqk", do, v.float())
+    ds = (p * (dp - (p * dp).sum(-1, keepdim=True))).abs()
+    return (allow * scale * largest_term(ds, k.float().abs()),
+            allow * scale * largest_term(ds, q.float().abs(), True),
+            allow * largest_term(p, do.abs(), True), None)
+
+
+def k2_cases():
+    """(name, (B, nW, H, shifted), wa_inputs keywords) of every K2 / K2b
+    comparison: the twelve flagship stage shapes, then q, k, v as strided
+    views of the fused projection (head widths 32 and 64), 1,805 tiles per
+    head, which the runs of windows per block (11 forward, 21 backward) do
+    not divide, and a head width that takes the CUDA-core instantiation in
+    bf16 too."""
+    cases = [(name, shape, {}) for name, shape in K2_SHAPES.items()]
+    cases.append(("fused-qkv views", (2, 9, 3, True), dict(fused_qkv=True)))
+    cases.append(("fused-qkv hd=64", (2, 9, 3, True),
+                  dict(fused_qkv=True, hd=64)))
+    cases.append(("ragged 5x361", (5, 361, 3, True), dict(fused_qkv=True)))
+    cases.append(("cuda-core hd=24", (2, 9, 3, True), dict(hd=24)))
+    return cases
+
+
+def log_times(times) -> None:
+    for name, r in times.items():
+        lib = r.get("library_ms")
+        via = f" ({r['library_backend']})" if "library_backend" in r else ""
+        eager = f" (eager {r['eager_ms']:.4f})" if "eager_ms" in r else ""
+        log(f"  time bf16 {name:<28} kernel {r['ms']:.4f} ms{eager}   plain "
+            f"{r['plain_ms']:.4f} ms   bound {r['bound_ms']:.4f} ms "
+            f"({r['bound_by']})   library "
+            f"{'none' if lib is None else f'{lib:.4f} ms'}{via}")
 
 
 def msda_inputs(B, Q, dtype, g, H=8, D=32, P=4, shapes=DET_SHAPES):
@@ -155,10 +325,17 @@ def msda_inputs(B, Q, dtype, g, H=8, D=32, P=4, shapes=DET_SHAPES):
     return v, shapes, loc, w
 
 
-def wa_inputs(B, nW, H, shifted, dtype, g, n=49, hd=32):
+def wa_inputs(B, nW, H, shifted, dtype, g, n=49, hd=32, fused_qkv=False):
+    """``fused_qkv``: q, k, v as the strided views of one (B * nW, n, 3 * H
+    * hd) projection that the Swin block passes (swin.py, WindowMSA)."""
     from rscotr_tpu_torch.models.backbones.swin import _shift_attn_mask
-    q, k, v = (torch.randn(B, nW, H, n, hd, device="cuda",
-                           generator=g).to(dtype) for _ in range(3))
+    if fused_qkv:
+        qkv = torch.randn(B * nW, n, 3, H, hd, device="cuda",
+                          generator=g).to(dtype).permute(2, 0, 3, 1, 4)
+        q, k, v = (t.unflatten(0, (B, nW)) for t in qkv.unbind(0))
+    else:
+        q, k, v = (torch.randn(B, nW, H, n, hd, device="cuda",
+                               generator=g).to(dtype) for _ in range(3))
     bias = torch.randn(H, n, n, device="cuda", generator=g) * 0.02
     mask = None
     if shifted:
@@ -166,6 +343,96 @@ def wa_inputs(B, nW, H, shifted, dtype, g, n=49, hd=32):
         mask = torch.as_tensor(_shift_attn_mask(side, side, 7, 3),
                                device="cuda")
     return q, k, v, bias, mask, hd ** -0.5
+
+
+def sdpa_yardstick(name, q, k, v, bias, mask, scale, d_out):
+    """The library yardstick of K2 and K2b: one
+    ``F.scaled_dot_product_attention`` call (and its autograd backward for
+    q, k, v) on the same inputs, under every backend that takes them; the
+    additive ``bias[h] + mask[w]`` is built once in q's dtype outside the
+    timed region, its last axis padded to a multiple of 8 in memory for the
+    fused backends. Device time by ``graph_ms``, as the kernels'. Timed
+    here only: the port never calls it. Returns the fastest of each as
+    ((forward ms, backend), (backward ms, backend))."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    from rscotr_tpu_torch.ops.window_attention import window_attention_torch
+    B, nW, H, n, hd = q.shape
+    add = bias[None, None]
+    if mask is not None:
+        add = add + mask[None, :, None]
+    buf = torch.zeros(B * nW, H, n, -(-n // 8) * 8, dtype=q.dtype,
+                      device=q.device)
+    buf[..., :n] = add.expand(B, nW, H, n, n).reshape(B * nW, H, n, n)
+    attn = buf[..., :n]
+    qq, kk, vv = (t.detach().reshape(B * nW, H, n, hd).contiguous()
+                  .requires_grad_() for t in (q, k, v))
+    do = d_out.reshape(qq.shape)
+    ref = window_attention_torch(q.float(), k.float(), v.float(), bias, mask,
+                                 scale)
+
+    def fwd():
+        return F.scaled_dot_product_attention(qq, kk, vv, attn_mask=attn,
+                                              scale=scale)
+
+    def fwd_bwd():
+        torch.autograd.grad(fwd(), (qq, kk, vv), do)
+
+    fwd_ms, bwd_ms = {}, {}
+    for backend in (SDPBackend.EFFICIENT_ATTENTION,
+                    SDPBackend.CUDNN_ATTENTION, SDPBackend.FLASH_ATTENTION,
+                    SDPBackend.MATH):
+        # a backend that does not take these inputs raises: reported, not
+        # timed (this is a yardstick, no path of the port)
+        try:
+            with sdpa_kernel(backend):
+                with torch.no_grad():
+                    e = (fwd().float().reshape(ref.shape) - ref).abs().max(
+                        ).item()
+                    f_ms = graph_ms(fwd)
+                # the backward alone: forward + backward less the forward
+                # (in grad mode), each captured whole so that both run on
+                # the capture's stream
+                b_ms = graph_ms(fwd_bwd) - graph_ms(fwd)
+        except RuntimeError:
+            log(f"  library {name:<12} SDPA {backend.name} refused the "
+                "inputs")
+            continue
+        if not e < 5e-2:
+            fail(f"SDPA yardstick {name} {backend.name}: not the same "
+                 f"function (max abs diff {e:.3e} from the plain version)")
+        fwd_ms[backend.name], bwd_ms[backend.name] = f_ms, b_ms
+        log(f"  library {name:<12} SDPA {backend.name:<20} forward "
+            f"{fwd_ms[backend.name]:.4f} ms, backward (dq, dk, dv; no bias "
+            f"gradient) {bwd_ms[backend.name]:.4f} ms; max abs diff from "
+            f"plain {e:.2e}")
+    best = [min((ms, b) for b, ms in t.items()) for t in (fwd_ms, bwd_ms)]
+    log(f"  library {name:<12} fastest: forward {best[0][1]} "
+        f"{best[0][0]:.4f} ms, backward {best[1][1]} {best[1][0]:.4f} ms")
+    return best
+
+
+def index_add_yardstick(d_g, gidx, num_rows, want):
+    """The library yardstick of K3': one bare ``index_add_`` of the f32
+    updates into the f32 (G * num_rows + 1, C) table (the spare row takes
+    the out-of-range updates, which K3' drops; cast, index arithmetic and
+    zeroing are outside the timed region). Timed here only."""
+    G, K, C = d_g.shape
+    src = d_g.float().reshape(G * K, C)
+    idx = gidx.long()
+    valid = (idx >= 0) & (idx < num_rows)
+    base = torch.arange(G, device=d_g.device)[:, None] * num_rows
+    flat = torch.where(valid, idx + base, G * num_rows).reshape(-1)
+    out = torch.zeros(G * num_rows + 1, C, device=d_g.device)
+    out.index_add_(0, flat, src)
+    e = (out[:-1].reshape(want.shape) - want).abs().max().item()
+    if not e <= 1e-4 * want.abs().max().item():
+        fail(f"index_add_ yardstick: not the same function ({e:.3e})")
+    ms = cuda_ms(lambda: out.index_add_(0, flat, src), 20)
+    log(f"  library K3' index_add_ of f32 (G*K, C) = ({G * K}, {C}) into "
+        f"({G * num_rows + 1}, {C}): {ms:.4f} ms")
+    return ms
 
 
 def kernel_phase():
@@ -194,34 +461,55 @@ def kernel_phase():
             err["K1"][dtype == torch.bfloat16] = max(
                 err["K1"][dtype == torch.bfloat16], e)
             if dtype == torch.bfloat16 and B == 1:
-                times[f"K1 {name}"] = (
-                    cuda_ms(lambda: ms_deform_attn(v, shapes, loc, w), 50),
-                    cuda_ms(lambda: ms_deform_attn_torch(v, shapes, loc, w),
-                            10))
-    log("kernel phase: K2 window_attn vs window_attention_torch")
+                # 4 corners x D fused multiply-adds per sampling point
+                ms, by = bound((v, loc, w, got),
+                               8.0 * v.shape[-1] * w.numel(), "f32")
+                times[f"K1 {name}"] = dict(
+                    ms=cuda_ms(lambda: ms_deform_attn(v, shapes, loc, w), 50),
+                    plain_ms=cuda_ms(
+                        lambda: ms_deform_attn_torch(v, shapes, loc, w), 10),
+                    bound_ms=ms, bound_by=by, library_ms=None)
+    log("kernel phase: K2 window_attn vs window_attention_torch (the plain "
+        "version at the kernel's dtype: for bf16 it rounds P where the "
+        "kernel does)")
     for dtype in (torch.float32, torch.bfloat16):
-        for name, (B, nW, H, shifted) in K2_SHAPES.items():
+        bf = int(dtype == torch.bfloat16)
+        for name, (B, nW, H, shifted), kw in k2_cases():
             for masked in sorted({False, shifted}):
-                q, k, v, bias, mask, scale = wa_inputs(B, nW, H, masked,
-                                                       dtype, g)
+                timed = bool(bf and masked == shifted and name in TIMED_K2)
+                if timed:
+                    q, k, v, bias, mask, scale, _ = timed_wa_inputs(name)
+                else:
+                    q, k, v, bias, mask, scale = wa_inputs(
+                        B, nW, H, masked, dtype, g, **kw)
+                before = window_attention.launches
                 got = window_attention(q, k, v, bias, mask, scale)
                 torch.cuda.synchronize()
-                ref = window_attention_torch(q.float(), k.float(), v.float(),
-                                             bias, mask, scale)
-                e = check_close(f"K2 {name} {'masked' if masked else ''}",
-                                got, ref, dtype)
-                err["K2"][dtype == torch.bfloat16] = max(
-                    err["K2"][dtype == torch.bfloat16], e)
-                if dtype == torch.bfloat16 and masked == shifted and \
-                        name in ("det800.s0", "cls224.s0", "seg512.s0"):
-                    times[f"K2 {name}"] = (
-                        cuda_ms(lambda: window_attention(q, k, v, bias, mask,
-                                                         scale), 50),
-                        cuda_ms(lambda: window_attention_torch(
-                            q, k, v, bias, mask, scale), 20))
-    for name, (ms, plain) in times.items():
-        log(f"  time bf16 {name:<28} kernel {ms:.4f} ms   plain "
-            f"{plain:.4f} ms")
+                if window_attention.launches != before + 1:
+                    fail(f"K2 {name}: the wrapper counted no launch")
+                ref = window_attention_torch(q, k, v, bias, mask, scale)
+                e = check_close(
+                    f"K2 {name} {'masked' if masked else ''}", got,
+                    ref.float(), dtype,
+                    k2_ulp_slack(q, k, v, bias, mask, scale) if bf else None)
+                err["K2"][bf] = max(err["K2"][bf], e)
+                if timed:
+                    n, hd = q.shape[-2:]
+                    tiles = B * nW * H
+                    ms, by = bound((q, k, v, bias, mask, got),
+                                   4.0 * n * n * hd * tiles, "bf16 tensor")
+                    def run():
+                        return window_attention(q, k, v, bias, mask, scale)
+
+                    # ms: device time (graph replay), as library_ms; the
+                    # kernel is shorter than its wrapper's host time, which
+                    # eager_ms (events around eager calls) includes
+                    times[f"K2 {name}"] = dict(
+                        ms=graph_ms(run), eager_ms=cuda_ms(run, 50),
+                        plain_ms=cuda_ms(lambda: window_attention_torch(
+                            q, k, v, bias, mask, scale), 20),
+                        bound_ms=ms, bound_by=by, library_ms=None)
+    log_times(times)
     return err, times
 
 
@@ -269,9 +557,9 @@ def quad_phase():
         # the quad path hands K4 / K5 its slot weights in value's dtype
         wt = torch.rand(G, Nv, 4 * KP, device="cuda", generator=g).to(dtype)
         dq = torch.randn(G, Nv, D, device="cuda", generator=g)
-        got = ws_fwd(gq, wt)
+        k4_out = ws_fwd(gq, wt)
         torch.cuda.synchronize()
-        err["K4"][bf] = check_close("K4 det-encoder", got,
+        err["K4"][bf] = check_close("K4 det-encoder", k4_out,
                                     ws_fwd_torch(gq, wt), dtype)
         got = ws_bwd(gq, wt, dq)
         torch.cuda.synchronize()
@@ -281,13 +569,21 @@ def quad_phase():
             fail("K5 d_g differs from its plain version")
         err["K5"][bf] = check_grads("K5 det-encoder", got, ref,
                                     ("d_g", "d_wt"), dtype)
-        del got, ref
         if bf:
-            times["K4"] = (cuda_ms(lambda: ws_fwd(gq, wt), 50),
-                           cuda_ms(lambda: ws_fwd_torch(gq, wt), 10))
-            times["K5"] = (cuda_ms(lambda: ws_bwd(gq, wt, dq), 50),
-                           cuda_ms(lambda: ws_bwd_torch(gq, wt, dq), 10))
-        del gq, wt, dq
+            # K4: one multiply-add per element of g; K5: one product for
+            # d_g and one multiply-add for d_wt per element of g
+            ms, by = bound((gq, wt, k4_out), 2.0 * gq.numel(), "f32")
+            times["K4 det-encoder"] = dict(
+                ms=cuda_ms(lambda: ws_fwd(gq, wt), 50),
+                plain_ms=cuda_ms(lambda: ws_fwd_torch(gq, wt), 10),
+                bound_ms=ms, bound_by=by, library_ms=None)
+            ms, by = bound((gq, wt, dq) + tuple(got), 3.0 * gq.numel(),
+                           "f32")
+            times["K5 det-encoder"] = dict(
+                ms=cuda_ms(lambda: ws_bwd(gq, wt, dq), 50),
+                plain_ms=cuda_ms(lambda: ws_bwd_torch(gq, wt, dq), 10),
+                bound_ms=ms, bound_by=by, library_ms=None)
+        del got, ref, k4_out, gq, wt, dq
 
     # f32: the two paths sum in other orders (BTOL); bf16: the quad path
     # rounds its slot weights to bf16 before K4 (as JAX's
@@ -329,10 +625,7 @@ def quad_phase():
                 peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 20
                 times[f"MSDA {impl}"] = (cuda_ms(fwd, 20),
                                          cuda_ms(fwd_bwd, 20), peak)
-    for name in ("K4", "K5"):
-        ms, plain = times[name]
-        log(f"  time bf16 {name} det-encoder   kernel {ms:.4f} ms   plain "
-            f"{plain:.4f} ms")
+    log_times({k: r for k, r in times.items() if k[:2] in ("K4", "K5")})
     for impl in ("quad", "kernel"):
         fwd, fwd_bwd, peak = times[f"MSDA {impl}"]
         log(f"  time bf16 MSDA impl={impl:<6} forward {fwd:.4f} ms, forward "
@@ -508,23 +801,30 @@ def slice_parity_phase():
                  "CUDA")
 
 
-def check_grads(name, gots, refs, names, dtype, tol=None) -> float:
+def check_grads(name, gots, refs, names, dtype, tol=None,
+                slacks=None) -> float:
     """Hold each gradient against its plain version; one log line per case
     with each gradient's max abs error / max|ref|. Returns the largest
-    max abs error. ``tol`` (atol scale, rtol) defaults to ``BTOL``."""
+    max abs error. ``tol`` (atol scale, rtol) defaults to ``BTOL``;
+    ``slacks``: per gradient, a tensor of further allowance or None."""
     atol, rtol = tol or BTOL[dtype]
     parts, worst = [], 0.0
-    for gname, got, ref in zip(names, gots, refs):
+    for i, (gname, got, ref) in enumerate(zip(names, gots, refs)):
         got, ref = got.float(), ref.float()
         if not torch.isfinite(got).all():
             fail(f"{name} {gname}: non-finite kernel gradient")
         err = (got - ref).abs()
         scale = ref.abs().max().item()
         max_err = err.max().item()
-        if (err - rtol * ref.abs()).max().item() > atol * scale:
+        slack = 0 if slacks is None or slacks[i] is None else slacks[i]
+        over = err - rtol * ref.abs()
+        if (over - slack).max().item() > atol * scale:
             fail(f"{name} {gname}: kernel gradient disagrees with the plain "
                  f"version (max_abs_err {max_err:.3e})")
-        parts.append(f"{gname} {max_err:.2e}/{scale:.3g}")
+        share = "" if slacks is None or slacks[i] is None else \
+            f" ({(over > atol * scale).float().mean().item():.1e} need " \
+            "P_FLIPS)"
+        parts.append(f"{gname} {max_err:.2e}/{scale:.3g}{share}")
         worst = max(worst, max_err)
     log(f"  {name:<34} {str(dtype)[6:]:<8} max_abs_err/max|ref|: "
         f"{', '.join(parts)}  (tol {atol:g}*max|ref| + {rtol:g}*|ref|)")
@@ -562,54 +862,85 @@ def backward_phase():
                             ("d_value", "d_loc", "d_attn"), dtype)
             err["K1b"][bf] = max(err["K1b"][bf], e)
             # K3' alone on this case's d_g / gidx
-            d_g, gidx, _, _ = msda_bwd_rows(v, shapes, loc, w, d_out)
-            e = check_grads(f"K3' {name}", [scatter_add_mm(d_g, gidx, Nv)],
+            rows = msda_bwd_rows(v, shapes, loc, w, d_out)
+            d_g, gidx = rows[:2]
+            d_qt = scatter_add_mm(d_g, gidx, Nv)
+            e = check_grads(f"K3' {name}", [d_qt],
                             [scatter_add_mm_torch(d_g, gidx, Nv)], ("d_qt",),
                             torch.float32)
             err["K3"][bf] = max(err["K3"][bf], e)
             if bf:
                 args = (v, shapes, loc, w, d_out)
-                times[f"K1b {name}"] = (
-                    cuda_ms(lambda: msda_bwd_rows(*args), 20),
-                    cuda_ms(lambda: msda_bwd_rows_torch(*args), 5))
-                times[f"K3' {name}"] = (
-                    cuda_ms(lambda: scatter_add_mm(d_g, gidx, Nv), 20),
-                    cuda_ms(lambda: scatter_add_mm_torch(d_g, gidx, Nv), 5))
-                times[f"MSDA bwd {name}"] = (
-                    cuda_ms(lambda: ms_deform_attn_bwd(*args), 20),
-                    cuda_ms(lambda: ms_deform_attn_bwd_torch(*args), 5))
-            del d_g, gidx
+                # per sampling point: 4 corners x D products for d_g, the
+                # same again as multiply-adds for d_attn and for d_loc
+                ms, by = bound(args[:1] + args[2:] + rows,
+                               20.0 * v.shape[-1] * w.numel(), "f32")
+                times[f"K1b {name}"] = dict(
+                    ms=cuda_ms(lambda: msda_bwd_rows(*args), 20),
+                    plain_ms=cuda_ms(lambda: msda_bwd_rows_torch(*args), 5),
+                    bound_ms=ms, bound_by=by, library_ms=None)
+                # one f32 add per update element
+                ms, by = bound((d_g, gidx, d_qt), float(d_g.numel()), "f32")
+                times[f"K3' {name}"] = dict(
+                    ms=cuda_ms(lambda: scatter_add_mm(d_g, gidx, Nv), 20),
+                    plain_ms=cuda_ms(
+                        lambda: scatter_add_mm_torch(d_g, gidx, Nv), 5),
+                    bound_ms=ms, bound_by=by,
+                    library_ms=index_add_yardstick(d_g, gidx, Nv, d_qt)
+                    if Q == Nv else None)
+                ms, by = bound(args[:1] + args[2:] + args[:1] + rows[2:],
+                               20.0 * v.shape[-1] * w.numel(), "f32")
+                times[f"MSDA bwd {name}"] = dict(
+                    ms=cuda_ms(lambda: ms_deform_attn_bwd(*args), 20),
+                    plain_ms=cuda_ms(
+                        lambda: ms_deform_attn_bwd_torch(*args), 5),
+                    bound_ms=ms, bound_by=by, library_ms=None)
+            del rows, d_g, gidx, d_qt
     log("backward phase: K2b window_attn_bwd (autograd through "
         "window_attention) vs window_attention_bwd_torch")
     for dtype in (torch.float32, torch.bfloat16):
         bf = int(dtype == torch.bfloat16)
-        for name, (B, nW, H, shifted) in K2_SHAPES.items():
+        for name, (B, nW, H, shifted), kw in k2_cases():
             for masked in sorted({False, shifted}):
-                q, k, v, bias, mask, scale = wa_inputs(B, nW, H, masked,
-                                                       dtype, g)
+                timed = bool(bf and masked == shifted and name in TIMED_K2)
+                if timed:
+                    q, k, v, bias, mask, scale, d_out = timed_wa_inputs(name)
+                else:
+                    q, k, v, bias, mask, scale = wa_inputs(
+                        B, nW, H, masked, dtype, g, **kw)
+                    d_out = torch.randn(q.shape, device="cuda",
+                                        generator=g).to(dtype)
                 q, k, v, bias = (t.requires_grad_() for t in (q, k, v, bias))
                 out = window_attention(q, k, v, bias, mask, scale)
-                d_out = torch.randn(out.shape, device="cuda",
-                                    generator=g).to(dtype)
+                before = window_attention_bwd.launches
                 got = torch.autograd.grad(out, (q, k, v, bias), d_out)
                 torch.cuda.synchronize()
+                if window_attention_bwd.launches != before + 1:
+                    fail(f"K2b {name}: the wrapper counted no launch")
                 q, k, v, bias = (t.detach() for t in (q, k, v, bias))
                 ref = window_attention_bwd_torch(q, k, v, bias, mask, scale,
                                                  d_out)
-                e = check_grads(f"K2b {name}{' masked' if masked else ''}",
-                                got, ref, ("dq", "dk", "dv", "d_rel_bias"),
-                                dtype)
+                e = check_grads(
+                    f"K2b {name}{' masked' if masked else ''}", got, ref,
+                    ("dq", "dk", "dv", "d_rel_bias"), dtype,
+                    slacks=k2_ulp_slack(q, k, v, bias, mask, scale, d_out)
+                    if bf else None)
                 err["K2b"][bf] = max(err["K2b"][bf], e)
-                if bf and masked == shifted and \
-                        name in ("det800.s0", "cls224.s0"):
+                if timed:
                     args = (q, k, v, bias, mask, scale, d_out)
-                    times[f"K2b {name}"] = (
-                        cuda_ms(lambda: window_attention_bwd(*args), 20),
-                        cuda_ms(lambda: window_attention_bwd_torch(*args),
-                                5))
-    for name, (ms, plain) in times.items():
-        log(f"  time bf16 {name:<36} kernel {ms:.4f} ms   plain "
-            f"{plain:.4f} ms")
+                    n, hd = q.shape[-2:]
+                    # five n x n x hd products per tile: S, dP, dV, dQ, dK
+                    ms, by = bound((q, k, v, bias, mask, d_out) + got,
+                                   10.0 * n * n * hd * B * nW * H,
+                                   "bf16 tensor")
+                    times[f"K2b {name}"] = dict(
+                        ms=graph_ms(lambda: window_attention_bwd(*args)),
+                        eager_ms=cuda_ms(
+                            lambda: window_attention_bwd(*args), 20),
+                        plain_ms=cuda_ms(
+                            lambda: window_attention_bwd_torch(*args), 5),
+                        bound_ms=ms, bound_by=by, library_ms=None)
+    log_times(times)
     return err, times
 
 
@@ -983,7 +1314,78 @@ def train_phase():
     return launches, res
 
 
-def main() -> int:
+def kernels_line(times, btimes, qtimes, err, berr, qerr, k6err, k6levels,
+                 launches):
+    """The ``{"kernels": [...]}`` object: eight kernels, each with its
+    launches on the main path, its error against the plain version, its
+    time beside the plain version's, its bound and its library yardstick."""
+    det_enc = "det encoder B=1 Q=Nv=13294 H=8 L=4 P=4 D=32 bf16"
+    ws_at = "det encoder g (8, 13294, 16, 128) bf16, wt (8, 13294, 64) bf16"
+    det_s0 = "det 800^2 stage 0 B=1 nW=841 H=3 n=49 hd=32 shifted bf16"
+    sdpa = ("F.scaled_dot_product_attention(q, k, v, attn_mask=bias + mask, "
+            "scale=scale)")
+    # K6's inputs are made inside the probe, which reports what it timed:
+    # the bytes of table, idx, w and the output, one multiply per output
+    k6 = k6levels[10000]
+    k6_bound, k6_by = bound(k6["bytes"], float(k6["out_elements"]), "f32")
+
+    def entry(name, source, replaces, key, r, errs, timed_at, library=None,
+              **more):
+        return dict(
+            name=name, route="cuda", source=f"rscotr_tpu_torch/csrc/{source}",
+            replaces=replaces, launches=launches[key], max_abs_err=errs[0],
+            max_abs_err_bf16=errs[1], ms=r["ms"], plain_ms=r["plain_ms"],
+            bound_ms=r["bound_ms"], bound_by=r["bound_by"],
+            library_ms=r["library_ms"], library=library, timed_at=timed_at,
+            **{f: r[f] for f in ("eager_ms", "library_backend") if f in r},
+            **more)
+
+    def stages(table, kernel):
+        return {name[len(kernel) + 1:]: r for name, r in table.items()
+                if name.startswith(kernel + " ")}
+
+    pallas = "rscotr_tpu/ops/pallas/"
+    return {"kernels": [
+        entry("msda_fwd", "msda_fwd.cu",
+              pallas + "ms_deform_attn_kernel.py:138", "K1",
+              times["K1 det-encoder B=1"], err["K1"], det_enc,
+              launches_serving=launches["K1 serving"]),
+        entry("window_attn", "window_attn.cu",
+              pallas + "window_attention.py:116", "K2",
+              times["K2 det800.s0"], err["K2"], det_s0, library=sdpa,
+              launches_serving=launches["K2 serving"],
+              stages=stages(times, "K2")),
+        entry("msda_bwd", "msda_bwd.cu",
+              pallas + "ms_deform_attn_kernel.py:138", "K1b",
+              btimes["K1b det-encoder B=1"], berr["K1b"], det_enc,
+              replaces_part="backward (JAX: autodiff of _ms_deform_attn_xla,"
+                            " rscotr_tpu/ops/ms_deform_attn.py:270)"),
+        entry("scatter_add", "scatter_add.cu", pallas + "scatter_mm.py:168",
+              "K3'", btimes["K3' det-encoder B=1"], berr["K3"],
+              "det encoder d_g (8, 212704, 128) bf16 -> (8, 13294, 128) f32",
+              library="Tensor.index_add_(0, rows, f32 updates)"),
+        entry("window_attn_bwd", "window_attn_bwd.cu",
+              pallas + "window_attention.py:116", "K2b",
+              btimes["K2b det800.s0"], berr["K2b"], det_s0,
+              library="torch.autograd.grad of " + sdpa + " for q, k, v",
+              replaces_part="backward (JAX: autodiff of the einsum path, "
+                            "rscotr_tpu/models/backbones/swin.py:130)",
+              stages=stages(btimes, "K2b")),
+        entry("ws_fwd", "msda_ws.cu", pallas + "msda_ws.py:110", "K4",
+              qtimes["K4 det-encoder"], qerr["K4"], ws_at),
+        entry("ws_bwd", "msda_ws.cu", pallas + "msda_ws.py:135", "K5",
+              qtimes["K5 det-encoder"], qerr["K5"], ws_at),
+        entry("weighted_gather", "weighted_gather.cu",
+              "tools/probe_msda_weighted_gather_mm.py:103", "K6",
+              dict(ms=k6["weighted_mm"], plain_ms=k6["prod_gather"],
+                   bound_ms=k6_bound, bound_by=k6_by, library_ms=None),
+              k6err, "G=8 K=53376 Nv=10000 C=128 bf16",
+              plain="production_level_slice (gather, then x w in f32)",
+              levels=k6levels),
+    ]}
+
+
+def main(argv) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
               "False)", file=sys.stderr)
@@ -1007,14 +1409,22 @@ def main() -> int:
         if "Used" in line or "spill" in line:
             log(f"  ptxas: {line.strip()}")
 
+    if argv:
+        print(f"chip_smoke: unknown arguments {argv}", file=sys.stderr)
+        return 2
+
     err, times = kernel_phase()
     berr, btimes = backward_phase()
     qerr, qtimes, qlaunches = quad_phase()
     k6err, k6levels, k6launches = k6_phase()
     slice_parity_phase()
     train_parity_phase()
-    launches, lat = serving_phase()
-    tlaunches, train = train_phase()
+    slaunches, lat = serving_phase()
+    launches, train = train_phase()
+    library_phase(times, btimes)
+    launches.update({"K1 serving": slaunches["K1"],
+                     "K2 serving": slaunches["K2"], "K6": k6launches},
+                    **qlaunches)
 
     log(f"summary ({smi}): " + "; ".join(
         f"serve {n} {ms:.3f} ms, peak {mb:.0f} MiB"
@@ -1024,76 +1434,8 @@ def main() -> int:
         f"MSDA impl={i} fwd+bwd {qtimes[f'MSDA {i}'][1]:.4f} ms"
         for i in ("quad", "kernel")))
     log(smi)
-    k1_ms, k1_plain = times["K1 det-encoder B=1"]
-    k2_ms, k2_plain = times["K2 det800.s0"]
-    k1b_ms, k1b_plain = btimes["K1b det-encoder B=1"]
-    k3_ms, k3_plain = btimes["K3' det-encoder B=1"]
-    k2b_ms, k2b_plain = btimes["K2b det800.s0"]
-    k4_ms, k4_plain = qtimes["K4"]
-    k5_ms, k5_plain = qtimes["K5"]
-    det_enc = "det encoder B=1 Q=Nv=13294 H=8 L=4 P=4 D=32 bf16"
-    ws_at = "det encoder g (8, 13294, 16, 128) bf16, wt (8, 13294, 64) bf16"
-    det_s0 = "det 800^2 stage 0 B=1 nW=841 H=3 n=49 hd=32 shifted bf16"
-    print(json.dumps({"kernels": [
-        {"name": "msda_fwd", "route": "cuda",
-         "source": "rscotr_tpu_torch/csrc/msda_fwd.cu",
-         "replaces": "rscotr_tpu/ops/pallas/ms_deform_attn_kernel.py:138",
-         "launches": tlaunches["K1"], "launches_serving": launches["K1"],
-         "max_abs_err": err["K1"][0], "max_abs_err_bf16": err["K1"][1],
-         "ms": k1_ms, "plain_ms": k1_plain, "timed_at": det_enc},
-        {"name": "window_attn", "route": "cuda",
-         "source": "rscotr_tpu_torch/csrc/window_attn.cu",
-         "replaces": "rscotr_tpu/ops/pallas/window_attention.py:116",
-         "launches": tlaunches["K2"], "launches_serving": launches["K2"],
-         "max_abs_err": err["K2"][0], "max_abs_err_bf16": err["K2"][1],
-         "ms": k2_ms, "plain_ms": k2_plain, "timed_at": det_s0},
-        {"name": "msda_bwd", "route": "cuda",
-         "source": "rscotr_tpu_torch/csrc/msda_bwd.cu",
-         "replaces": "rscotr_tpu/ops/pallas/ms_deform_attn_kernel.py:138",
-         "replaces_part": "backward (JAX: autodiff of _ms_deform_attn_xla, "
-                          "rscotr_tpu/ops/ms_deform_attn.py:270)",
-         "launches": tlaunches["K1b"],
-         "max_abs_err": berr["K1b"][0], "max_abs_err_bf16": berr["K1b"][1],
-         "ms": k1b_ms, "plain_ms": k1b_plain, "timed_at": det_enc},
-        {"name": "scatter_add", "route": "cuda",
-         "source": "rscotr_tpu_torch/csrc/scatter_add.cu",
-         "replaces": "rscotr_tpu/ops/pallas/scatter_mm.py:168",
-         "launches": tlaunches["K3'"],
-         "max_abs_err": berr["K3"][0], "max_abs_err_bf16": berr["K3"][1],
-         "ms": k3_ms, "plain_ms": k3_plain,
-         "timed_at": "det encoder d_g (8, 212704, 128) bf16 -> (8, 13294, "
-                     "128) f32"},
-        {"name": "window_attn_bwd", "route": "cuda",
-         "source": "rscotr_tpu_torch/csrc/window_attn_bwd.cu",
-         "replaces": "rscotr_tpu/ops/pallas/window_attention.py:116",
-         "replaces_part": "backward (JAX: autodiff of the einsum path, "
-                          "rscotr_tpu/models/backbones/swin.py:130)",
-         "launches": tlaunches["K2b"],
-         "max_abs_err": berr["K2b"][0], "max_abs_err_bf16": berr["K2b"][1],
-         "ms": k2b_ms, "plain_ms": k2b_plain, "timed_at": det_s0},
-        {"name": "ws_fwd", "route": "cuda",
-         "source": "rscotr_tpu_torch/csrc/msda_ws.cu",
-         "replaces": "rscotr_tpu/ops/pallas/msda_ws.py:110",
-         "launches": qlaunches["K4"],
-         "max_abs_err": qerr["K4"][0], "max_abs_err_bf16": qerr["K4"][1],
-         "ms": k4_ms, "plain_ms": k4_plain, "timed_at": ws_at},
-        {"name": "ws_bwd", "route": "cuda",
-         "source": "rscotr_tpu_torch/csrc/msda_ws.cu",
-         "replaces": "rscotr_tpu/ops/pallas/msda_ws.py:135",
-         "launches": qlaunches["K5"],
-         "max_abs_err": qerr["K5"][0], "max_abs_err_bf16": qerr["K5"][1],
-         "ms": k5_ms, "plain_ms": k5_plain, "timed_at": ws_at},
-        {"name": "weighted_gather", "route": "cuda",
-         "source": "rscotr_tpu_torch/csrc/weighted_gather.cu",
-         "replaces": "tools/probe_msda_weighted_gather_mm.py:103",
-         "launches": k6launches,
-         "max_abs_err": k6err[0], "max_abs_err_bf16": k6err[1],
-         "ms": k6levels[10000]["weighted_mm"],
-         "plain_ms": k6levels[10000]["prod_gather"],
-         "plain": "production_level_slice (gather, then x w in f32)",
-         "levels_ms": k6levels,
-         "timed_at": "G=8 K=53376 Nv=10000 C=128 bf16"},
-    ]}), flush=True)
+    print(json.dumps(kernels_line(times, btimes, qtimes, err, berr, qerr,
+                                  k6err, k6levels, launches)), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)
@@ -1101,4 +1443,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

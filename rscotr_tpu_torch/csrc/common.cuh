@@ -29,6 +29,12 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);  // round to nearest even, as torch's .to()
 }
 
+// x rounded to T and back: where a bf16 kernel rounds an operand
+template <typename T>
+__device__ __forceinline__ float round_as(float x) {
+  return to_f32(from_f32<T>(x));
+}
+
 static __device__ __forceinline__ float warp_max(float x) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1)

@@ -3,28 +3,49 @@
 // Replaces the Pallas TPU kernel rscotr_tpu/ops/pallas/window_attention.py
 // (window_attention_fused, body _kernel):
 //   out[b,w,h] = softmax(scale * q k^T + rel_bias[h] + shift_mask[w]) v
-// for every (image, window, head). Scores, row max, exponentials and sums
-// are f32; the output is written in q's dtype.
+// for every (image, window, head). The output is written in q's dtype.
 //
-// What bounds it on the card: each problem is tiny (n = 49 tokens, hd = 32:
-// ~0.3 MFLOP over ~19 KB of q/k/v in bf16), far below tensor-core scale, so
-// the floor is reading q, k, v once. The TPU kernel padded n to 56 and
-// masked the padding (its (8, 128) tiling); here one block per
-// (image * window, head) holds q, k, v and the summed bias + mask tile in
-// shared memory at n = 49 exactly, and each warp owns whole query rows:
-// lanes compute the row's scores over keys (k rows padded by one float so
-// the per-lane rows hit distinct banks), a warp-shuffle max and sum give
-// the softmax, and lanes then own output channels for P v. As written, the
-// QK and PV loops load every FMA operand from shared memory, and that
-// shared-load rate, not device memory, is what bounds this version
-// (PERF.md); register-blocking k and v is the next step.
+// What bounds it on the card: bytes. A tile is tiny (n = 49 tokens, hd = 32:
+// 0.3 MFLOP over 9.4 KB of q, k, v in bf16 plus a 9.6 KB f32 mask tile), so
+// the floor is moving q, k, v, the mask and the output once: 39.7 MB at the
+// det 800^2 stage 0 (841 windows x 3 heads), 0.012 ms at 3.35 TB/s, against
+// under 0.001 ms for its 0.78 GFLOP on the tensor cores.
+//
+// Two instantiations behind the one entry point, chosen by the wrapper from
+// dtype, shape and alignment (run > 0 selects the first):
+//
+// * bf16, n <= 64, hd 32 or 64, 16-byte aligned rows: the tensor-core
+//   kernel, which computes what the Pallas body computes (both products on
+//   the matrix unit with f32 accumulation, P rounded to v's dtype before
+//   P v). A block of four warps owns a tile padded to 64 rows, one warp 16
+//   query rows, and walks a run of consecutive windows of one head, so the
+//   bias fragment is loaded once per block. q, k, v rows arrive by 16-byte
+//   cp.async into a padded shared tile, and the window's f32 mask tile
+//   beside them (flat, from the 16-byte boundary below its start),
+//   double-buffered: the next window's rows are in flight while this one
+//   is computed. S = q k^T by mma.sync.m16n8k16 from ldmatrix fragments (window_attn_tc.cuh has the
+//   layouts), then s * scale + bias + mask in f32 in the accumulator's own
+//   layout (the scale is applied to the f32 product, not to q), the padded
+//   key columns 49..63 at -inf as the Pallas body masks its padding, row max
+//   and sum by quad shuffles, and P, still in registers, rounded to bf16, is
+//   the A operand of P v. No f32 copy of q, k, v and no score row ever
+//   touches shared memory. Padded query rows are computed and never stored.
+// * f32 inputs (full f32 arithmetic), and bf16 shapes outside the above:
+//   the CUDA-core kernel below, one block per (image * window, head) with
+//   q, k, v and the bias + mask tile as f32 in shared memory and each warp
+//   owning whole query rows; its QK and PV loops load both FMA operands from
+//   shared memory, which caps it near 1/8 of the f32 rate (PERF.md).
+//
 // q, k, v may be strided views of the fused qkv projection (no copies);
 // the output is contiguous (B, nW, H, n, hd).
 #include <math.h>
 
 #include "common.cuh"
+#include "window_attn_tc.cuh"
 
 #define WA_THREADS 128
+
+// ---- CUDA-core instantiation (f32, and bf16 outside the tensor-core shapes)
 
 template <typename T>
 __global__ void __launch_bounds__(WA_THREADS) window_attn_kernel(
@@ -83,11 +104,14 @@ __global__ void __launch_bounds__(WA_THREADS) window_attn_kernel(
       sum += e;
     }
     sum = warp_sum(sum);
+    // P in v's dtype before P v, as the tensor-core kernel and the Pallas
+    // body round it (the identity for f32)
+    for (int j = lane; j < n; j += 32) prow[j] = round_as<T>(prow[j] / sum);
     __syncwarp();
     for (int d = lane; d < hd; d += 32) {
       float o = 0.f;
       for (int j = 0; j < n; ++j) o += prow[j] * sv[j * hd + d];
-      ob[i * hd + d] = from_f32<T>(o / sum);
+      ob[i * hd + d] = from_f32<T>(o);
     }
     __syncwarp();
   }
@@ -121,17 +145,134 @@ static cudaError_t launch(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
+// ---- tensor-core instantiation (bf16) -------------------------------------
+
+template <int HD>
+__global__ void __launch_bounds__(WTC_THREADS) window_attn_tc_kernel(
+    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+    const __nv_bfloat16* __restrict__ v, Strides qs, Strides ks, Strides vs,
+    const float* __restrict__ rel_bias,  // (H, n, n)
+    const float* __restrict__ mask,      // (nW, n, n) or nullptr
+    __nv_bfloat16* __restrict__ out,     // (B * nW, H, n, HD)
+    int BW, int nW, int n, int run, float scale) {
+  constexpr int TILE = WTC_ROWS * (HD + 8);
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* sm = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [2][3]
+  float* smask = reinterpret_cast<float*>(sm + 2 * 3 * TILE);      // [2]
+  const int mstage = mask_stage_floats(n);
+  const long long mtotal = (long long)nW * n * n;
+
+  const int h = blockIdx.y, H = gridDim.y;
+  const int w0 = blockIdx.x * run;
+  const int cnt = min(run, BW - w0);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int t = lane & 3, r0 = warp * 16 + (lane >> 2);
+
+  // rows n..63 of every staged tile, and the slack behind the mask tiles
+  zero_pad_rows<HD>(sm, 2 * 3, n);
+  if (mask) zero_mask_slack(smask, mstage);
+  __syncthreads();
+
+  auto prefetch = [&](int it) {
+    const long long bw = w0 + it;
+    __nv_bfloat16* buf = sm + (it & 1) * 3 * TILE;
+    load_tile<HD>(buf, q + bw * qs.b + h * qs.h, qs.n, n);
+    load_tile<HD>(buf + TILE, k + bw * ks.b + h * ks.h, ks.n, n);
+    load_tile<HD>(buf + 2 * TILE, v + bw * vs.b + h * vs.h, vs.n, n);
+    if (mask)
+      load_mask_tile(smask + (it & 1) * mstage, mask, (bw % nW) * n * n,
+                     mtotal, n);
+    cp_async_commit();
+  };
+
+  float bias[8][4];
+  load_bias_frag(bias, rel_bias + (long long)h * n * n, n, r0, t);
+  prefetch(0);
+  for (int it = 0; it < cnt; ++it) {
+    const long long bw = w0 + it;
+    if (it + 1 < cnt) prefetch(it + 1);
+    float s[8][4];
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) s[nt][c] = bias[nt][c];
+    if (it + 1 < cnt)
+      cp_async_wait<1>();
+    else
+      cp_async_wait<0>();
+    __syncthreads();
+    if (mask)
+      add_mask_frag(s, smask + (it & 1) * mstage + (((bw % nW) * n * n) & 3),
+                    n, r0, t);
+
+    const __nv_bfloat16* sq = sm + (it & 1) * 3 * TILE;
+    float acc[8][4] = {};
+    mma_rows_by_rows<HD>(acc, sq, sq + TILE, warp, lane);
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) s[nt][c] = fmaf(acc[nt][c], scale, s[nt][c]);
+    softmax_rows(s);
+    uint32_t pa[4][4];
+    c_to_a_frags(pa, s);
+    float o[HD / 8][4] = {};
+    mma_frag_by_tile<HD>(o, pa, sq + 2 * TILE, lane);
+    store_rows<HD>(out + (bw * H + h) * (long long)n * HD, o, 1.f, n, r0, t);
+    // the buffer is the next prefetch's target
+    __syncthreads();
+  }
+}
+
+template <int HD>
+static cudaError_t launch_tc(const void* q, const void* k, const void* v,
+                             const long long* st, const float* rel_bias,
+                             const float* mask, void* out, int BW, int H,
+                             int nW, int n, int run, float scale,
+                             cudaStream_t stream) {
+  const size_t smem = 2 * 3 * WTC_ROWS * (HD + 8) * sizeof(__nv_bfloat16) +
+                      (mask ? 2 * mask_stage_floats(n) * sizeof(float) : 0);
+  if (smem > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(
+        window_attn_tc_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (e != cudaSuccess) return e;
+  }
+  Strides qs{st[0], st[1], st[2]}, ks{st[3], st[4], st[5]},
+      vs{st[6], st[7], st[8]};
+  const dim3 grid((unsigned)((BW + run - 1) / run), (unsigned)H);
+  window_attn_tc_kernel<HD><<<grid, WTC_THREADS, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(q),
+      static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), qs, ks, vs, rel_bias, mask,
+      static_cast<__nv_bfloat16*>(out), BW, nW, n, run, scale);
+  return cudaGetLastError();
+}
+
 // strides: host array of 9 element strides, (image * window, head, token)
 // for q, k, v in turn; the channel stride must be 1. mask may be null.
-// Returns a cudaError_t code.
+// run > 0: the tensor-core kernel, each block walking `run` consecutive
+// (image * window) tiles of one head (bf16, n <= 64, hd 32 or 64, bases and
+// strides multiples of 16 bytes: the wrapper checks); run == 0: the
+// CUDA-core kernel. Returns a cudaError_t code.
 extern "C" int window_attn_fwd(const void* q, const void* k, const void* v,
                                int dtype, const long long* strides,
                                const float* rel_bias, const float* mask,
                                void* out, int BW, int H, int nW, int n, int hd,
-                               float scale, void* stream) {
-  if (BW < 1 || H < 1 || nW < 1 || n < 1 || hd < 1 || BW % nW != 0)
+                               float scale, int run, void* stream) {
+  if (BW < 1 || H < 1 || nW < 1 || n < 1 || hd < 1 || BW % nW != 0 || run < 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (run > 0) {
+    if (dtype != kBF16 || n > WTC_ROWS || H > 65535)
+      return (int)cudaErrorInvalidValue;
+    if (hd == 32)
+      return (int)launch_tc<32>(q, k, v, strides, rel_bias, mask, out, BW, H,
+                                nW, n, run, scale, s);
+    if (hd == 64)
+      return (int)launch_tc<64>(q, k, v, strides, rel_bias, mask, out, BW, H,
+                                nW, n, run, scale, s);
+    return (int)cudaErrorInvalidValue;
+  }
   if (dtype == kF32)
     return (int)launch<float>(q, k, v, strides, rel_bias, mask, out, BW, H, nW,
                               n, hd, scale, s);

@@ -168,10 +168,14 @@ def build_seg_head(cfg: dict, dtype, device):
 
 
 def build_model(cfg: dict, tasks: Optional[Sequence[str]] = None,
-                device="cpu", generator: Optional[torch.Generator] = None):
+                device="cuda", generator: Optional[torch.Generator] = None):
     """Build the MTL model from a reference-shaped model config, in eval
     mode, with weights initialised from ``generator`` (seed 0 when None;
     nothing is initialised on the ``meta`` device).
+
+    ``device``: where the model is built, the card by default. Without a
+    CUDA device a CUDA build raises; pass ``device="cpu"`` to build on the
+    CPU, as the tests do: nothing is built there unasked.
 
     ``tasks``: the task heads to build (default: every head the config
     has). ``cfg['compute_dtype'] = 'bfloat16'`` runs linears and convs in
@@ -191,6 +195,10 @@ def build_model(cfg: dict, tasks: Optional[Sequence[str]] = None,
     dtype = {None: torch.float32, "float32": torch.float32,
              "bfloat16": torch.bfloat16}[cfg.get("compute_dtype")]
     device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"build_model: no CUDA device for device={str(device)!r} (the "
+            "default is the card); pass device=\"cpu\" to build on the CPU")
     neck_cfg = cfg.get("neck")
     model = MTL(
         backbone=build_backbone(cfg["backbone"], dtype, device),

@@ -107,7 +107,7 @@ def load() -> ctypes.CDLL:
         lib.msda_fwd.restype = _I
         lib.window_attn_fwd.argtypes = [
             _P, _P, _P, _I, ctypes.POINTER(ctypes.c_longlong), _P, _P, _P,
-            _I, _I, _I, _I, _I, ctypes.c_float, _P]
+            _I, _I, _I, _I, _I, ctypes.c_float, _I, _P]
         lib.window_attn_fwd.restype = _I
         lib.msda_bwd.argtypes = [_P, _I, _P, _P, _I, _P, _P, _P, _P, _P, _I,
                                  _I, _I, _I, _I, _I, _I,
@@ -117,7 +117,7 @@ def load() -> ctypes.CDLL:
         lib.scatter_add.restype = _I
         lib.window_attn_bwd.argtypes = [
             _P, _P, _P, _I, ctypes.POINTER(ctypes.c_longlong), _P, _P, _P,
-            _P, _P, _P, _P, _I, _I, _I, _I, _I, ctypes.c_float, _P]
+            _P, _P, _P, _P, _I, _I, _I, _I, _I, ctypes.c_float, _I, _P]
         lib.window_attn_bwd.restype = _I
         lib.ws_fwd.argtypes = [_P, _P, _I, _P, _L, _I, _I, _P]
         lib.ws_fwd.restype = _I

@@ -10,11 +10,27 @@ launches the hand-written kernel ``csrc/window_attn.cu`` (K2) and the
 backward ``csrc/window_attn_bwd.cu`` (K2b); for CPU tensors they are the
 plain versions ``window_attention_torch`` and ``window_attention_bwd_torch``;
 any other device raises.
+
+Arithmetic. Scores, softmax, row sums and d_rel_bias are float32 and the
+scale multiplies the float32 product q k^T. With float32 inputs everything
+else is float32 too. With bfloat16 inputs the kernels put every product on
+the tensor cores (bf16 operands, float32 accumulation), as the Pallas body
+does, so P is rounded to bf16 before P v (and before P^T dO), and dS before
+dS k and dS^T q; the plain versions round at the same places.
+
+Each kernel has two instantiations behind its one entry point, and
+``tensor_core_plan`` picks: bf16 with n <= 64, head width 32 or 64 and
+16-byte aligned bases and strides takes the tensor-core kernel, in which a
+block walks a run of consecutive windows of one head; float32 inputs, and
+bf16 inputs outside those shapes, take the CUDA-core kernel (one block per
+window and head, float32 arithmetic on operands staged as float32).
+``launches`` counts both.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional
 
 import torch
@@ -66,8 +82,74 @@ window_attention.launches = 0
 # shared-memory ceiling of one block on Hopper (227 KB)
 _MAX_SMEM = 232448
 
+# the tensor-core instantiations (csrc/window_attn_tc.cuh): tiles padded to
+# 64 tokens, head widths compiled, 16-byte cp.async rows
+TC_MAX_TOKENS = 64
+TC_HEAD_DIMS = (32, 64)
+# What bounds the blocks resident on one SM: the registers (128 threads a
+# block; K2 128 a thread, K2b 182, as ptxas reports for head width 32, which
+# every flagship stage runs) and the shared memory of a Hopper SM (228 KB,
+# 1 KB of it reserved per block). The longest run of windows a block walks.
+TC_REG_BLOCKS_PER_SM = {"fwd": 4, "bwd": 2}
+_SM_SMEM = 233472
+TC_MAX_RUN = 32
+# the SM count of an H100 SXM: what ``tensor_core_plan`` assumes when it is
+# not told the device's (the wrappers read it from the device)
+H100_SM_COUNT = 132
 
-def _check_cuda_args(name, q, k, v, rel_bias, shift_mask, smem):
+
+def tc_smem_bytes(kind: str, n: int, hd: int, masked: bool) -> int:
+    """Dynamic shared memory of one tensor-core block, as ``launch_tc`` in
+    csrc/window_attn.cu and csrc/window_attn_bwd.cu sizes it: two stages of
+    q, k, v (and dO) tiles of 64 x (hd + 8) bf16, K2b's P and dS tiles of
+    64 x 72 bf16, two stages of the f32 mask tile."""
+    tiles = 2 * (3 if kind == "fwd" else 4) * 64 * (hd + 8)
+    if kind == "bwd":
+        tiles += 2 * 64 * 72
+    stage = (n * n + 6) // 4 * 4 + 64
+    return 2 * tiles + (2 * 4 * stage if masked else 0)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def tensor_core_plan(kind: str, dtype: torch.dtype, shape, strides,
+                     data_ptrs, masked: bool = True,
+                     sm_count: int = H100_SM_COUNT) -> int:
+    """Which instantiation a CUDA launch takes, from what the kernel is
+    given: 0 for the CUDA-core kernel, else the tensor-core kernel with the
+    returned number of consecutive (image * window) tiles per block.
+
+    ``kind`` "fwd" (K2) or "bwd" (K2b); ``shape`` (B, nW, H, n, hd);
+    ``strides`` the (image * window, head, token) element strides of q, k,
+    v in turn; ``data_ptrs`` the base addresses of q, k, v (and d_out, and
+    the shift mask, where given), which the 16-byte copies need aligned;
+    ``masked`` whether a shift mask is staged; ``sm_count`` the device's
+    SMs. The run length spreads the B * nW * H tiles over the blocks the
+    card holds at once, so that a block loads its bias fragment once (K2)
+    and adds its share of d_rel_bias once (K2b): blocks per head fall from
+    B * nW to ceil(B * nW / run)."""
+    B, nW, H, n, hd = shape
+    if dtype != torch.bfloat16 or n > TC_MAX_TOKENS or \
+            hd not in TC_HEAD_DIMS or H > 65535:
+        return 0
+    if any(s % 8 for s in strides) or any(p % 16 for p in data_ptrs):
+        return 0
+    resident = min(TC_REG_BLOCKS_PER_SM[kind],
+                   _SM_SMEM // (tc_smem_bytes(kind, n, hd, masked) + 1024))
+    slots = sm_count * resident
+    return max(1, min(TC_MAX_RUN, -(-B * nW * H // slots)))
+
+
+def _check_smem(name, n, hd, smem):
+    if smem > _MAX_SMEM:
+        raise ValueError(f"{name}: n={n}, hd={hd} needs {smem} B of shared "
+                         "memory per block")
+
+
+def _check_cuda_args(name, q, k, v, rel_bias, shift_mask):
     """Validate the kernels' inputs; returns the 9 (image * window, head,
     token) element strides of q, k, v."""
     B, nW, H, n, hd = q.shape
@@ -83,9 +165,6 @@ def _check_cuda_args(name, q, k, v, rel_bias, shift_mask, smem):
                                    shift_mask.dtype != torch.float32):
         raise ValueError(f"{name}: shift_mask must be float32 (nW, n, n) = "
                          f"{(nW, n, n)}")
-    if smem > _MAX_SMEM:
-        raise ValueError(f"{name}: n={n}, hd={hd} needs {smem} B of shared "
-                         "memory per block")
     strides = []
     for arg, t in (("q", q), ("k", k), ("v", v)):
         if t.device != q.device:
@@ -99,13 +178,20 @@ def _check_cuda_args(name, q, k, v, rel_bias, shift_mask, smem):
         if t is not None and (t.device != q.device or not t.is_contiguous()):
             raise ValueError(f"{name}: {arg} must be contiguous on "
                              f"{q.device}")
-    return (ctypes.c_longlong * 9)(*strides)
+    return strides
 
 
 def _window_attention_cuda(q, k, v, rel_bias, shift_mask, scale):
     B, nW, H, n, hd = q.shape
-    st = _check_cuda_args("window_attention", q, k, v, rel_bias, shift_mask,
-                          4 * (3 * n * hd + n + n * n + 4 * n))
+    st = _check_cuda_args("window_attention", q, k, v, rel_bias, shift_mask)
+    run = tensor_core_plan(
+        "fwd", q.dtype, q.shape, st,
+        [t.data_ptr() for t in (q, k, v, shift_mask) if t is not None],
+        shift_mask is not None, _sm_count(q.device))
+    if run == 0:
+        _check_smem("window_attention", n, hd,
+                    4 * (3 * n * hd + n + n * n + 4 * n))
+    st = (ctypes.c_longlong * 9)(*st)
     out = torch.empty((B, nW, H, n, hd), dtype=q.dtype, device=q.device)
     if out.numel() == 0:
         return out
@@ -115,7 +201,7 @@ def _window_attention_cuda(q, k, v, rel_bias, shift_mask, scale):
             q.data_ptr(), k.data_ptr(), v.data_ptr(),
             kernel_lib.dtype_code(q, "q"), st, rel_bias.data_ptr(),
             shift_mask.data_ptr() if shift_mask is not None else None,
-            out.data_ptr(), B * nW, H, nW, n, hd, scale,
+            out.data_ptr(), B * nW, H, nW, n, hd, scale, run,
             kernel_lib.stream_ptr(q.device))
     kernel_lib.check(err, "window_attn_fwd")
     window_attention.launches += 1
@@ -134,12 +220,19 @@ def window_attention_bwd(q, k, v, rel_bias, shift_mask, scale, d_out):
                          f"{q.device}")
     B, nW, H, n, hd = q.shape
     st = _check_cuda_args("window_attention_bwd", q, k, v, rel_bias,
-                          shift_mask,
-                          4 * (2 * n * hd + 2 * n * (hd + 1) + 3 * n * n))
+                          shift_mask)
     if tuple(d_out.shape) != tuple(q.shape) or d_out.dtype != q.dtype or \
             d_out.device != q.device or not d_out.is_contiguous():
         raise ValueError("window_attention_bwd: d_out must be contiguous "
                          f"{q.dtype} {tuple(q.shape)} on {q.device}")
+    run = tensor_core_plan(
+        "bwd", q.dtype, q.shape, st,
+        [t.data_ptr() for t in (q, k, v, d_out, shift_mask)
+         if t is not None], shift_mask is not None, _sm_count(q.device))
+    if run == 0:
+        _check_smem("window_attention_bwd", n, hd,
+                    4 * (2 * n * hd + 2 * n * (hd + 1) + 3 * n * n))
+    st = (ctypes.c_longlong * 9)(*st)
     dq, dk, dv = (torch.empty((B, nW, H, n, hd), dtype=q.dtype,
                               device=q.device) for _ in range(3))
     d_bias = torch.zeros((H, n, n), dtype=torch.float32, device=q.device)
@@ -152,7 +245,7 @@ def window_attention_bwd(q, k, v, rel_bias, shift_mask, scale, d_out):
             kernel_lib.dtype_code(q, "q"), st, rel_bias.data_ptr(),
             shift_mask.data_ptr() if shift_mask is not None else None,
             d_out.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            d_bias.data_ptr(), B * nW, H, nW, n, hd, float(scale),
+            d_bias.data_ptr(), B * nW, H, nW, n, hd, float(scale), run,
             kernel_lib.stream_ptr(q.device))
     kernel_lib.check(err, "window_attn_bwd")
     window_attention_bwd.launches += 1
@@ -170,22 +263,30 @@ def _probs(q, k, rel_bias, shift_mask, scale):
     return torch.softmax(s, dim=-1)
 
 
+def _as_operand(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``x`` (float32) as the kernels feed it to a product: rounded to
+    ``dtype`` when that is bf16, untouched for float32."""
+    return x if dtype == torch.float32 else x.to(dtype).float()
+
+
 def window_attention_bwd_torch(q: torch.Tensor, k: torch.Tensor,
                                v: torch.Tensor, rel_bias: torch.Tensor,
                                shift_mask: Optional[torch.Tensor],
                                scale: float, d_out: torch.Tensor):
-    """Plain PyTorch version of K2b, f32 throughout: dV = P^T dO,
+    """Plain PyTorch version of K2b, f32 sums throughout: dV = P^T dO,
     dP = dO V^T, dS = P (dP - rowsum(dO O)), dQ = scale dS K,
     dK = scale dS^T Q, d_rel_bias = sum of dS over images and windows.
-    O = P V is recomputed in f32."""
+    O = P V is recomputed in f32. For bf16 inputs P and dS are rounded to
+    bf16 as operands of dV, dQ and dK, where the kernel rounds them."""
     p = _probs(q, k, rel_bias, shift_mask, scale)
     vf, do = v.float(), d_out.float()
     o = torch.einsum("bwhqk,bwhkd->bwhqd", p, vf)
-    dv = torch.einsum("bwhqk,bwhqd->bwhkd", p, do)
+    dv = torch.einsum("bwhqk,bwhqd->bwhkd", _as_operand(p, q.dtype), do)
     dp = torch.einsum("bwhqd,bwhkd->bwhqk", do, vf)
     ds = p * (dp - (do * o).sum(-1, keepdim=True))
-    dq = torch.einsum("bwhqk,bwhkd->bwhqd", ds, k.float()) * scale
-    dk = torch.einsum("bwhqk,bwhqd->bwhkd", ds, q.float()) * scale
+    ds_op = _as_operand(ds, q.dtype)
+    dq = torch.einsum("bwhqk,bwhkd->bwhqd", ds_op, k.float()) * scale
+    dk = torch.einsum("bwhqk,bwhqd->bwhkd", ds_op, q.float()) * scale
     return (dq.to(q.dtype), dk.to(q.dtype), dv.to(q.dtype),
             ds.sum((0, 1)))
 
@@ -195,8 +296,9 @@ def window_attention_torch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            shift_mask: Optional[torch.Tensor] = None,
                            scale: Optional[float] = None) -> torch.Tensor:
     """Plain PyTorch version of K2 (the einsum path of the JAX Swin block):
-    f32 scores and softmax, output in q's dtype."""
+    f32 scores and softmax, output in q's dtype. For bf16 inputs P is
+    rounded to bf16 before P v, as the kernel and the Pallas body do."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
-    p = _probs(q, k, rel_bias, shift_mask, scale)
+    p = _as_operand(_probs(q, k, rel_bias, shift_mask, scale), q.dtype)
     return torch.einsum("bwhqk,bwhkd->bwhqd", p, v.float()).to(q.dtype)

@@ -140,7 +140,9 @@ def time_levels(device, iters: int = 30, chain: int = 8,
                 seed: int = 0) -> dict:
     """Per-level ms per call of K6 and of ``production_level_slice`` at the
     det-encoder shapes (CUDA events around ``chain`` back-to-back calls,
-    ``iters`` times, after one warm-up chain)."""
+    ``iters`` times, after one warm-up chain). Each level also reports what
+    one K6 call moves: ``bytes`` (table, idx, w read once, the output
+    written once) and ``out_elements`` (one multiply each)."""
     rng = np.random.default_rng(seed)
     Gf, Q, P, Cq = 8, 13344, 4, 128
     Kf = Q * P
@@ -168,6 +170,10 @@ def time_levels(device, iters: int = 30, chain: int = 8,
             timed[name] = start.elapsed_time(end) / (iters * chain)
             print(f"nv={nv:6d} {name:12s} {timed[name]:7.4f} ms/layer-level "
                   f"(sum={out.sum().item():.1f})", flush=True)
+            if fn is weighted_gather_mm:
+                timed["bytes"] = sum(t.numel() * t.element_size()
+                                     for t in (table, idx, wt, out))
+                timed["out_elements"] = out.numel()
         results[nv] = timed
     return results
 

@@ -78,7 +78,7 @@ def test_state_dict_equals_reverse_converter(tiny_tree):
 
 def test_tiny_mtl_loads_strict(tiny_tree):
     cfg, tree = tiny_tree
-    model = build_model(cfg)
+    model = build_model(cfg, device="cpu")
     sd = state_dict_from_jax(tree)
     model.load_state_dict(sd, strict=True)
     for k, v in model.state_dict().items():
@@ -120,7 +120,8 @@ def test_init_matches_flax_initialisers(tiny_tree):
     and zero mean within 0.1 std."""
     cfg, tree = tiny_tree
     want = state_dict_from_jax(tree)
-    got = build_model(cfg, generator=torch.Generator().manual_seed(1)
+    got = build_model(cfg, device="cpu",
+                      generator=torch.Generator().manual_seed(1)
                       ).state_dict()
     n_random = 0
     for k, w in want.items():

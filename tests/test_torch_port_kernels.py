@@ -5,8 +5,9 @@ the numpy oracle and the Pallas kernel in interpret mode;
 ``window_attention_torch`` (plain version of K2) against the Pallas kernel
 in interpret mode. Tolerance 1e-4 relative / 1e-5 absolute (float32; the
 two stacks sum in other orders).
-The kernel-vs-plain cases, forward and backward (K1, K1b, K3', K2, K2b),
-need a card (marker ``cuda``) and skip without one. On the machine with the
+The kernel-vs-plain cases, forward and backward (K1, K1b, K3', K2, K2b, the
+last two in both their tensor-core and CUDA-core instantiations), need a
+card (marker ``cuda``) and skip without one. On the machine with the
 card, which has no JAX, run them with
 ``python -m pytest --noconftest -m cuda tests/test_torch_port_kernels.py``;
 ``python3 chip_smoke.py`` runs the same comparisons at the flagship shapes.
@@ -176,11 +177,46 @@ def cuda_device():
 KTOL = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (1e-3, 2.0 ** -7)}
 
 
-def _assert_kernel_close(got, ref, dtype):
+def _assert_kernel_close(got, ref, dtype, slack=0):
     atol, rtol = KTOL[dtype]
     assert got.dtype == dtype
-    assert ((got.float() - ref).abs() - rtol * ref.abs()).max().item() \
-        <= atol
+    assert ((got.float() - ref).abs() - rtol * ref.abs() - slack
+            ).max().item() <= atol
+
+
+# K2 / K2b in bf16 round P (and dS) to bf16 as operands of the tensor-core
+# products, and so does the plain version; the f32 values differ in their
+# last bits, so an entry on a rounding boundary differs by one bf16 ulp
+# (2^-7 relative) between the two. That is rare, so at most P_FLIPS of the
+# terms of one output are taken to be off at once: the bf16 comparisons
+# allow, on top of KTOL / BTOL, P_FLIPS * 2^-7 * max_j (|operand_ij|
+# |factor_jd|) per output.
+P_ULP = 2.0 ** -7
+P_FLIPS = 2
+
+
+def _k2_ulp_slack(q, k, v, bias, mask, scale, d_out=None):
+    from rscotr_tpu_torch.ops.window_attention import _probs
+    if q.dtype != torch.bfloat16:
+        return 0 if d_out is None else (0, 0, 0, 0)
+
+    def largest_term(operand, factor, over_rows=False):
+        # operand (..., i, j), factor (..., j, d) -> max_j of the (i, d)
+        # terms; ``over_rows``: factor (..., i, d) -> max_i of the (j, d)
+        if over_rows:
+            return (operand[..., None] * factor[..., :, None, :]).amax(-3)
+        return (operand[..., None] * factor[..., None, :, :]).amax(-2)
+
+    allow = P_FLIPS * P_ULP
+    p = _probs(q, k, bias, mask, scale)
+    if d_out is None:
+        return allow * largest_term(p, v.float().abs())
+    do = d_out.float()
+    dp = torch.einsum("bwhqd,bwhkd->bwhqk", do, v.float())
+    ds = (p * (dp - (p * dp).sum(-1, keepdim=True))).abs()
+    return (allow * scale * largest_term(ds, k.float().abs()),
+            allow * scale * largest_term(ds, q.float().abs(), True),
+            allow * largest_term(p, do.abs(), True), 0)
 
 
 @pytest.mark.cuda
@@ -211,8 +247,11 @@ def test_window_attention_kernel_vs_plain(cuda_device, dtype, masked, hd):
     got = window_attention(q, k, v, bias, mask)
     torch.cuda.synchronize()
     assert window_attention.launches == before + 1
-    _assert_kernel_close(got, window_attention_torch(
-        q.float(), k.float(), v.float(), bias, mask), dtype)
+    # the plain version at the kernel's dtype: for bf16 it rounds P to bf16
+    # before P v, where the kernel does
+    _assert_kernel_close(got, window_attention_torch(q, k, v, bias,
+                                                     mask).float(), dtype,
+                         _k2_ulp_slack(q, k, v, bias, mask, hd ** -0.5))
 
 
 # backward kernels against the plain decomposition on the same CUDA
@@ -223,11 +262,11 @@ def test_window_attention_kernel_vs_plain(cuda_device, dtype, masked, hd):
 BTOL = {torch.float32: (1e-5, 1e-4), torch.bfloat16: (1e-5, 2.0 ** -7)}
 
 
-def _assert_grad_close(got, ref, dtype):
+def _assert_grad_close(got, ref, dtype, slack=0):
     atol, rtol = BTOL[dtype]
     got, ref = got.float(), ref.float()
     assert torch.isfinite(got).all()
-    bound = atol * ref.abs().max().item() + rtol * ref.abs()
+    bound = atol * ref.abs().max().item() + rtol * ref.abs() + slack
     assert ((got - ref).abs() - bound).max().item() <= 0
 
 
@@ -299,8 +338,189 @@ def test_window_attention_backward_kernel_vs_plain(cuda_device, dtype,
     got = torch.autograd.grad(out, (q, k, v, bias), d_out)
     torch.cuda.synchronize()
     assert window_attention_bwd.launches == before + 1
-    want = window_attention_bwd_torch(q.detach(), k.detach(), v.detach(),
-                                      bias.detach(), mask, hd ** -0.5, d_out)
-    for g, r, t in zip(got, want, (q, k, v, bias)):
+    args = (q.detach(), k.detach(), v.detach(), bias.detach(), mask,
+            hd ** -0.5, d_out)
+    want = window_attention_bwd_torch(*args)
+    for g, r, t, s in zip(got, want, (q, k, v, bias), _k2_ulp_slack(*args)):
         assert g.dtype == t.dtype and g.shape == t.shape
-        _assert_grad_close(g, r, dtype)
+        _assert_grad_close(g, r, dtype, s)
+
+
+# ---------------------------------------------------------------------------
+# the tensor-core instantiations of K2 / K2b (bf16, n <= 64, hd 32 or 64)
+# ---------------------------------------------------------------------------
+
+def _fused_views(q, k, v):
+    """The same values as the strided views of one (B * nW, n, 3, H, hd)
+    projection that the Swin block passes (channel stride 1, no copy)."""
+    B, nW, H, n, hd = q.shape
+    qkv = torch.stack([t.reshape(B * nW, H, n, hd).transpose(1, 2)
+                       for t in (q, k, v)], dim=2).contiguous()
+    return tuple(t.unflatten(0, (B, nW))
+                 for t in qkv.permute(2, 0, 3, 1, 4).unbind(0))
+
+
+def _wa_cuda(seed, dev, dtype, **kw):
+    q, k, v, bias, mask = wa_inputs(seed, **kw)
+    q, k, v = (torch.from_numpy(t).to(dev, dtype) for t in (q, k, v))
+    return (q, k, v, torch.from_numpy(bias).to(dev),
+            None if mask is None else torch.from_numpy(mask).to(dev))
+
+
+def _plan(kind, q, k, v):
+    from rscotr_tpu_torch.ops.window_attention import (_check_cuda_args,
+                                                       tensor_core_plan)
+    B, nW, H, n, hd = q.shape
+    st = _check_cuda_args("test", q, k, v, torch.zeros(
+        H, n, n, device=q.device), None)
+    return tensor_core_plan(kind, q.dtype, q.shape, st,
+                            [t.data_ptr() for t in (q, k, v)])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd", [32, 64])
+@pytest.mark.parametrize("via", ["bias", "mask"])
+def test_window_attention_tc_fragment_layout_permutation(cuda_device, hd,
+                                                         via):
+    """A bias (per head) or mask (per window) that leaves one key per query
+    makes P a permutation matrix: the output is v's rows permuted, exactly,
+    which pins the (row, column) map of the score fragments, the padded
+    columns and the P v fragment regrouping. Backward: dV is dO's rows
+    permuted back, exactly, and dQ = dK = d_rel_bias = 0 (dS vanishes),
+    which pins the transposed fragments of P^T dO."""
+    from rscotr_tpu_torch.ops.window_attention import window_attention_bwd
+    B, nW, H, n = 2, 4, 3, 49
+    rng = np.random.default_rng(20)
+    count = H if via == "bias" else nW
+    perms = np.stack([rng.permutation(n) for _ in range(count)])
+    table = np.full((count, n, n), -30000.0, np.float32)
+    for c in range(count):
+        table[c, np.arange(n), perms[c]] = 0.0
+    table = torch.from_numpy(table).to(cuda_device)
+    zeros = torch.zeros(H, n, n, device=cuda_device)
+    bias, mask = (table, None) if via == "bias" else (zeros, table)
+    q, k, v, d_out = (torch.from_numpy(rng.normal(size=(B, nW, H, n, hd))
+                                       .astype(np.float32))
+                      .to(cuda_device, torch.bfloat16) for _ in range(4))
+    q, k = q * 0, k * 0
+    assert _plan("fwd", q, k, v) > 0
+    got = window_attention(q, k, v, bias, mask)
+    idx = torch.from_numpy(perms).to(cuda_device)            # (count, n)
+    idx = idx[None, None, :, :] if via == "bias" else idx[None, :, None, :]
+    idx = idx.expand(B, nW, H, n)[..., None].expand(B, nW, H, n, hd)
+    assert torch.equal(got, torch.gather(v, 3, idx))
+    dq, dk, dv, db = window_attention_bwd(q, k, v, bias, mask, hd ** -0.5,
+                                          d_out)
+    torch.cuda.synchronize()
+    assert torch.equal(dv, torch.zeros_like(dv).scatter_(3, idx, d_out))
+    assert not dq.any() and not dk.any() and not db.any()
+
+
+@pytest.mark.cuda
+def test_window_attention_tc_fragment_layout_qk(cuda_device):
+    """One-hot q and k rows make every score either 0 or 16 * 16 * scale =
+    45: P is 1 or 1/2 on the keys whose hot channel matches the query's
+    (2e-20 elsewhere), so the output is v's matching row or the mean of the
+    two, which pins the q and k fragment layouts of S = q k^T."""
+    B, nW, H, n, hd = 1, 2, 2, 49, 32
+    rng = np.random.default_rng(21)
+    qc, kc = np.arange(n) % hd, (5 * np.arange(n) + 3) % hd
+    q = torch.zeros(B, nW, H, n, hd)
+    k = torch.zeros(B, nW, H, n, hd)
+    q[..., np.arange(n), qc] = 16.0
+    k[..., np.arange(n), kc] = 16.0
+    # multiples of 1/4 up to 8: the mean of two is a bf16 number, so no sum
+    # sits on a rounding tie that the accumulation order could break
+    v = torch.from_numpy(rng.integers(-32, 33, (B, nW, H, n, hd)).astype(
+        np.float32) / 4).bfloat16()
+    match = torch.from_numpy((qc[:, None] == kc[None, :]).astype(np.float32))
+    assert match.sum(-1).min() >= 1
+    want = ((match / match.sum(-1, keepdim=True)) @ v.float()).bfloat16()
+    q, k, v = (t.to(cuda_device, torch.bfloat16) for t in (q, k, v))
+    got = window_attention(q, k, v, torch.zeros(H, n, n, device=cuda_device))
+    # the other keys keep P = exp(-45) = 2e-20 each, visible only where the
+    # exact result is 0
+    assert (got.cpu().float() - want.float()).abs().max().item() <= 1e-15
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd", [32, 64])
+def test_window_attention_tc_strided_qkv_views(cuda_device, hd):
+    """q, k, v as views of the fused projection give the contiguous call's
+    bits (d_rel_bias up to the order of its atomics)."""
+    from rscotr_tpu_torch.ops.window_attention import window_attention_bwd
+    q, k, v, bias, mask = _wa_cuda(3, cuda_device, torch.bfloat16, B=2, nW=9,
+                                   H=3, hd=hd, masked=True)
+    qs, ks, vs = _fused_views(q, k, v)
+    assert not qs.is_contiguous() and _plan("bwd", qs, ks, vs) > 0
+    d_out = torch.randn(q.shape, device=cuda_device,
+                        generator=torch.Generator(cuda_device).manual_seed(2)
+                        ).bfloat16()
+    assert torch.equal(window_attention(qs, ks, vs, bias, mask),
+                       window_attention(q, k, v, bias, mask))
+    got = window_attention_bwd(qs, ks, vs, bias, mask, hd ** -0.5, d_out)
+    want = window_attention_bwd(q, k, v, bias, mask, hd ** -0.5, d_out)
+    for g, r in zip(got[:3], want[:3]):
+        assert g.is_contiguous() and torch.equal(g, r)
+    _assert_grad_close(got[3], want[3], torch.float32)
+
+
+@pytest.mark.cuda
+def test_window_attention_tc_ragged_window_runs(cuda_device):
+    """5 x 361 tiles per head: the blocks walk runs of several windows and
+    the last run of each head is shorter than the others."""
+    from rscotr_tpu_torch.ops.window_attention import (
+        window_attention_bwd, window_attention_bwd_torch)
+    q, k, v, bias, mask = _wa_cuda(4, cuda_device, torch.bfloat16, B=5,
+                                   nW=361, H=3, hd=32, masked=True)
+    for kind in ("fwd", "bwd"):
+        run = _plan(kind, q, k, v)
+        assert run > 1 and (5 * 361) % run != 0
+    _assert_kernel_close(window_attention(q, k, v, bias, mask),
+                         window_attention_torch(q, k, v, bias, mask).float(),
+                         torch.bfloat16,
+                         _k2_ulp_slack(q, k, v, bias, mask, 32 ** -0.5))
+    d_out = torch.randn(q.shape, device=cuda_device,
+                        generator=torch.Generator(cuda_device).manual_seed(3)
+                        ).bfloat16()
+    args = (q, k, v, bias, mask, 32 ** -0.5, d_out)
+    got = window_attention_bwd(*args)
+    want = window_attention_bwd_torch(*args)
+    for g, r, s in zip(got, want, _k2_ulp_slack(*args)):
+        _assert_grad_close(g, r, torch.bfloat16, s)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("why,kw", [("hd=24", dict(hd=24)),
+                                    ("odd base", dict(hd=32, offset=1))])
+def test_window_attention_cuda_core_dispatch_in_bf16(cuda_device, why, kw):
+    """bf16 inputs outside the tensor-core shapes (a head width that is not
+    compiled, a base that is not 16-byte aligned) take the CUDA-core
+    instantiation, count as launches and agree with the plain version."""
+    from rscotr_tpu_torch.ops.window_attention import (
+        window_attention_bwd, window_attention_bwd_torch)
+    hd, off = kw["hd"], kw.get("offset", 0)
+    q, k, v, bias, mask = _wa_cuda(5, cuda_device, torch.bfloat16, B=2, nW=4,
+                                   H=3, hd=hd, masked=True)
+    if off:
+        # the same values at a base that is 2 bytes past a 16-byte boundary
+        q, k, v = (torch.cat([t.new_zeros(off), t.flatten()])[off:].view(
+            t.shape) for t in (q, k, v))
+    assert _plan("fwd", q, k, v) == 0 and _plan("bwd", q, k, v) == 0
+    k2, k2b = window_attention.launches, window_attention_bwd.launches
+    got = window_attention(q, k, v, bias, mask)
+    _assert_kernel_close(got, window_attention_torch(q, k, v, bias,
+                                                     mask).float(),
+                         torch.bfloat16,
+                         _k2_ulp_slack(q, k, v, bias, mask, hd ** -0.5))
+    d_out = torch.randn(q.shape, device=cuda_device,
+                        generator=torch.Generator(cuda_device).manual_seed(4)
+                        ).bfloat16()
+    args = (q, k, v, bias, mask, hd ** -0.5, d_out)
+    grads = window_attention_bwd(*args)
+    torch.cuda.synchronize()
+    assert window_attention.launches == k2 + 1
+    assert window_attention_bwd.launches == k2b + 1
+    for g, r, s in zip(grads, window_attention_bwd_torch(*args),
+                       _k2_ulp_slack(*args)):
+        _assert_grad_close(g, r, torch.bfloat16, s)

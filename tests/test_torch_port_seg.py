@@ -250,7 +250,7 @@ def seg_models():
     jm = jax_build_model(cfg)
     params = jax.jit(lambda k: jm.init(
         k, seg_img=jnp.zeros((1, 64, 64, 3))))(jax.random.key(0))
-    model = build_model(cfg, tasks=("seg",))
+    model = build_model(cfg, tasks=("seg",), device="cpu")
     model.load_state_dict(convert.state_dict_from_jax(tnp(params["params"])),
                           strict=True)
     return cfg, jm, params, model

@@ -42,7 +42,7 @@ def slice_models():
         det_img=jnp.zeros((1, 128, 128, 3)),
         det_img_hw=jnp.array([[128, 128]], jnp.int32)))(jax.random.key(0))
     tree = jax.tree.map(lambda x: np.asarray(x).copy(), params["params"])
-    model = build_model(cfg, tasks=("cls", "det"))
+    model = build_model(cfg, tasks=("cls", "det"), device="cpu")
     model.load_state_dict(state_dict_from_jax(tree), strict=True)
     max_per_img = cfg["test_cfg"]["det"]["max_per_img"]
     return jm, params, model, max_per_img

@@ -89,7 +89,8 @@ def trained():
         det_img=jnp.zeros((1, 128, 128, 3)),
         det_img_hw=jnp.array([[128, 128]], jnp.int32)))(jax.random.key(0))
     tree = jax.tree.map(lambda x: np.asarray(x).copy(), params["params"])
-    model = build_model(cfg["model"], tasks=("cls", "det"))
+    model = build_model(cfg["model"], tasks=("cls", "det"),
+                        device="cpu")
     model.load_state_dict(state_dict_from_jax(tree), strict=True)
 
     kw = dict(lr_config=cfg["lr_config"],
