@@ -16,17 +16,22 @@ Phases, each of which raises on failure (exit code 1, no result line):
    not divide, and at a head width that takes its CUDA-core instantiation
    in bf16. Each timed kernel stands beside its bound (the larger of bytes
    moved once over 3.35 TB/s and operations over the published peak);
-4. backward kernels: K1b (MSDA backward rows), K3' (its value-gradient
-   scatter) and K2b (window attention backward), through
-   ``torch.autograd.grad`` of the CUDA Functions, against the plain
-   decomposition at the flagship's shapes (K2b at K2's extra cases too),
-   float32 and bfloat16, timed, with bounds, and K3' beside one
-   ``index_add_`` call, its library yardstick;
+4. backward kernels: K1b (the whole MSDA backward in one launch, the
+   value-gradient scatter fused in) and K2b (window attention backward),
+   through ``torch.autograd.grad`` of the CUDA Functions, against the plain
+   decomposition at the flagship's shapes (K1b at the det and seg encoders
+   and the train decoder, at a head width of 64, at one that takes its
+   lane-per-channel body, and with locations that clamp at the map's edge;
+   K2b at K2's extra cases too), float32 and bfloat16, timed, with bounds;
+   K3' (the scatter alone, which the quad-gather path runs) on the quad-row
+   updates of the plain backward, beside one ``index_add_`` call, its
+   library yardstick;
 5. quad-gather MSDA at the det encoder: ``ms_deform_attn(impl="quad")``
-   forward + backward once (K4 and K5 launches counted), K4 (corner-weighted
-   sum) and K5 (its gradients) against their plain versions, the quad path's
-   output and gradients against the K1 path's, float32 and bfloat16; K4, K5
-   and both paths timed, with their peak memory;
+   forward + backward once (K4, K5 and K3' launches counted), K4
+   (corner-weighted sum) and K5 (its gradients) against their plain
+   versions, the quad path's output and gradients against the K1 path's,
+   float32 and bfloat16; K4, K5 and both paths timed, with their peak
+   memory;
 6. K6 through the probe tool (``rscotr_tpu_torch.tools.
    probe_msda_weighted_gather_mm``): its parity check, K6 against its plain
    version at the four det-encoder level shapes, float32 and bfloat16, then
@@ -67,7 +72,12 @@ none; timed here, called nowhere in the port; for K2 and K2b the fastest
 SDPA backend, named in ``library_backend``). K2 and K2b are shorter than
 their wrapper's host time, so their ``ms`` and ``library_ms`` are device
 times from a CUDA-graph replay, ``eager_ms`` is the eager-call time, and
-``stages`` holds all three timed stage shapes. The last line is
+``stages`` holds all three timed stage shapes; K1b's are device times too,
+beside ``eager_ms`` and ``whole_ms`` (the whole ``ms_deform_attn_bwd``: zero
+fill, kernel, cast), timed at locations in [0, 1], as a model's are; its
+``stages`` also hold the time at the [-0.2, 1.2] locations of the other
+kernel cases, where half the corners are off the map and skipped. The last
+line is
 {"ok": true, "device": {...}}. Without a CUDA device the script exits 1
 before printing any result.
 """
@@ -308,18 +318,23 @@ def log_times(times) -> None:
         lib = r.get("library_ms")
         via = f" ({r['library_backend']})" if "library_backend" in r else ""
         eager = f" (eager {r['eager_ms']:.4f})" if "eager_ms" in r else ""
+        if "whole_ms" in r:
+            eager += (f"; whole ms_deform_attn_bwd {r['whole_ms']:.4f} ms "
+                      f"(eager {r['whole_eager_ms']:.4f})")
         log(f"  time bf16 {name:<28} kernel {r['ms']:.4f} ms{eager}   plain "
             f"{r['plain_ms']:.4f} ms   bound {r['bound_ms']:.4f} ms "
             f"({r['bound_by']})   library "
             f"{'none' if lib is None else f'{lib:.4f} ms'}{via}")
 
 
-def msda_inputs(B, Q, dtype, g, H=8, D=32, P=4, shapes=DET_SHAPES):
+def msda_inputs(B, Q, dtype, g, H=8, D=32, P=4, shapes=DET_SHAPES,
+                span=(-0.2, 1.2)):
     L = len(shapes)
     Nv = sum(h * w for h, w in shapes)
     v = torch.randn(B, Nv, H, D, device="cuda", generator=g).to(dtype)
     # locations straddle the border to exercise the validity masking
-    loc = torch.rand(B, Q, H, L, P, 2, device="cuda", generator=g) * 1.4 - 0.2
+    loc = torch.rand(B, Q, H, L, P, 2, device="cuda", generator=g) * (
+        span[1] - span[0]) + span[0]
     w = torch.rand(B, Q, H, L, P, device="cuda", generator=g)
     w = (w / w.sum((-1, -2), keepdim=True)).to(dtype)
     return v, shapes, loc, w
@@ -515,12 +530,14 @@ def kernel_phase():
 
 def quad_phase():
     """K4 / K5 and the quad-gather MSDA at the det encoder: the main path's
-    run (``impl="quad"`` forward + backward, bf16), K4 / K5 against their
+    run (``impl="quad"`` forward + backward, bf16, which also launches K3',
+    the value-gradient scatter of this path), K4 / K5 against their
     plain versions, the quad path against the K1 path, times and peak
     memory."""
     from rscotr_tpu_torch.ops.ms_deform_attn import ms_deform_attn
     from rscotr_tpu_torch.ops.msda_ws import (ws_bwd, ws_bwd_torch, ws_fwd,
                                               ws_fwd_torch)
+    from rscotr_tpu_torch.ops.scatter_mm import scatter_add_mm
     g = torch.Generator(device="cuda").manual_seed(2)
     Nv = sum(h * w for h, w in DET_SHAPES)
     G, KP, D = 8, 16, 32
@@ -533,14 +550,15 @@ def quad_phase():
                         generator=g).to(torch.bfloat16)
     ws_fwd.launches = 0
     ws_bwd.launches = 0
+    scatter_add_mm.launches = 0
     out = ms_deform_attn(v, shapes, loc, w, impl="quad")
     grads = torch.autograd.grad(out, leaves, d_out)
     torch.cuda.synchronize()
-    launches = {"K4": ws_fwd.launches, "K5": ws_bwd.launches}
-    log(f"  launches in the main path's run: K4 {launches['K4']}, K5 "
-        f"{launches['K5']} (want 1, 1)")
-    if launches != {"K4": 1, "K5": 1}:
-        fail(f"quad path: kernel launches {launches} != K4 1, K5 1")
+    launches = {"K4": ws_fwd.launches, "K5": ws_bwd.launches,
+                "K3'": scatter_add_mm.launches}
+    log(f"  launches in the main path's run: {launches} (want 1 each)")
+    if launches != {"K4": 1, "K5": 1, "K3'": 1}:
+        fail(f"quad path: kernel launches {launches} != K4 1, K5 1, K3' 1")
     if not (torch.isfinite(out).all() and
             all(torch.isfinite(t).all() for t in grads)):
         fail("quad path: non-finite output or gradient")
@@ -590,7 +608,7 @@ def quad_phase():
     # _ms_deform_attn_xla) and d_wt back to bf16 after K5, the K1 path keeps
     # corner weights in f32, and both round the output: two bf16 ulps of the
     # largest entry
-    log("quad phase: impl=\"quad\" vs impl=\"kernel\" (K1, K1b + K3'), "
+    log("quad phase: impl=\"quad\" vs impl=\"kernel\" (K1, K1b), "
         "forward and torch.autograd.grad")
     qtol = {torch.float32: BTOL[torch.float32], torch.bfloat16: (2.0 ** -6,
                                                                  0.0)}
@@ -831,10 +849,22 @@ def check_grads(name, gots, refs, names, dtype, tol=None,
     return worst
 
 
+def corners_on_map(shapes, loc) -> int:
+    """How many of the sampling points' 4 x points bilinear corners lie on
+    their level's map: the corner rows K1b loads and reduces into."""
+    wh = torch.tensor([[w, h] for h, w in shapes], dtype=torch.float32,
+                      device=loc.device)[:, None]
+    x0 = torch.floor(loc * wh - 0.5)                  # (B, Q, H, L, P, 2)
+    on = [((x0 + d >= 0) & (x0 + d < wh)).long() for d in (0, 1)]
+    return int(sum((on[dy][..., 1] * on[dx][..., 0]).sum()
+                   for dy in (0, 1) for dx in (0, 1)))
+
+
 def backward_phase():
     from rscotr_tpu_torch.ops.ms_deform_attn import (
-        ms_deform_attn, ms_deform_attn_bwd, ms_deform_attn_bwd_torch,
-        msda_bwd_rows, msda_bwd_rows_torch)
+        BODY_LANE, BODY_VEC, _msda_bwd_cuda, ms_deform_attn,
+        ms_deform_attn_bwd, ms_deform_attn_bwd_torch, msda_bwd_body,
+        msda_bwd_rows_torch)
     from rscotr_tpu_torch.ops.scatter_mm import (scatter_add_mm,
                                                  scatter_add_mm_torch)
     from rscotr_tpu_torch.ops.window_attention import (
@@ -843,42 +873,95 @@ def backward_phase():
     err = {k: [0.0, 0.0] for k in ("K1b", "K3", "K2b")}   # [f32, bf16]
     times = {}
     Nv = sum(h * w for h, w in DET_SHAPES)
-    log("backward phase: K1b msda_bwd + K3' scatter_add (autograd through "
-        "ms_deform_attn) vs ms_deform_attn_bwd_torch")
+    seg_nv = sum(h * w for h, w in SEG_SHAPES)
+    log("backward phase: K1b msda_bwd (autograd through ms_deform_attn: one "
+        "launch, the value-gradient scatter fused in) vs "
+        "ms_deform_attn_bwd_torch")
+    # name: msda_inputs arguments, the body the launch must take, timed.
+    # The timed det-encoder case runs twice: with the locations of every
+    # other kernel case, [-0.2, 1.2], which leave about half the corners
+    # off the map (skipped), and with [0, 1], where nearly every corner is
+    # loaded and reduced, as a model's locations mostly are.
+    cases = {
+        "det-encoder B=1": (dict(B=1, Q=Nv), BODY_VEC, True),
+        "det-encoder B=1 loc in [0, 1]": (dict(B=1, Q=Nv, span=(0.0, 1.0)),
+                                          BODY_VEC, True),
+        "train decoder B=1 Q=800": (dict(B=1, Q=800), BODY_VEC, True),
+        "seg-encoder B=4": (dict(B=4, Q=seg_nv, shapes=SEG_SHAPES),
+                            BODY_VEC, False),
+        "head width 64 Q=4000 H=4": (dict(B=1, Q=4000, H=4, D=64), BODY_VEC,
+                                     False),
+        "head width 24 Q=4000 (lane body)": (dict(B=1, Q=4000, D=24),
+                                             BODY_LANE, False),
+        "edge locations [-0.1, 1.1]": (dict(B=1, Q=4000, span=(-0.1, 1.1)),
+                                       BODY_VEC, False),
+    }
     for dtype in (torch.float32, torch.bfloat16):
         bf = int(dtype == torch.bfloat16)
-        for name, Q in (("det-encoder B=1", Nv),
-                        ("train decoder B=1 Q=800", 800)):
-            v, shapes, loc, w = msda_inputs(1, Q, dtype, g)
+        for name, (kw, body, timed) in cases.items():
+            v, shapes, loc, w = msda_inputs(dtype=dtype, g=g, **kw)
+            if msda_bwd_body(v.shape[-1], [v.data_ptr()]) != body:
+                fail(f"K1b {name}: not the body the case is meant for")
             v, loc, w = (t.requires_grad_() for t in (v, loc, w))
             out = ms_deform_attn(v, shapes, loc, w)
             d_out = torch.randn(out.shape, device="cuda",
                                 generator=g).to(dtype)
+            before = (ms_deform_attn_bwd.launches, scatter_add_mm.launches)
             got = torch.autograd.grad(out, (v, loc, w), d_out)
             torch.cuda.synchronize()
+            if (ms_deform_attn_bwd.launches, scatter_add_mm.launches) != \
+                    (before[0] + 1, before[1]):
+                fail(f"K1b {name}: the backward is not one K1b launch")
             v, loc, w = v.detach(), loc.detach(), w.detach()
             ref = ms_deform_attn_bwd_torch(v, shapes, loc, w, d_out)
-            e = check_grads(f"K1b+K3' {name}", got, ref,
+            e = check_grads(f"K1b {name}", got, ref,
                             ("d_value", "d_loc", "d_attn"), dtype)
             err["K1b"][bf] = max(err["K1b"][bf], e)
-            # K3' alone on this case's d_g / gidx
-            rows = msda_bwd_rows(v, shapes, loc, w, d_out)
-            d_g, gidx = rows[:2]
+            if not timed:
+                continue
+            if bf:
+                args = (v, shapes, loc, w, d_out)
+                D = v.shape[-1]
+                on_map = corners_on_map(shapes, loc)
+                # per corner on the map: D multiply-adds for <V_c, d_out>,
+                # D products and D atomic adds for d_value
+                ms, by = bound((v, loc, w, d_out) + got, 4.0 * D * on_map,
+                               "f32")
+                # a model of the L2 traffic, not a reading: each corner
+                # row loaded, each accumulator row read and written by its
+                # reduction
+                l2 = on_map * D * (v.element_size() + 8)
+                log(f"  K1b {name}: {on_map} corners on the map; corner "
+                    f"rows loaded {on_map * D * v.element_size() / 1e6:.1f} "
+                    f"MB, accumulator rows reduced into "
+                    f"{on_map * D * 8 / 1e6:.1f} MB (read + write), "
+                    f"{1e3 * l2 / HBM_BYTES_PER_S:.4f} ms at the device-"
+                    "memory rate (modelled from the corner count)")
+                acc = torch.zeros(v.shape, device="cuda")
+
+                def kernel():
+                    _msda_bwd_cuda(*args, acc=acc)
+
+                times[f"K1b {name}"] = dict(
+                    ms=graph_ms(kernel), eager_ms=cuda_ms(kernel, 50),
+                    whole_ms=graph_ms(lambda: ms_deform_attn_bwd(*args)),
+                    whole_eager_ms=cuda_ms(
+                        lambda: ms_deform_attn_bwd(*args), 50),
+                    plain_ms=cuda_ms(
+                        lambda: ms_deform_attn_bwd_torch(*args), 5),
+                    bound_ms=ms, bound_by=by, library_ms=None)
+                del acc
+            if "span" in kw:    # K3' alone: at the default locations only
+                continue
+            # K3' alone, on the plain backward's quad-row updates
+            d_g, gidx = msda_bwd_rows_torch(v, shapes, loc, w, d_out)[:2]
+            d_g, gidx = d_g.contiguous(), gidx.contiguous()
             d_qt = scatter_add_mm(d_g, gidx, Nv)
             e = check_grads(f"K3' {name}", [d_qt],
                             [scatter_add_mm_torch(d_g, gidx, Nv)], ("d_qt",),
                             torch.float32)
             err["K3"][bf] = max(err["K3"][bf], e)
             if bf:
-                args = (v, shapes, loc, w, d_out)
-                # per sampling point: 4 corners x D products for d_g, the
-                # same again as multiply-adds for d_attn and for d_loc
-                ms, by = bound(args[:1] + args[2:] + rows,
-                               20.0 * v.shape[-1] * w.numel(), "f32")
-                times[f"K1b {name}"] = dict(
-                    ms=cuda_ms(lambda: msda_bwd_rows(*args), 20),
-                    plain_ms=cuda_ms(lambda: msda_bwd_rows_torch(*args), 5),
-                    bound_ms=ms, bound_by=by, library_ms=None)
                 # one f32 add per update element
                 ms, by = bound((d_g, gidx, d_qt), float(d_g.numel()), "f32")
                 times[f"K3' {name}"] = dict(
@@ -887,15 +970,8 @@ def backward_phase():
                         lambda: scatter_add_mm_torch(d_g, gidx, Nv), 5),
                     bound_ms=ms, bound_by=by,
                     library_ms=index_add_yardstick(d_g, gidx, Nv, d_qt)
-                    if Q == Nv else None)
-                ms, by = bound(args[:1] + args[2:] + args[:1] + rows[2:],
-                               20.0 * v.shape[-1] * w.numel(), "f32")
-                times[f"MSDA bwd {name}"] = dict(
-                    ms=cuda_ms(lambda: ms_deform_attn_bwd(*args), 20),
-                    plain_ms=cuda_ms(
-                        lambda: ms_deform_attn_bwd_torch(*args), 5),
-                    bound_ms=ms, bound_by=by, library_ms=None)
-            del rows, d_g, gidx, d_qt
+                    if kw["Q"] == Nv else None)
+            del d_g, gidx, d_qt
     log("backward phase: K2b window_attn_bwd (autograd through "
         "window_attention) vs window_attention_bwd_torch")
     for dtype in (torch.float32, torch.bfloat16):
@@ -979,7 +1055,7 @@ def train_parity_phase():
                                                    task_param_masks)
     from rscotr_tpu_torch.engine.train_step import make_train_step
     from rscotr_tpu_torch.models import build_model
-    from rscotr_tpu_torch.ops.ms_deform_attn import msda_bwd_rows
+    from rscotr_tpu_torch.ops.ms_deform_attn import ms_deform_attn_bwd
     from rscotr_tpu_torch.ops.window_attention import window_attention_bwd
     from rscotr_tpu_torch.utils.config import load_cfg
     log("training parity phase: tiny config trains cls, det, det, cls on "
@@ -1009,12 +1085,13 @@ def train_parity_phase():
                  for t in ("cls", "det")}
         gen = torch.Generator().manual_seed(0)
         logs[dev] = []
-        k1b, k2b = msda_bwd_rows.launches, window_attention_bwd.launches
+        k1b = ms_deform_attn_bwd.launches
+        k2b = window_attention_bwd.launches
         for i, task in enumerate(("cls", "det", "det", "cls")):
             batch = cls_b if task == "cls" else dict(det_b, **noises[i - 1])
             lv = steps[task](batch, gen)
             logs[dev].append((task, {k: float(v) for k, v in lv.items()}))
-        if dev == "cuda" and (msda_bwd_rows.launches == k1b or
+        if dev == "cuda" and (ms_deform_attn_bwd.launches == k1b or
                               window_attention_bwd.launches == k2b):
             fail("training parity: the CUDA run launched no backward "
                  "kernel")
@@ -1193,7 +1270,7 @@ def train_phase():
     from rscotr_tpu_torch.models import build_model
     from rscotr_tpu_torch.models.heads import dino_loss as dl
     from rscotr_tpu_torch.ops.ms_deform_attn import (ms_deform_attn,
-                                                     msda_bwd_rows)
+                                                     ms_deform_attn_bwd)
     from rscotr_tpu_torch.ops.scatter_mm import scatter_add_mm
     from rscotr_tpu_torch.ops.window_attention import (window_attention,
                                                        window_attention_bwd)
@@ -1236,10 +1313,11 @@ def train_phase():
         return out
 
     dl.hungarian_batched = timed_solve
-    counters = {"K1": ms_deform_attn, "K1b": msda_bwd_rows,
+    counters = {"K1": ms_deform_attn, "K1b": ms_deform_attn_bwd,
                 "K3'": scatter_add_mm, "K2": window_attention,
                 "K2b": window_attention_bwd}
-    want = {"det": {"K1": 12, "K1b": 12, "K3'": 12, "K2": 12, "K2b": 12},
+    # K3' runs on the quad-gather path only: K1b does its work on this one
+    want = {"det": {"K1": 12, "K1b": 12, "K3'": 0, "K2": 12, "K2b": 12},
             "cls": {"K1": 0, "K1b": 0, "K3'": 0, "K2": 12, "K2b": 12}}
     gen = torch.Generator().manual_seed(0)
     # -- the main path's run: 2 warm-up + 10 timed steps of each task ----
@@ -1320,6 +1398,9 @@ def kernels_line(times, btimes, qtimes, err, berr, qerr, k6err, k6levels,
     launches on the main path, its error against the plain version, its
     time beside the plain version's, its bound and its library yardstick."""
     det_enc = "det encoder B=1 Q=Nv=13294 H=8 L=4 P=4 D=32 bf16"
+    # K1b's time depends on how many corners lie on the map: the headline is
+    # the case with a model's locations, [0, 1]
+    k1b = btimes["K1b det-encoder B=1 loc in [0, 1]"]
     ws_at = "det encoder g (8, 13294, 16, 128) bf16, wt (8, 13294, 64) bf16"
     det_s0 = "det 800^2 stage 0 B=1 nW=841 H=3 n=49 hd=32 shifted bf16"
     sdpa = ("F.scaled_dot_product_attention(q, k, v, attn_mask=bias + mask, "
@@ -1357,13 +1438,18 @@ def kernels_line(times, btimes, qtimes, err, berr, qerr, k6err, k6levels,
               stages=stages(times, "K2")),
         entry("msda_bwd", "msda_bwd.cu",
               pallas + "ms_deform_attn_kernel.py:138", "K1b",
-              btimes["K1b det-encoder B=1"], berr["K1b"], det_enc,
+              k1b, berr["K1b"], det_enc + ", locations in [0, 1]",
               replaces_part="backward (JAX: autodiff of _ms_deform_attn_xla,"
-                            " rscotr_tpu/ops/ms_deform_attn.py:270)"),
+                            " rscotr_tpu/ops/ms_deform_attn.py:270)",
+              fuses="scatter_add (K3') on the model path",
+              whole_ms=k1b["whole_ms"], whole_eager_ms=k1b["whole_eager_ms"],
+              stages=stages(btimes, "K1b")),
         entry("scatter_add", "scatter_add.cu", pallas + "scatter_mm.py:168",
               "K3'", btimes["K3' det-encoder B=1"], berr["K3"],
               "det encoder d_g (8, 212704, 128) bf16 -> (8, 13294, 128) f32",
-              library="Tensor.index_add_(0, rows, f32 updates)"),
+              library="Tensor.index_add_(0, rows, f32 updates)",
+              launches_at="the quad-gather MSDA (impl=\"quad\") backward",
+              launches_train_run=launches["K3' training"]),
         entry("window_attn_bwd", "window_attn_bwd.cu",
               pallas + "window_attention.py:116", "K2b",
               btimes["K2b det800.s0"], berr["K2b"], det_s0,
@@ -1422,9 +1508,11 @@ def main(argv) -> int:
     slaunches, lat = serving_phase()
     launches, train = train_phase()
     library_phase(times, btimes)
+    # K3' is launched by the quad-gather path; the training run launches it
+    # 0 times (train_phase checks every step), K1b doing its work there
     launches.update({"K1 serving": slaunches["K1"],
-                     "K2 serving": slaunches["K2"], "K6": k6launches},
-                    **qlaunches)
+                     "K2 serving": slaunches["K2"], "K6": k6launches,
+                     "K3' training": launches["K3'"]}, **qlaunches)
 
     log(f"summary ({smi}): " + "; ".join(
         f"serve {n} {ms:.3f} ms, peak {mb:.0f} MiB"

@@ -6,12 +6,16 @@
 //   out[g, r, :] = sum over k with idx[g, k] == r of updates[g, k, :]
 // accumulated in f32 whatever the updates' dtype. Indices outside
 // [0, num_rows) contribute nothing. In the port it is the MSDA value
-// gradient: the quad-row updates d_g written by K1b (csrc/msda_bwd.cu) are
-// scattered into the quad-table gradient (B*H, Nv, 4*D).
+// gradient of the quad-gather path (ms_deform_attn(impl="quad")): the
+// gradients d_g of the gathered quad rows, which K5 writes, are scattered
+// into the quad-table gradient (B*H, Nv, 4*D). The default path does the
+// same sum inside its backward kernel (csrc/msda_bwd.cu), which adds each
+// corner's term to the value gradient itself and writes no d_g.
 //
 // What bounds it on the card: reading the updates once. At the flagship det
-// encoder one call reads 8 x 212,704 rows of 128 bf16 (435.6 MB) and adds
-// them into a 54.5 MB f32 table that mostly sits in the 50 MB L2. The TPU
+// encoder's shapes one call reads 8 x 212,704 rows of 128 bf16 (435.6 MB)
+// and adds them into a 54.5 MB f32 table that mostly sits in the 50 MB L2.
+// The TPU
 // kernel built one-hot blocks and contracted them on the MXU, and skipped
 // empty (row-block, update-block) pairs, because XLA:TPU's scatter-add
 // serializes. On Hopper an f32 atomic add into L2 is native and the work is

@@ -1,5 +1,6 @@
 """Ops of the PyTorch port: plain tensor functions and the wrappers of the
 hand-written CUDA kernels (``ms_deform_attn.ms_deform_attn`` = K1 forward,
-K1b backward rows via ``ms_deform_attn.msda_bwd_rows``;
-``scatter_mm.scatter_add_mm`` = K3'; ``window_attention.window_attention``
+K1b the whole MSDA backward via ``ms_deform_attn.ms_deform_attn_bwd``;
+``scatter_mm.scatter_add_mm`` = K3', the value-gradient scatter of the
+quad-gather path; ``window_attention.window_attention``
 = K2 forward, K2b backward via ``window_attention.window_attention_bwd``)."""

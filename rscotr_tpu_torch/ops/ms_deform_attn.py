@@ -1,5 +1,5 @@
 """Multi-scale deformable attention sampling core (PyTorch + CUDA kernels
-K1, K1b and K3'; K4 / K5 and K3' on the quad-gather path).
+K1 and K1b; K4 / K5 and K3' on the quad-gather path).
 
 Counterpart of rscotr_tpu/ops/ms_deform_attn.py. Sampling semantics match
 ``F.grid_sample(align_corners=False, padding_mode="zeros")`` on per-level
@@ -9,24 +9,28 @@ zero.
 
 ``ms_deform_attn`` is a ``torch.autograd.Function``. For CUDA tensors the
 forward launches the hand-written kernel ``csrc/msda_fwd.cu`` (K1) and the
-backward follows the JAX decomposition (``_quad_gather_bwd`` and
-``_corner_weighted_sum_bwd`` of the JAX module): kernel K1b
-(``csrc/msda_bwd.cu``, ``msda_bwd_rows``) writes the attention-weight and
-location gradients and each sampling point's quad-row update ``d_g`` (its
-four quad-slot weights times ``d_out``); kernel K3' (``ops/scatter_mm.py``)
-scatters ``d_g`` into the quad-table gradient in float32, one launch per
-backward; plain tensor ops fold that back to the value gradient (the
-transpose of the quad-table build: four shifted slices added). For CPU
-tensors the forward is the plain ``ms_deform_attn_torch`` and the backward
-the plain decomposition ``ms_deform_attn_bwd_torch`` (``msda_bwd_rows_torch``,
-``scatter_add_mm_torch``, the fold); any other device raises.
+backward is one launch of ``csrc/msda_bwd.cu`` (K1b, ``ms_deform_attn_bwd``):
+it writes the attention-weight and location gradients and adds every valid
+corner's term, the corner weight times ``d_out`` rounded to value's dtype,
+straight into a zeroed float32 accumulator of value's layout with atomics;
+one cast to value's dtype makes ``d_value``. That is the JAX decomposition
+(``_quad_gather_bwd`` and ``_corner_weighted_sum_bwd`` of the JAX module)
+with its detour taken out: JAX writes each sampling point's quad-row update
+``d_g``, scatters the rows into a quad-table gradient (Pallas K3) and folds
+the table back to ``d_value``, and each quad slot folds onto the cell of the
+one corner that feeds it. ``msda_bwd_body`` picks the kernel's body from the
+head width and the tensors' alignment. For CPU tensors the forward is the
+plain ``ms_deform_attn_torch`` and the backward the plain decomposition
+``ms_deform_attn_bwd_torch`` (``msda_bwd_rows_torch``,
+``scatter_add_mm_torch``, the fold), which is K1b's plain version; any
+other device raises.
 
 ``impl="quad"`` runs the quad-gather formulation instead, the counterpart
 of the JAX package's ``_ms_deform_attn_xla`` (its ``impl="xla"``): a quad
 table of each level's 2x2 neighbourhoods, one row gather per sampling
-point (backward K3' and the fold), and the corner-weighted sum of
-``ops/msda_ws.py`` (K4 forward, K5 backward). The model's layers call the
-default, as JAX's pass no ``impl``.
+point (backward K3', ``ops/scatter_mm.py``, and the fold), and the
+corner-weighted sum of ``ops/msda_ws.py`` (K4 forward, K5 backward). The
+model's layers call the default, as JAX's pass no ``impl``.
 
 Gradient semantics are JAX autodiff's: ``floor`` has zero gradient, the
 corner validity factors are constants, and the gradients come back in the
@@ -83,7 +87,7 @@ def ms_deform_attn(value: torch.Tensor,
             num_points, 2) in [0, 1] per level, (x, y) order; float32.
         attention_weights: (B, num_query, num_heads, num_levels, num_points),
             softmax-normalized over (levels * points).
-        impl: ``"kernel"`` (default; the fused K1 forward, K1b + K3'
+        impl: ``"kernel"`` (default; the fused K1 forward and K1b
             backward: JAX ``impl="pallas"``) or ``"quad"`` (the quad-gather
             formulation, ``_ms_deform_attn_quad``: JAX ``impl="xla"``).
     Returns:
@@ -153,14 +157,32 @@ def _ms_deform_attn_cuda(value, shapes, loc, attn):
     return out
 
 
+# csrc/msda_bwd.cu: the lane-per-channel body, and the vector body for the
+# head widths it is instantiated for
+BODY_LANE, BODY_VEC = 0, 1
+VEC_HEAD_DIMS = (16, 32, 64)
+
+
+def msda_bwd_body(head_dim: int, data_ptrs=()) -> int:
+    """Which body of K1b a CUDA launch takes: ``BODY_VEC`` (a lane owns 4
+    consecutive channels: 8- or 16-byte corner-row loads, one 16-byte vector
+    reduction per lane into the value gradient) for a head width in
+    ``VEC_HEAD_DIMS`` when every base address in ``data_ptrs`` (value, loc,
+    d_out, d_loc and the accumulator) is 16-byte aligned, else ``BODY_LANE``
+    (a lane per channel, scalar atomics; any head width up to 128)."""
+    if head_dim in VEC_HEAD_DIMS and not any(p % 16 for p in data_ptrs):
+        return BODY_VEC
+    return BODY_LANE
+
+
 def ms_deform_attn_bwd(value: torch.Tensor,
                        spatial_shapes: Sequence[Tuple[int, int]],
                        sampling_locations: torch.Tensor,
                        attention_weights: torch.Tensor,
                        d_out: torch.Tensor):
     """Gradients of ``ms_deform_attn`` -> (d_value, d_loc, d_attn) in the
-    primal dtypes: K1b, then K3', then the fold on CUDA; the plain
-    decomposition (``ms_deform_attn_bwd_torch``) on the CPU."""
+    primal dtypes: one launch of K1b on CUDA (``launches`` counts it); the
+    plain decomposition (``ms_deform_attn_bwd_torch``) on the CPU."""
     shapes = _shapes(spatial_shapes)
     if value.device.type == "cpu":
         return ms_deform_attn_bwd_torch(value, shapes, sampling_locations,
@@ -168,33 +190,45 @@ def ms_deform_attn_bwd(value: torch.Tensor,
     if value.device.type != "cuda":
         raise ValueError(f"ms_deform_attn_bwd: no path for device "
                          f"{value.device}")
-    d_g, gidx, d_loc, d_attn = msda_bwd_rows(
-        value, shapes, sampling_locations, attention_weights, d_out)
-    B, Nv, H, D = value.shape
-    d_qt = scatter_add_mm(d_g, gidx, Nv)
-    del d_g
-    return _fold_quad_grad(d_qt, shapes, B, H, D, value.dtype), d_loc, d_attn
+    acc, d_loc, d_attn = _msda_bwd_cuda(value, shapes, sampling_locations,
+                                        attention_weights, d_out)
+    return acc.to(value.dtype), d_loc, d_attn
 
 
-def msda_bwd_rows(value, shapes, loc, attn, d_out):
-    """Kernel K1b on CUDA tensors -> (d_g (B*H, Q*L*P, 4*D) in value's
-    dtype, gidx (B*H, Q*L*P) int32 quad rows, d_loc, d_attn); ``launches``
-    counts it."""
-    shapes = _shapes(shapes)
+ms_deform_attn_bwd.launches = 0
+
+
+def _msda_bwd_cuda(value, shapes, loc, attn, d_out, acc=None, body=None):
+    """Kernel K1b on CUDA tensors -> (the float32 value-gradient accumulator
+    (B, Nv, H, D), d_loc, d_attn). ``acc``: an accumulator to add into
+    instead of a new zeroed one; ``body``: ``BODY_LANE`` where
+    ``msda_bwd_body`` would pick the vector body (both for the tools that
+    time the kernel). The vector body is never forced onto tensors that
+    ``msda_bwd_body`` refuses it."""
     B, Nv, H, D, Q, L, P = _check_cuda_args(
-        "msda_bwd_rows", value, shapes, loc, attn, ("d_out", d_out))
+        "ms_deform_attn_bwd", value, shapes, loc, attn, ("d_out", d_out))
     if tuple(d_out.shape) != (B, Q, H * D) or d_out.dtype != value.dtype:
-        raise ValueError(f"msda_bwd_rows: d_out must be {value.dtype} "
+        raise ValueError(f"ms_deform_attn_bwd: d_out must be {value.dtype} "
                          f"{(B, Q, H * D)}, got {d_out.dtype} "
                          f"{tuple(d_out.shape)}")
     dev = value.device
     d_attn = torch.empty_like(attn)
     d_loc = torch.empty_like(loc)
-    d_g = torch.empty((B * H, Q * L * P, 4 * D), dtype=value.dtype,
-                      device=dev)
-    gidx = torch.empty((B * H, Q * L * P), dtype=torch.int32, device=dev)
-    if d_g.numel() == 0:
-        return d_g, gidx, d_loc.zero_(), d_attn.zero_()
+    if acc is None:
+        acc = torch.zeros(value.shape, dtype=torch.float32, device=dev)
+    elif acc.shape != value.shape or acc.dtype != torch.float32 or \
+            acc.device != dev or not acc.is_contiguous():
+        raise ValueError("ms_deform_attn_bwd: acc must be a contiguous "
+                         f"float32 {tuple(value.shape)} on {dev}")
+    if value.numel() == 0 or attn.numel() == 0:
+        return acc, d_loc.zero_(), d_attn.zero_()
+    pick = msda_bwd_body(D, [t.data_ptr() for t in (value, loc, d_out,
+                                                    d_loc, acc)])
+    if body is None:
+        body = pick
+    elif body not in (BODY_LANE, pick):
+        raise ValueError(f"ms_deform_attn_bwd: body {body} does not take "
+                         f"head_dim {D} at these base addresses")
     lib = kernel_lib.load()
     with torch.cuda.device(dev):
         err = lib.msda_bwd(
@@ -202,14 +236,11 @@ def msda_bwd_rows(value, shapes, loc, attn, d_out):
             loc.data_ptr(), attn.data_ptr(),
             kernel_lib.dtype_code(attn, "attention_weights"),
             d_out.data_ptr(), d_attn.data_ptr(), d_loc.data_ptr(),
-            d_g.data_ptr(), gidx.data_ptr(), B, Nv, Q, H, D, L, P,
-            _levels_arg(shapes), kernel_lib.stream_ptr(dev))
+            acc.data_ptr(), B, Nv, Q, H, D, L, P, _levels_arg(shapes), body,
+            kernel_lib.stream_ptr(dev))
     kernel_lib.check(err, "msda_bwd")
-    msda_bwd_rows.launches += 1
-    return d_g, gidx, d_loc, d_attn
-
-
-msda_bwd_rows.launches = 0
+    ms_deform_attn_bwd.launches += 1
+    return acc, d_loc, d_attn
 
 
 def _fold_quad_grad(d_qt, shapes, B, H, D, dtype):
@@ -235,9 +266,9 @@ def ms_deform_attn_bwd_torch(value: torch.Tensor,
                              sampling_locations: torch.Tensor,
                              attention_weights: torch.Tensor,
                              d_out: torch.Tensor):
-    """Plain PyTorch version of the backward: ``msda_bwd_rows_torch``, then
-    ``scatter_add_mm_torch``, then the fold. Returns (d_value, d_loc,
-    d_attn) in the primal dtypes."""
+    """Plain PyTorch version of the backward (K1b), as JAX decomposes it:
+    ``msda_bwd_rows_torch``, then ``scatter_add_mm_torch``, then the fold.
+    Returns (d_value, d_loc, d_attn) in the primal dtypes."""
     shapes = _shapes(spatial_shapes)
     B, Nv, H, D = value.shape
     d_g, gidx, d_loc, d_attn = msda_bwd_rows_torch(
@@ -248,7 +279,7 @@ def ms_deform_attn_bwd_torch(value: torch.Tensor,
 
 def msda_bwd_rows_torch(value, spatial_shapes, sampling_locations,
                         attention_weights, d_out):
-    """Plain PyTorch version of K1b: the quad-slot weights as
+    """The rows of the plain backward: the quad-slot weights as
     ``_ms_deform_attn_xla`` forms them, the corner dot products
     <V_c, d_out> for d_attn and d_loc, and the quad-row updates ``d_g`` in
     value's dtype with their rows ``gidx``."""
@@ -328,10 +359,10 @@ def _quad_table(value, shapes):
 class _QuadGather(torch.autograd.Function):
     """One quad-table row per sampling point. Forward: the quad table and a
     plain row gather (JAX gathers with XLA, outside any Pallas kernel).
-    Backward: K3' (``scatter_add_mm``) scatters the row gradients into the
-    quad-table gradient in float32, and ``_fold_quad_grad`` folds it back
-    to d_value, as JAX's ``_quad_gather_bwd`` plus the transpose of the
-    table build."""
+    Backward: K3' (``scatter_add_mm``, the counterpart of Pallas K3, which
+    runs on this path only) scatters the row gradients into the quad-table
+    gradient in float32, and ``_fold_quad_grad`` folds it back to d_value,
+    as JAX's ``_quad_gather_bwd`` plus the transpose of the table build."""
 
     @staticmethod
     def forward(ctx, value, gidx, shapes):

@@ -7,11 +7,13 @@ Pallas kernel K3, both of its bodies) and of its oracle ``scatter_add_xla``:
 
 in float32 whatever the updates' float dtype; an index outside
 [0, num_rows) contributes nothing (the one-hot of the Pallas kernel never
-matches it, XLA's scatter drops it). It is the MSDA value gradient: the
-scatter of the per-sampling-point quad-row updates into the quad-table
-gradient (rscotr_tpu_torch/ops/ms_deform_attn.py). The TPU tiling arguments
-(``nv_block``, ``k_block``, ``gate_dma``, ``acc_dtype``) have no counterpart:
-the card's atomics work per update.
+matches it, XLA's scatter drops it). It is the MSDA value gradient of the
+quad-gather path: the scatter of the per-sampling-point quad-row gradients
+into the quad-table gradient (``_QuadGather.backward`` in
+rscotr_tpu_torch/ops/ms_deform_attn.py; the default path's backward kernel
+adds each corner's term to the value gradient itself). The TPU tiling
+arguments (``nv_block``, ``k_block``, ``gate_dma``, ``acc_dtype``) have no
+counterpart: the card's atomics work per update.
 
 ``scatter_add_mm`` launches the hand-written kernel ``csrc/scatter_add.cu``
 for CUDA tensors and runs the plain version ``scatter_add_mm_torch`` for CPU

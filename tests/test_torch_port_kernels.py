@@ -48,13 +48,13 @@ def ref():
 
 
 def msda_inputs(seed=0, B=2, H=4, D=16, P=4, Q=37,
-                shapes=((12, 16), (6, 8), (3, 4))):
+                shapes=((12, 16), (6, 8), (3, 4)), span=(-0.2, 1.2)):
     rng = np.random.default_rng(seed)
     L = len(shapes)
     Nv = sum(h * w for h, w in shapes)
     value = rng.normal(size=(B, Nv, H, D)).astype(np.float32)
     # locations straddle the border to exercise validity masking
-    loc = rng.uniform(-0.2, 1.2, size=(B, Q, H, L, P, 2)).astype(np.float32)
+    loc = rng.uniform(*span, size=(B, Q, H, L, P, 2)).astype(np.float32)
     aw = rng.uniform(size=(B, Q, H, L, P)).astype(np.float32)
     aw = aw / aw.sum(axis=(-2, -1), keepdims=True)
     return value, shapes, loc, aw
@@ -272,12 +272,18 @@ def _assert_grad_close(got, ref, dtype, slack=0):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("D,ref_dim", [(16, 2), (32, 4), (64, 2)])
-def test_msda_backward_kernels_vs_plain(cuda_device, dtype, D, ref_dim):
-    from rscotr_tpu_torch.ops.ms_deform_attn import (ms_deform_attn_bwd_torch,
-                                                     msda_bwd_rows)
+@pytest.mark.parametrize("D,seed,span", [
+    (16, 11, (-0.2, 1.2)), (24, 12, (-0.2, 1.2)), (32, 13, (-0.2, 1.2)),
+    (64, 11, (-0.2, 1.2)),
+    (32, 14, (-0.1, 1.1)),   # starts that clamp at the map's edge
+])
+def test_msda_backward_kernels_vs_plain(cuda_device, dtype, D, seed, span):
+    """One launch of K1b (its vector body, or the lane-per-channel one at
+    D = 24) is the whole backward: no K3' launch."""
+    from rscotr_tpu_torch.ops.ms_deform_attn import (ms_deform_attn_bwd,
+                                                     ms_deform_attn_bwd_torch)
     from rscotr_tpu_torch.ops.scatter_mm import scatter_add_mm
-    value, shapes, loc, aw = msda_inputs(9 + ref_dim, D=D)
+    value, shapes, loc, aw = msda_inputs(seed, D=D, span=span)
     v = torch.from_numpy(value).to(cuda_device, dtype).requires_grad_()
     w = torch.from_numpy(aw).to(cuda_device, dtype).requires_grad_()
     loc_t = torch.from_numpy(loc).to(cuda_device).requires_grad_()
@@ -285,15 +291,57 @@ def test_msda_backward_kernels_vs_plain(cuda_device, dtype, D, ref_dim):
     d_out = torch.randn(out.shape, device=cuda_device,
                         generator=torch.Generator(cuda_device).manual_seed(0)
                         ).to(dtype)
-    k1b, k3 = msda_bwd_rows.launches, scatter_add_mm.launches
+    k1b, k3 = ms_deform_attn_bwd.launches, scatter_add_mm.launches
     got = torch.autograd.grad(out, (v, loc_t, w), d_out)
     torch.cuda.synchronize()
-    assert msda_bwd_rows.launches == k1b + 1
-    assert scatter_add_mm.launches == k3 + 1
+    assert ms_deform_attn_bwd.launches == k1b + 1
+    assert scatter_add_mm.launches == k3
     want = ms_deform_attn_bwd_torch(v.detach(), shapes, loc_t.detach(),
                                     w.detach(), d_out)
     for g, r, t in zip(got, want, (v, loc_t, w)):
         assert g.dtype == t.dtype and g.shape == t.shape
+        _assert_grad_close(g, r, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D,P,misaligned", [
+    (16, 6, False), (32, 6, False), (64, 6, False),   # 18 points: two chunks
+    (32, 4, True),                                    # value off by 1 element
+])
+def test_msda_backward_kernel_chunks_and_alignment(cuda_device, dtype, D, P,
+                                                   misaligned):
+    """K1b's vector body takes a task's points 16 at a time; a value tensor
+    whose base is not 16-byte aligned takes the lane-per-channel body, and
+    the vector body cannot be forced onto it."""
+    from rscotr_tpu_torch.ops.ms_deform_attn import (
+        BODY_LANE, BODY_VEC, _msda_bwd_cuda, ms_deform_attn_bwd,
+        ms_deform_attn_bwd_torch, msda_bwd_body)
+    value, shapes, loc, aw = msda_inputs(15, D=D, P=P)
+    v = torch.from_numpy(value).to(cuda_device, dtype)
+    if misaligned:
+        buf = torch.empty(v.numel() + 1, device=cuda_device, dtype=dtype)
+        buf[1:].copy_(v.reshape(-1))
+        v = buf[1:].view(v.shape)
+    w = torch.from_numpy(aw).to(cuda_device, dtype)
+    loc_t = torch.from_numpy(loc).to(cuda_device)
+    assert msda_bwd_body(D, [v.data_ptr()]) == (BODY_LANE if misaligned
+                                                else BODY_VEC)
+    d_out = torch.randn(v.shape[0], loc_t.shape[1], v.shape[2] * D,
+                        device=cuda_device,
+                        generator=torch.Generator(cuda_device).manual_seed(1)
+                        ).to(dtype)
+    before = ms_deform_attn_bwd.launches
+    if misaligned:
+        with pytest.raises(ValueError, match="base addresses"):
+            _msda_bwd_cuda(v, shapes, loc_t, w, d_out, body=BODY_VEC)
+        assert ms_deform_attn_bwd.launches == before
+    got = ms_deform_attn_bwd(v, shapes, loc_t, w, d_out)
+    torch.cuda.synchronize()
+    assert ms_deform_attn_bwd.launches == before + 1
+    want = ms_deform_attn_bwd_torch(v, shapes, loc_t, w, d_out)
+    for g, r in zip(got, want):
+        assert g.dtype == r.dtype and g.shape == r.shape
         _assert_grad_close(g, r, dtype)
 
 
