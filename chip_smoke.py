@@ -9,9 +9,15 @@ Phases, each of which raises on failure (exit code 1, no result line):
    per source, in parallel);
 3. kernels: K1 (MSDA forward) and K2 (Swin window attention) against their
    plain PyTorch versions at the flagship's shapes (the det and seg
-   encoders, the det decoder; the Swin stages of det 800^2, cls 224^2 and
-   seg 512^2), in float32 and bfloat16, with kernel and plain times from
-   CUDA events. K2 also with q, k, v as strided views of the fused qkv
+   encoders at B=1 and B=4, the det decoder at 600 and 800 queries; the
+   Swin stages of det 800^2, cls 224^2 and seg 512^2), in float32 and
+   bfloat16, with kernel and plain times from CUDA events. K1 with both of
+   its bodies on the same tensors: the vector body, which every model-path
+   launch takes, and the lane-per-channel body (the first kernel), at
+   locations in [0, 1] as a model's are and in [-0.2, 1.2], where about
+   half the corners are off the map; a modelled-L2 line (corner rows
+   loaded, counted from the locations) beside each timed case. K2 also
+   with q, k, v as strided views of the fused qkv
    projection, with a window count that the per-block run of windows does
    not divide, and at a head width that takes its CUDA-core instantiation
    in bf16. Each timed kernel stands beside its bound (the larger of bytes
@@ -47,13 +53,14 @@ Phases, each of which raises on failure (exit code 1, no result line):
    600-query DINO head, 9-layer Mask2Former head; bf16 compute, random
    weights from a seed) answers cls 16x224^2, det 1x800^2, det 4x800^2,
    seg 4x512^2 and seg 1x512^2 requests; outputs are checked, kernel
-   launches counted, median latency (CUDA events) and peak memory
-   reported;
+   launches counted (every K1 launch must take the vector body), median
+   latency (CUDA events) and peak memory reported;
 10. training: the flagship trains cls 16x224^2 (mixup / cutmix) and det
     1x800^2 (18 GT boxes padded to 100, 5 CDN groups: 200 DN + 600 matching
     queries) interleaved under the per-task masks, drop path 0.2; losses
     and grad norms are checked finite, the masked modules bit-identical,
-    kernel launches counted per step; median step time (CUDA events around
+    kernel launches counted per step (every K1 launch on the vector body);
+    median step time (CUDA events around
     the whole step, host matcher included), the host matcher's time and
     peak memory reported.
 
@@ -72,7 +79,12 @@ none; timed here, called nowhere in the port; for K2 and K2b the fastest
 SDPA backend, named in ``library_backend``). K2 and K2b are shorter than
 their wrapper's host time, so their ``ms`` and ``library_ms`` are device
 times from a CUDA-graph replay, ``eager_ms`` is the eager-call time, and
-``stages`` holds all three timed stage shapes; K1b's are device times too,
+``stages`` holds all three timed stage shapes. K1's ``ms`` is device time
+too, at the det encoder with locations in [0, 1], beside ``eager_ms``,
+``lane_ms`` (the lane body on the same tensors) and ``vec_launches`` /
+``vec_launches_serving`` (the launches that took the vector body); its
+``stages`` hold [-0.2, 1.2], det encoder B=4, seg encoder B=1 and B=4 and
+the train decoder (Q=800). K1b's are device times too,
 beside ``eager_ms`` and ``whole_ms`` (the whole ``ms_deform_attn_bwd``: zero
 fill, kernel, cast), timed at locations in [0, 1], as a model's are; its
 ``stages`` also hold the time at the [-0.2, 1.2] locations of the other
@@ -318,6 +330,8 @@ def log_times(times) -> None:
         lib = r.get("library_ms")
         via = f" ({r['library_backend']})" if "library_backend" in r else ""
         eager = f" (eager {r['eager_ms']:.4f})" if "eager_ms" in r else ""
+        if "lane_ms" in r:
+            eager += f"; lane body {r['lane_ms']:.4f} ms"
         if "whole_ms" in r:
             eager += (f"; whole ms_deform_attn_bwd {r['whole_ms']:.4f} ms "
                       f"(eager {r['whole_eager_ms']:.4f})")
@@ -450,40 +464,109 @@ def index_add_yardstick(d_g, gidx, num_rows, want):
     return ms
 
 
+def corners_on_map(shapes, loc) -> int:
+    """How many of the sampling points' 4 x points bilinear corners lie on
+    their level's map: the corner rows K1 and K1b load."""
+    wh = torch.tensor([[w, h] for h, w in shapes], dtype=torch.float32,
+                      device=loc.device)[:, None]
+    x0 = torch.floor(loc * wh - 0.5)                  # (B, Q, H, L, P, 2)
+    on = [((x0 + d >= 0) & (x0 + d < wh)).long() for d in (0, 1)]
+    return int(sum((on[dy][..., 1] * on[dx][..., 0]).sum()
+                   for dy in (0, 1) for dx in (0, 1)))
+
+
+# K1 cases: name -> (B, Q, levels, location span, timed). The timed cases
+# use a model's locations, [0, 1], where nearly every corner is on the map;
+# the det encoder is also timed at [-0.2, 1.2], the span of the first
+# kernel's earlier times, where about half the corners are off the map and
+# skipped.
+K1_SPAN = (-0.2, 1.2)
+K1_CASES = {
+    "det-encoder B=1 loc in [0, 1]": (1, None, DET_SHAPES, (0.0, 1.0), True),
+    "det-encoder B=1": (1, None, DET_SHAPES, K1_SPAN, True),
+    "det-encoder B=4 loc in [0, 1]": (4, None, DET_SHAPES, (0.0, 1.0), True),
+    "det-encoder B=4": (4, None, DET_SHAPES, K1_SPAN, False),
+    "decoder B=1 Q=600": (1, 600, DET_SHAPES, K1_SPAN, False),
+    "train decoder B=1 Q=800 loc in [0, 1]": (1, 800, DET_SHAPES, (0.0, 1.0),
+                                              True),
+    "seg-encoder B=1 loc in [0, 1]": (1, None, SEG_SHAPES, (0.0, 1.0), True),
+    "seg-encoder B=1": (1, None, SEG_SHAPES, K1_SPAN, False),
+    "seg-encoder B=4 loc in [0, 1]": (4, None, SEG_SHAPES, (0.0, 1.0), True),
+    "seg-encoder B=4": (4, None, SEG_SHAPES, K1_SPAN, False),
+}
+K1_HEADLINE = "det-encoder B=1 loc in [0, 1]"
+
+
+def k1_phase(err, times):
+    """K1 against its plain version at the flagship's shapes, both bodies
+    on the same tensors: the vector body (what ``msda_fwd_body`` picks, and
+    every model-path launch takes) and the lane-per-channel body (the
+    parent's kernel, ``body=BODY_LANE``). The timed cases give device times
+    of both by graph replay, the eager time, the plain version's, the bound
+    and the modelled L2 traffic."""
+    from rscotr_tpu_torch.ops.ms_deform_attn import (
+        BODY_LANE, BODY_VEC, _ms_deform_attn_cuda, ms_deform_attn,
+        ms_deform_attn_torch, msda_fwd_body)
+    g = torch.Generator(device="cuda").manual_seed(0)
+    log("kernel phase: K1 msda_fwd, vector and lane bodies, vs "
+        "ms_deform_attn_torch")
+    for dtype in (torch.float32, torch.bfloat16):
+        bf = int(dtype == torch.bfloat16)
+        for name, (B, Q, lvls, span, timed) in K1_CASES.items():
+            Q = Q or sum(h * w for h, w in lvls)
+            v, shapes, loc, w = msda_inputs(B, Q, dtype, g, shapes=lvls,
+                                            span=span)
+            if msda_fwd_body(v.shape[-1], [v.data_ptr(), loc.data_ptr()]) \
+                    != BODY_VEC:
+                fail(f"K1 {name}: the case does not take the vector body")
+            before = (ms_deform_attn.launches, ms_deform_attn.vec_launches)
+            got = ms_deform_attn(v, shapes, loc, w)
+            lane = _ms_deform_attn_cuda(v, shapes, loc, w, body=BODY_LANE)
+            torch.cuda.synchronize()
+            if (ms_deform_attn.launches, ms_deform_attn.vec_launches) != \
+                    (before[0] + 2, before[1] + 1):
+                fail(f"K1 {name}: not one vector and one lane launch")
+            ref = ms_deform_attn_torch(v.float(), shapes, loc, w.float())
+            e = check_close(f"K1 {name}", got, ref, dtype)
+            check_close(f"K1 {name} (lane body)", lane, ref, dtype)
+            err["K1"][bf] = max(err["K1"][bf], e)
+            if not (timed and bf):
+                continue
+            D = v.shape[-1]
+            on_map = corners_on_map(shapes, loc)
+            # one multiply-add per channel of each corner on the map
+            ms, by = bound((v, loc, w, got), 2.0 * D * on_map, "f32")
+
+            def vec():
+                return ms_deform_attn(v, shapes, loc, w)
+
+            def lane_body():
+                return _ms_deform_attn_cuda(v, shapes, loc, w,
+                                            body=BODY_LANE)
+
+            times[f"K1 {name}"] = dict(
+                ms=graph_ms(vec), eager_ms=cuda_ms(vec, 50),
+                lane_ms=graph_ms(lane_body),
+                plain_ms=cuda_ms(
+                    lambda: ms_deform_attn_torch(v, shapes, loc, w), 10),
+                bound_ms=ms, bound_by=by, library_ms=None)
+            # a model of the L2 traffic, not a reading: one row load per
+            # corner on the map
+            rows = on_map * D * v.element_size()
+            rate = rows / 1e9 / times[f"K1 {name}"]["ms"]
+            log(f"  K1 {name}: {on_map} corners on the map, {rows / 1e6:.1f}"
+                " MB of corner rows from L2 (modelled from the corner count,"
+                f" no counter read): {rate:.2f} TB/s over the vector body's "
+                "time")
+
+
 def kernel_phase():
-    from rscotr_tpu_torch.ops.ms_deform_attn import (ms_deform_attn,
-                                                     ms_deform_attn_torch)
     from rscotr_tpu_torch.ops.window_attention import (window_attention,
                                                        window_attention_torch)
     g = torch.Generator(device="cuda").manual_seed(0)
     err = {"K1": [0.0, 0.0], "K2": [0.0, 0.0]}   # [f32, bf16]
     times = {}
-    log("kernel phase: K1 msda_fwd vs ms_deform_attn_torch")
-    Nv = sum(h * w for h, w in DET_SHAPES)
-    seg_nv = sum(h * w for h, w in SEG_SHAPES)
-    for dtype in (torch.float32, torch.bfloat16):
-        for name, B, Q, lvls in (
-                ("det-encoder B=1", 1, Nv, DET_SHAPES),
-                ("decoder B=1 Q=600", 1, 600, DET_SHAPES),
-                ("det-encoder B=4", 4, Nv, DET_SHAPES),
-                ("seg-encoder B=1", 1, seg_nv, SEG_SHAPES),
-                ("seg-encoder B=4", 4, seg_nv, SEG_SHAPES)):
-            v, shapes, loc, w = msda_inputs(B, Q, dtype, g, shapes=lvls)
-            got = ms_deform_attn(v, shapes, loc, w)
-            torch.cuda.synchronize()
-            ref = ms_deform_attn_torch(v.float(), shapes, loc, w.float())
-            e = check_close(f"K1 {name}", got, ref, dtype)
-            err["K1"][dtype == torch.bfloat16] = max(
-                err["K1"][dtype == torch.bfloat16], e)
-            if dtype == torch.bfloat16 and B == 1:
-                # 4 corners x D fused multiply-adds per sampling point
-                ms, by = bound((v, loc, w, got),
-                               8.0 * v.shape[-1] * w.numel(), "f32")
-                times[f"K1 {name}"] = dict(
-                    ms=cuda_ms(lambda: ms_deform_attn(v, shapes, loc, w), 50),
-                    plain_ms=cuda_ms(
-                        lambda: ms_deform_attn_torch(v, shapes, loc, w), 10),
-                    bound_ms=ms, bound_by=by, library_ms=None)
+    k1_phase(err, times)
     log("kernel phase: K2 window_attn vs window_attention_torch (the plain "
         "version at the kernel's dtype: for bf16 it rounds P where the "
         "kernel does)")
@@ -849,17 +932,6 @@ def check_grads(name, gots, refs, names, dtype, tol=None,
     return worst
 
 
-def corners_on_map(shapes, loc) -> int:
-    """How many of the sampling points' 4 x points bilinear corners lie on
-    their level's map: the corner rows K1b loads and reduces into."""
-    wh = torch.tensor([[w, h] for h, w in shapes], dtype=torch.float32,
-                      device=loc.device)[:, None]
-    x0 = torch.floor(loc * wh - 0.5)                  # (B, Q, H, L, P, 2)
-    on = [((x0 + d >= 0) & (x0 + d < wh)).long() for d in (0, 1)]
-    return int(sum((on[dy][..., 1] * on[dx][..., 0]).sum()
-                   for dy in (0, 1) for dx in (0, 1)))
-
-
 def backward_phase():
     from rscotr_tpu_torch.ops.ms_deform_attn import (
         BODY_LANE, BODY_VEC, _msda_bwd_cuda, ms_deform_attn,
@@ -1162,22 +1234,29 @@ def serving_phase():
     # -- the main path's run: one request of each kind, counted -----------
     # K1: 6 encoder + 6 decoder layers per det forward, 6 encoder layers per
     # seg forward (the pixel decoder); K2: 12 Swin blocks per backbone pass
+    # (every K1 launch takes the vector body: head width 32)
     want = {"cls": (0, 12), "det": (12, 12), "seg": (6, 12)}
     ms_deform_attn.launches = 0
+    ms_deform_attn.vec_launches = 0
     window_attention.launches = 0
     outs = {}
     for name, (task, args) in reqs.items():
         k1, k2 = ms_deform_attn.launches, window_attention.launches
+        vec = ms_deform_attn.vec_launches
         outs[name] = steps[task](*args)
         got = (ms_deform_attn.launches - k1, window_attention.launches - k2)
-        log(f"  launches in {name}: K1 {got[0]}, K2 {got[1]} (want "
-            f"{want[task][0]}, {want[task][1]})")
-        if got != want[task]:
-            fail(f"{name}: kernel launches {got} != {want[task]}")
+        vec = ms_deform_attn.vec_launches - vec
+        log(f"  launches in {name}: K1 {got[0]} ({vec} vector body), K2 "
+            f"{got[1]} (want {want[task][0]}, all vector body, "
+            f"{want[task][1]})")
+        if got != want[task] or vec != got[0]:
+            fail(f"{name}: kernel launches {got} ({vec} K1 vector body) != "
+                 f"{want[task]}")
     torch.cuda.synchronize()
-    launches = {"K1": ms_deform_attn.launches, "K2": window_attention.launches}
-    log(f"  launches in the main path's run: K1 {launches['K1']}, K2 "
-        f"{launches['K2']}")
+    launches = {"K1": ms_deform_attn.launches, "K2": window_attention.launches,
+                "K1 vec": ms_deform_attn.vec_launches}
+    log(f"  launches in the main path's run: K1 {launches['K1']} "
+        f"({launches['K1 vec']} vector body), K2 {launches['K2']}")
 
     probs = outs["cls 16x224^2"].float()
     if tuple(probs.shape) != (16, 45) or not torch.isfinite(probs).all() or \
@@ -1323,6 +1402,7 @@ def train_phase():
     # -- the main path's run: 2 warm-up + 10 timed steps of each task ----
     for fn in counters.values():
         fn.launches = 0
+    ms_deform_attn.vec_launches = 0
     times = {"cls": [], "det": []}
     peak = {"cls": 0.0, "det": 0.0}
     schedule = ["cls", "det"] * 12
@@ -1331,6 +1411,7 @@ def train_phase():
             snap = {n: p.detach().clone() for n, p in params.items()
                     if n.startswith(frozen[task])}
             before = {k: fn.launches for k, fn in counters.items()}
+            vec = ms_deform_attn.vec_launches
             torch.cuda.reset_peak_memory_stats()
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
@@ -1343,6 +1424,8 @@ def train_phase():
             if got != want[task]:
                 fail(f"{task} step {i}: kernel launches {got} != "
                      f"{want[task]}")
+            if ms_deform_attn.vec_launches - vec != got["K1"]:
+                fail(f"{task} step {i}: a K1 launch took the lane body")
             vals = {k: float(v) for k, v in lv.items()}
             if not all(np.isfinite(v) for v in vals.values()):
                 fail(f"{task} step {i}: non-finite loss terms {vals}")
@@ -1363,6 +1446,7 @@ def train_phase():
     finally:
         dl.hungarian_batched = solve
     launches = {k: fn.launches for k, fn in counters.items()}
+    launches["K1 vec"] = ms_deform_attn.vec_launches
     log(f"  launches in the main path's run ({len(schedule)} steps): "
         f"{launches}")
     # the one device-to-host copy of the matching costs, alone
@@ -1426,11 +1510,15 @@ def kernels_line(times, btimes, qtimes, err, berr, qerr, k6err, k6levels,
                 if name.startswith(kernel + " ")}
 
     pallas = "rscotr_tpu/ops/pallas/"
+    k1 = times[f"K1 {K1_HEADLINE}"]
     return {"kernels": [
         entry("msda_fwd", "msda_fwd.cu",
               pallas + "ms_deform_attn_kernel.py:138", "K1",
-              times["K1 det-encoder B=1"], err["K1"], det_enc,
-              launches_serving=launches["K1 serving"]),
+              k1, err["K1"], det_enc + ", locations in [0, 1]",
+              lane_ms=k1["lane_ms"], launches_serving=launches["K1 serving"],
+              vec_launches=launches["K1 vec"],
+              vec_launches_serving=launches["K1 vec serving"],
+              stages=stages(times, "K1")),
         entry("window_attn", "window_attn.cu",
               pallas + "window_attention.py:116", "K2",
               times["K2 det800.s0"], err["K2"], det_s0, library=sdpa,
@@ -1511,6 +1599,7 @@ def main(argv) -> int:
     # K3' is launched by the quad-gather path; the training run launches it
     # 0 times (train_phase checks every step), K1b doing its work there
     launches.update({"K1 serving": slaunches["K1"],
+                     "K1 vec serving": slaunches["K1 vec"],
                      "K2 serving": slaunches["K2"], "K6": k6launches,
                      "K3' training": launches["K3'"]}, **qlaunches)
 

@@ -53,6 +53,8 @@ static __device__ __forceinline__ float warp_sum(float x) {
 #define MSDA_MAX_LEVELS 8
 #define MSDA_MAX_D 128
 #define MSDA_THREADS 256
+// A level's width sits below the mask of a point's corners on the map.
+#define MSDA_WIDTH_BITS 27
 
 struct Levels {
   int num;
@@ -61,7 +63,8 @@ struct Levels {
   int start[MSDA_MAX_LEVELS];
 };
 
-// Levels from L host (h, w) pairs; false if their rows do not add up to Nv.
+// Levels from L host (h, w) pairs; false if their rows do not add up to Nv
+// or a width does not fit below the corner mask (MSDA_WIDTH_BITS).
 static inline bool make_levels(const int* shapes, int L, int Nv, Levels* lv) {
   lv->num = L;
   int s = 0;
@@ -70,8 +73,80 @@ static inline bool make_levels(const int* shapes, int L, int Nv, Levels* lv) {
     lv->w[l] = shapes[2 * l + 1];
     lv->start[l] = s;
     s += lv->h[l] * lv->w[l];
+    if (lv->w[l] >> MSDA_WIDTH_BITS) return false;
   }
   return s == Nv;
+}
+
+#define FULL_MASK 0xffffffffu
+
+// One sampling point as the forward sees it: x = loc_x * W_l - 0.5 with an
+// explicit round-to-nearest multiply, so no FMA contraction moves floor()
+// away from the reference's separate multiply and subtract.
+struct Start {
+  int x0i, y0i;
+  float fx, fy;
+};
+
+static __device__ __forceinline__ Start start_cell(float lx, float ly, int Wl,
+                                                   int Hl) {
+  const float x = __fmul_rn(lx, (float)Wl) - 0.5f;
+  const float y = __fmul_rn(ly, (float)Hl) - 0.5f;
+  const float x0 = floorf(x), y0 = floorf(y);
+  return {(int)x0, (int)y0, x - x0, y - y0};
+}
+
+// ---- the vector bodies of K1 and K1b (D in {16, 32, 64}) ----------------
+// A lane owns 4 consecutive channels of a row; one sampling point's data is
+// worked out by the lane that owns it and handed round by __shfl_sync.
+
+// Level l's constants by selects: indexing lv by a lane's own l would copy
+// the struct to local memory.
+static __device__ __forceinline__ void level_of(const Levels& lv, int l,
+                                                int& Hl, int& Wl, int& st) {
+  Hl = Wl = st = 0;
+#pragma unroll
+  for (int i = 0; i < MSDA_MAX_LEVELS; ++i)
+    if (i == l) Hl = lv.h[i], Wl = lv.w[i], st = lv.start[i];
+}
+
+// Wl with bit MSDA_WIDTH_BITS + c set where corner c = 2 dy + dx of the
+// point starting at s lies on the Hl x Wl map.
+static __device__ __forceinline__ unsigned width_and_corners(const Start& s,
+                                                             int Wl, int Hl) {
+  const unsigned vx0 = s.x0i >= 0 && s.x0i < Wl;
+  const unsigned vx1 = s.x0i + 1 >= 0 && s.x0i + 1 < Wl;
+  const unsigned vy0 = s.y0i >= 0 && s.y0i < Hl;
+  const unsigned vy1 = s.y0i + 1 >= 0 && s.y0i + 1 < Hl;
+  const unsigned on_map = (vy0 & vx0) | (vy0 & vx1) << 1 | (vy1 & vx0) << 2 |
+                          (vy1 & vx1) << 3;
+  return (unsigned)Wl | on_map << MSDA_WIDTH_BITS;
+}
+
+static __device__ __forceinline__ void load4(const float* p, float (&v)[4]) {
+  const float4 t = __ldg(reinterpret_cast<const float4*>(p));
+  v[0] = t.x, v[1] = t.y, v[2] = t.z, v[3] = t.w;
+}
+
+static __device__ __forceinline__ void load4(const __nv_bfloat16* p,
+                                             float (&v)[4]) {
+  const uint2 t = __ldg(reinterpret_cast<const uint2*>(p));
+  v[0] = __uint_as_float(t.x << 16), v[1] = __uint_as_float(t.x & 0xffff0000u);
+  v[2] = __uint_as_float(t.y << 16), v[3] = __uint_as_float(t.y & 0xffff0000u);
+}
+
+static __device__ __forceinline__ void store4(float* p, const float (&v)[4]) {
+  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+}
+
+static __device__ __forceinline__ void store4(__nv_bfloat16* p,
+                                              const float (&v)[4]) {
+  unsigned u[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+    u[j] = __bfloat16_as_ushort(from_f32<__nv_bfloat16>(v[j]));
+  *reinterpret_cast<uint2*>(p) = make_uint2(u[0] | u[1] << 16,
+                                            u[2] | u[3] << 16);
 }
 
 // ---- window attention (window_attn.cu, window_attn_bwd.cu) ---------------

@@ -46,26 +46,9 @@
 // Any other D in 1..128 takes the lane-per-channel body with scalar
 // atomics. The order of the atomic adds changes from run to run, so
 // d_value differs from a sequential sum in the last bits. Hot cells (many
-// points adding into the few cells of the coarsest level) cost little:
-// rscotr_tpu_torch/tools/msda_bwd_parts.py times one level at a time.
+// points adding into the few cells of the coarsest level) cost little: all
+// points on the 13 x 13 level take about as long as all on the 100 x 100.
 #include "common.cuh"
-
-#define FULL_MASK 0xffffffffu
-
-// One sampling point as the forward sees it: the forward's arithmetic, so
-// floor() lands on the same cell.
-struct Start {
-  int x0i, y0i;
-  float fx, fy;
-};
-
-static __device__ __forceinline__ Start start_cell(float lx, float ly, int Wl,
-                                                   int Hl) {
-  const float x = __fmul_rn(lx, (float)Wl) - 0.5f;
-  const float y = __fmul_rn(ly, (float)Hl) - 0.5f;
-  const float x0 = floorf(x), y0 = floorf(y);
-  return {(int)x0, (int)y0, x - x0, y - y0};
-}
 
 // ---- lane-per-channel body: any D <= MSDA_MAX_D ---------------------------
 // One warp per (b, q, h), lane = channel d (D > 32 loops), one corner at a
@@ -147,35 +130,13 @@ __global__ void __launch_bounds__(MSDA_THREADS) msda_bwd_lane_kernel(
 }
 
 // ---- vector body: D in {16, 32, 64} ---------------------------------------
-static __device__ __forceinline__ void load4(const float* p, float (&v)[4]) {
-  const float4 t = __ldg(reinterpret_cast<const float4*>(p));
-  v[0] = t.x, v[1] = t.y, v[2] = t.z, v[3] = t.w;
-}
-
-static __device__ __forceinline__ void load4(const __nv_bfloat16* p,
-                                             float (&v)[4]) {
-  const uint2 t = __ldg(reinterpret_cast<const uint2*>(p));
-  v[0] = __uint_as_float(t.x << 16), v[1] = __uint_as_float(t.x & 0xffff0000u);
-  v[2] = __uint_as_float(t.y << 16), v[3] = __uint_as_float(t.y & 0xffff0000u);
-}
-
-// p[0..3] += (a, b, c, d), p 16-byte aligned; nothing is read back. The two
-// macros exist for rscotr_tpu_torch/tools/msda_bwd_parts.py, which times
-// what the reductions and their vector form cost.
+// p[0..3] += (a, b, c, d), p 16-byte aligned; nothing is read back.
 static __device__ __forceinline__ void red_add4(float* p, float a, float b,
                                                 float c, float d) {
-#if defined(MSDA_BWD_NO_RED)
-#elif defined(MSDA_BWD_SCALAR_RED)
-  atomicAdd(p, a), atomicAdd(p + 1, b), atomicAdd(p + 2, c),
-      atomicAdd(p + 3, d);
-#else
   asm volatile("red.global.add.v4.f32 [%0], {%1, %2, %3, %4};" ::"l"(
                    __cvta_generic_to_global(p)),
                "f"(a), "f"(b), "f"(c), "f"(d));
-#endif
 }
-
-#define MSDA_BWD_WIDTH_BITS 27  // a level's width sits below the corner mask
 
 // One warp per (b, q, h). A task's points are taken 16 at a time (a chunk):
 // lane i < 16 owns point i of the chunk. A round gives each of the warp's
@@ -222,21 +183,12 @@ __global__ void __launch_bounds__(MSDA_THREADS) msda_bwd_vec_kernel(
     float fx = 0.f, fy = 0.f, aw = 0.f, fW = 0.f, fH = 0.f;
     if (lane < npts) {
       const int lp = c0 + lane;
-      const int l = lp / P;
-      int Hl = 0, Wl = 0, st = 0;  // selects: indexing lv by a lane's own l
-#pragma unroll                     // would copy it to local memory
-      for (int i = 0; i < MSDA_MAX_LEVELS; ++i)
-        if (i == l) Hl = lv.h[i], Wl = lv.w[i], st = lv.start[i];
+      int Hl, Wl, st;
+      level_of(lv, lp / P, Hl, Wl, st);
       const float2 xy = __ldg(loc_t + lp);
       const Start s = start_cell(xy.x, xy.y, Wl, Hl);
-      const unsigned vx0 = s.x0i >= 0 && s.x0i < Wl;
-      const unsigned vx1 = s.x0i + 1 >= 0 && s.x0i + 1 < Wl;
-      const unsigned vy0 = s.y0i >= 0 && s.y0i < Hl;
-      const unsigned vy1 = s.y0i + 1 >= 0 && s.y0i + 1 < Hl;
-      const unsigned on_map = (vy0 & vx0) | (vy0 & vx1) << 1 |
-                              (vy1 & vx0) << 2 | (vy1 & vx1) << 3;
       cell0 = st + s.y0i * Wl + s.x0i;
-      wmask = (unsigned)Wl | on_map << MSDA_BWD_WIDTH_BITS;
+      wmask = width_and_corners(s, Wl, Hl);
       fx = s.fx, fy = s.fy;
       aw = to_f32(w_t[lp]);
       fW = (float)Wl, fH = (float)Hl;
@@ -250,11 +202,11 @@ __global__ void __launch_bounds__(MSDA_THREADS) msda_bwd_vec_kernel(
       const float pfx = __shfl_sync(FULL_MASK, fx, pl);
       const float pfy = __shfl_sync(FULL_MASK, fy, pl);
       const float a = __shfl_sync(FULL_MASK, aw, pl);
-      const int Wl = (int)(pm & ((1u << MSDA_BWD_WIDTH_BITS) - 1u));
+      const int Wl = (int)(pm & ((1u << MSDA_WIDTH_BITS) - 1u));
       float v[4][4];
 #pragma unroll
       for (int c = 0; c < 4; ++c) {  // all four loads before the first sum
-        if ((pm >> (MSDA_BWD_WIDTH_BITS + c)) & 1u) {
+        if ((pm >> (MSDA_WIDTH_BITS + c)) & 1u) {
           load4(v_bh + (long long)(pc + (c >> 1) * Wl + (c & 1)) * row_stride,
                 v[c]);
         } else {
@@ -270,7 +222,7 @@ __global__ void __launch_bounds__(MSDA_THREADS) msda_bwd_vec_kernel(
 #pragma unroll
         for (int o = LPR / 2; o > 0; o >>= 1)
           dot += __shfl_xor_sync(FULL_MASK, dot, o);
-        if ((pm >> (MSDA_BWD_WIDTH_BITS + c)) & 1u) {
+        if ((pm >> (MSDA_WIDTH_BITS + c)) & 1u) {
           const float wy = dy ? pfy : 1.f - pfy;
           const float wx = dx ? pfx : 1.f - pfx;
           t_a += wy * wx * dot;
@@ -346,8 +298,6 @@ extern "C" int msda_bwd(const void* value, int value_dtype, const void* loc,
     return (int)cudaErrorInvalidValue;
   Levels lv;
   if (!make_levels(shapes, L, Nv, &lv)) return (int)cudaErrorInvalidValue;
-  for (int l = 0; l < L; ++l)
-    if (lv.w[l] >> MSDA_BWD_WIDTH_BITS) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (value_dtype == kF32 && w_dtype == kF32)
     return (int)launch<float, float>(value, loc, attw, d_out, d_attw, d_loc,

@@ -56,13 +56,9 @@ def _nvcc() -> str:
     return nvcc
 
 
-def build(defines: tuple = ()) -> Build:
-    """Compile csrc/*.cu into one shared library (cached by content).
-    ``defines``: preprocessor macros (``-D`` names) for a measurement build
-    that switches a part of a kernel off; such a library has a name of its
-    own and is bound with ``bind``, never returned by ``load``."""
-    flags = NVCC_FLAGS + tuple(f"-D{d}" for d in defines)
-    digest = hashlib.sha256(" ".join(flags).encode())
+def build() -> Build:
+    """Compile csrc/*.cu into one shared library (cached by content)."""
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for f in sorted(CSRC.glob("*.cu*")):
         digest.update(f.name.encode())
         digest.update(f.read_bytes())
@@ -76,7 +72,7 @@ def build(defines: tuple = ()) -> Build:
     objs, procs = [], []
     for src in sorted(CSRC.glob("*.cu")):
         obj = BUILD_DIR / f"{src.stem}.{tag}.o"
-        cmd = [nvcc, *flags, "-c", "-o", str(obj), str(src)]
+        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
         objs.append(obj)
         procs.append((cmd, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
@@ -105,15 +101,15 @@ def load() -> ctypes.CDLL:
     """The bound kernel library (built on first call in this process)."""
     global _LIB
     if _LIB is None:
-        _LIB = bind(build().path)
+        _LIB = _bind(build().path)
     return _LIB
 
 
-def bind(path: Path) -> ctypes.CDLL:
-    """Load a library made by ``build`` and declare its C functions."""
+def _bind(path: Path) -> ctypes.CDLL:
+    """Load the library made by ``build`` and declare its C functions."""
     lib = ctypes.CDLL(str(path))
     lib.msda_fwd.argtypes = [_P, _I, _P, _P, _I, _P, _I, _I, _I, _I, _I,
-                             _I, _I, ctypes.POINTER(ctypes.c_int), _P]
+                             _I, _I, ctypes.POINTER(ctypes.c_int), _I, _P]
     lib.msda_fwd.restype = _I
     lib.window_attn_fwd.argtypes = [
         _P, _P, _P, _I, ctypes.POINTER(ctypes.c_longlong), _P, _P, _P,

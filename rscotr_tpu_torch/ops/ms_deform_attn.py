@@ -8,8 +8,10 @@ Counterpart of rscotr_tpu/ops/ms_deform_attn.py. Sampling semantics match
 zero.
 
 ``ms_deform_attn`` is a ``torch.autograd.Function``. For CUDA tensors the
-forward launches the hand-written kernel ``csrc/msda_fwd.cu`` (K1) and the
-backward is one launch of ``csrc/msda_bwd.cu`` (K1b, ``ms_deform_attn_bwd``):
+forward launches the hand-written kernel ``csrc/msda_fwd.cu`` (K1; its body
+picked by ``msda_fwd_body`` from the head width and the tensors' alignment)
+and the backward is one launch of ``csrc/msda_bwd.cu`` (K1b,
+``ms_deform_attn_bwd``):
 it writes the attention-weight and location gradients and adds every valid
 corner's term, the corner weight times ``d_out`` rounded to value's dtype,
 straight into a zeroed float32 accumulator of value's layout with atomics;
@@ -107,6 +109,7 @@ def ms_deform_attn(value: torch.Tensor,
 
 
 ms_deform_attn.launches = 0
+ms_deform_attn.vec_launches = 0   # those of them that took the vector body
 
 
 def _check_cuda_args(name, value, shapes, loc, attn, *more):
@@ -138,29 +141,62 @@ def _levels_arg(shapes):
     return (ctypes.c_int * (2 * len(shapes)))(*[n for s in shapes for n in s])
 
 
-def _ms_deform_attn_cuda(value, shapes, loc, attn):
+# csrc/msda_fwd.cu and csrc/msda_bwd.cu: the lane-per-channel body, and the
+# vector body for the head widths it is instantiated for
+BODY_LANE, BODY_VEC = 0, 1
+VEC_HEAD_DIMS = (16, 32, 64)
+
+
+def _pick_body(head_dim, data_ptrs) -> int:
+    if head_dim in VEC_HEAD_DIMS and not any(p % 16 for p in data_ptrs):
+        return BODY_VEC
+    return BODY_LANE
+
+
+def _take_body(name, body, pick, head_dim) -> int:
+    """The body a launch takes: ``pick`` unless the caller asks for the
+    lane body; the vector body is never forced where ``pick`` refuses it."""
+    if body is None:
+        return pick
+    if body not in (BODY_LANE, pick):
+        raise ValueError(f"{name}: body {body} does not take head_dim "
+                         f"{head_dim} at these base addresses")
+    return body
+
+
+def msda_fwd_body(head_dim: int, data_ptrs=()) -> int:
+    """Which body of K1 a CUDA launch takes: ``BODY_VEC`` (a lane owns 4
+    consecutive channels: 8- or 16-byte corner-row loads and output stores,
+    one sampling point per lane group) for a head width in
+    ``VEC_HEAD_DIMS`` when every base address in ``data_ptrs`` (value, loc
+    and the output) is 16-byte aligned, else ``BODY_LANE`` (a lane per
+    channel; any head width up to 128)."""
+    return _pick_body(head_dim, data_ptrs)
+
+
+def _ms_deform_attn_cuda(value, shapes, loc, attn, body=None):
+    """Kernel K1 on CUDA tensors -> (B, Q, H * D) in value's dtype.
+    ``body``: ``BODY_LANE`` where ``msda_fwd_body`` would pick the vector
+    body (for the tools that time the lane body)."""
     B, Nv, H, D, Q, L, P = _check_cuda_args("ms_deform_attn", value, shapes,
                                             loc, attn)
     out = torch.empty((B, Q, H * D), dtype=value.dtype, device=value.device)
     if out.numel() == 0:
         return out
+    body = _take_body("ms_deform_attn", body, msda_fwd_body(
+        D, [t.data_ptr() for t in (value, loc, out)]), D)
     lib = kernel_lib.load()
     with torch.cuda.device(value.device):
         err = lib.msda_fwd(
             value.data_ptr(), kernel_lib.dtype_code(value, "value"),
             loc.data_ptr(), attn.data_ptr(),
             kernel_lib.dtype_code(attn, "attention_weights"),
-            out.data_ptr(), B, Nv, Q, H, D, L, P, _levels_arg(shapes),
+            out.data_ptr(), B, Nv, Q, H, D, L, P, _levels_arg(shapes), body,
             kernel_lib.stream_ptr(value.device))
     kernel_lib.check(err, "msda_fwd")
     ms_deform_attn.launches += 1
+    ms_deform_attn.vec_launches += body == BODY_VEC
     return out
-
-
-# csrc/msda_bwd.cu: the lane-per-channel body, and the vector body for the
-# head widths it is instantiated for
-BODY_LANE, BODY_VEC = 0, 1
-VEC_HEAD_DIMS = (16, 32, 64)
 
 
 def msda_bwd_body(head_dim: int, data_ptrs=()) -> int:
@@ -170,9 +206,7 @@ def msda_bwd_body(head_dim: int, data_ptrs=()) -> int:
     ``VEC_HEAD_DIMS`` when every base address in ``data_ptrs`` (value, loc,
     d_out, d_loc and the accumulator) is 16-byte aligned, else ``BODY_LANE``
     (a lane per channel, scalar atomics; any head width up to 128)."""
-    if head_dim in VEC_HEAD_DIMS and not any(p % 16 for p in data_ptrs):
-        return BODY_VEC
-    return BODY_LANE
+    return _pick_body(head_dim, data_ptrs)
 
 
 def ms_deform_attn_bwd(value: torch.Tensor,
@@ -222,13 +256,8 @@ def _msda_bwd_cuda(value, shapes, loc, attn, d_out, acc=None, body=None):
                          f"float32 {tuple(value.shape)} on {dev}")
     if value.numel() == 0 or attn.numel() == 0:
         return acc, d_loc.zero_(), d_attn.zero_()
-    pick = msda_bwd_body(D, [t.data_ptr() for t in (value, loc, d_out,
-                                                    d_loc, acc)])
-    if body is None:
-        body = pick
-    elif body not in (BODY_LANE, pick):
-        raise ValueError(f"ms_deform_attn_bwd: body {body} does not take "
-                         f"head_dim {D} at these base addresses")
+    body = _take_body("ms_deform_attn_bwd", body, msda_bwd_body(
+        D, [t.data_ptr() for t in (value, loc, d_out, d_loc, acc)]), D)
     lib = kernel_lib.load()
     with torch.cuda.device(dev):
         err = lib.msda_bwd(

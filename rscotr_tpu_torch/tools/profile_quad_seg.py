@@ -1,17 +1,20 @@
-"""Profile the quad-gather MSDA against the K1 path, and the flagship's seg
-requests, with torch.profiler on one CUDA device.
+"""Profile the quad-gather MSDA against the K1 path, and the flagship's
+serving requests, with torch.profiler on one CUDA device.
 
     python -m rscotr_tpu_torch.tools.profile_quad_seg
 
 For each case: the wall time per call with the profiler on, the device time
 summed over device kernels and copies (and its share of the wall time: how
 busy the card is), the device kernels and aten ops per call, then the ten
-device kernels and six aten ops with the most device time. Cases:
+device kernels with the most device time and the port's own kernels below
+them, and the six aten ops with the most device time. Cases:
 ``ms_deform_attn(impl="quad")`` and ``impl="kernel"`` at the det encoder
 (B=1, Q=Nv=13,294, 8 heads, 4 levels, 4 points, D=32, bf16), forward and
 forward + backward, 5 calls each; the flagship MTL (random weights, seed 0)
-serving seg 1x512^2 and 4x512^2 in whole mode, 3 requests each. Every case
-runs 3 times before the profiler starts. Exits 1 without a CUDA device.
+serving the requests of ``chip_smoke.py``: cls 16x224^2, det 1x800^2, det
+4x800^2 (four image sizes padded to 800^2), seg 4x512^2 and seg 1x512^2 in
+whole mode, 3 requests each. Every case runs 3 times before the profiler
+starts. Exits 1 without a CUDA device.
 """
 
 from __future__ import annotations
@@ -27,6 +30,9 @@ import torch
 FLAGSHIP_CFG = (Path(__file__).resolve().parents[2] /
                 "configs/multi/MTL_synthetic_flagship.py")
 DET_SHAPES = ((100, 100), (50, 50), (25, 25), (13, 13))
+# device kernel names of csrc/*.cu
+PORT_KERNELS = ("msda_", "window_attn", "scatter_add", "ws_",
+                "weighted_gather")
 
 
 def _dev_time(e) -> float:
@@ -48,7 +54,11 @@ def report(name: str, prof, wall_ms: float, n: int) -> None:
           f"device kernels {busy:.3f} ms ({100 * busy * n / wall_ms:.1f}% "
           f"busy), {kcount:.0f} device kernels + copies, {ops:.0f} aten ops "
           "per call", flush=True)
-    for e in sorted(kern, key=_dev_time, reverse=True)[:10]:
+    ranked = sorted(kern, key=_dev_time, reverse=True)
+    # the ten with the most device time, then the port's own kernels
+    for e in ranked[:10] + [e for e in ranked[10:]
+                            if e.key.removeprefix("void ").startswith(
+                                PORT_KERNELS)]:
         print(f"   {_dev_time(e) / 1e3 / n:8.4f} ms  x{e.count / n:6.1f}  "
               f"{e.key[:80]}", flush=True)
     for e in sorted(aten, key=_dev_time, reverse=True)[:6]:
@@ -95,19 +105,33 @@ def profile_msda(device: torch.device) -> None:
         profile_calls(f"MSDA impl={impl} forward+backward", fwd_bwd)
 
 
-def profile_seg(device: torch.device) -> None:
+def profile_serving(device: torch.device) -> None:
     from rscotr_tpu_torch.engine import make_infer_steps
     from rscotr_tpu_torch.models import build_model
     from rscotr_tpu_torch.utils.config import load_model_cfg
     cfg = load_model_cfg(str(FLAGSHIP_CFG))
     model = build_model(cfg, device=device,
                         generator=torch.Generator().manual_seed(0))
-    steps = make_infer_steps(model, seg_test_cfg=cfg["test_cfg"]["seg"])
+    steps = make_infer_steps(model, max_per_img=300,
+                             seg_test_cfg=cfg["test_cfg"]["seg"])
     rng = np.random.default_rng(0)
-    for B in (1, 4):
-        img = rng.integers(0, 256, (B, 512, 512, 3)).astype(np.uint8)
-        profile_calls(f"seg {B}x512^2 request", lambda: steps["seg"](img),
-                      n=3)
+
+    def img(B, side):
+        return rng.integers(0, 256, (B, side, side, 3)).astype(np.uint8)
+
+    det4_hw = np.array([[800, 800], [800, 704], [640, 800], [512, 600]],
+                       np.int32)
+    reqs = {
+        "cls 16x224^2": ("cls", (img(16, 224),)),
+        "det 1x800^2": ("det", (img(1, 800), np.array([[800, 800]], np.int32),
+                                np.ones((1, 4), np.float32))),
+        "det 4x800^2": ("det", (img(4, 800), det4_hw,
+                                np.ones((4, 4), np.float32))),
+        "seg 4x512^2": ("seg", (img(4, 512),)),
+        "seg 1x512^2": ("seg", (img(1, 512),)),
+    }
+    for name, (task, args) in reqs.items():
+        profile_calls(f"{name} request", lambda: steps[task](*args), n=3)
 
 
 def main() -> int:
@@ -121,7 +145,7 @@ def main() -> int:
     kernel_lib.build()
     device = torch.device("cuda")
     profile_msda(device)
-    profile_seg(device)
+    profile_serving(device)
     return 0
 
 
