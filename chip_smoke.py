@@ -30,11 +30,14 @@ Phases, each of which raises on failure (exit code 1, no result line):
    lane-per-channel body, and with locations that clamp at the map's edge;
    K2b at K2's extra cases too), float32 and bfloat16, timed, with bounds;
    K3' (the scatter alone, which the quad-gather path runs) on the quad-row
-   updates of the plain backward, beside one ``index_add_`` call, its
-   library yardstick;
+   updates of the plain backward at the det encoder (locations in [0, 1]
+   and [-0.2, 1.2]) and the train decoder, its vector body and its scalar
+   body forced on the same tensors, timed at the det encoder beside one
+   ``index_add_`` call, its library yardstick;
 5. quad-gather MSDA at the det encoder: ``ms_deform_attn(impl="quad")``
-   forward + backward once (K4, K5 and K3' launches counted), K4
-   (corner-weighted sum) and K5 (its gradients) against their plain
+   forward + backward once (K4, K5 and K3' launches counted; K5 and K3'
+   must take their vector bodies), K4 (corner-weighted sum) and K5 (its
+   gradients; both bodies on the same tensors) against their plain
    versions, the quad path's output and gradients against the K1 path's,
    float32 and bfloat16; K4, K5 and both paths timed, with their peak
    memory;
@@ -88,8 +91,16 @@ the train decoder (Q=800). K1b's are device times too,
 beside ``eager_ms`` and ``whole_ms`` (the whole ``ms_deform_attn_bwd``: zero
 fill, kernel, cast), timed at locations in [0, 1], as a model's are; its
 ``stages`` also hold the time at the [-0.2, 1.2] locations of the other
-kernel cases, where half the corners are off the map and skipped. The last
-line is
+kernel cases, where half the corners are off the map and skipped. K4's and
+K5's ``ms`` are device times too, beside ``eager_ms``; K5 also has
+``row_ms`` (its warp-per-row body, the first kernel, on the same
+tensors) and ``vec_launches``. K3''s ``ms`` is the device time of the
+launch alone, adding into a zeroed accumulator, at locations in [0, 1],
+beside ``eager_ms``, ``whole_ms`` / ``whole_eager_ms`` (``scatter_add_mm``
+with its zero fill), ``scalar_ms`` (the scalar body on the same tensors),
+``vec_launches`` and ``stages`` (also [-0.2, 1.2], where about half the
+sampling points clamp onto edge cells); its ``library_ms`` is device time
+too. The last line is
 {"ok": true, "device": {...}}. Without a CUDA device the script exits 1
 before printing any result.
 """
@@ -325,15 +336,21 @@ def k2_cases():
     return cases
 
 
+# the earlier bodies of K1, K5 and K3', timed on the same tensors
+OLD_BODIES = {"lane_ms": "lane body", "row_ms": "warp-per-row body",
+              "scalar_ms": "scalar body"}
+
+
 def log_times(times) -> None:
     for name, r in times.items():
         lib = r.get("library_ms")
         via = f" ({r['library_backend']})" if "library_backend" in r else ""
         eager = f" (eager {r['eager_ms']:.4f})" if "eager_ms" in r else ""
-        if "lane_ms" in r:
-            eager += f"; lane body {r['lane_ms']:.4f} ms"
+        for key, body in OLD_BODIES.items():
+            if key in r:
+                eager += f"; {body} {r[key]:.4f} ms"
         if "whole_ms" in r:
-            eager += (f"; whole ms_deform_attn_bwd {r['whole_ms']:.4f} ms "
+            eager += (f"; whole wrapper {r['whole_ms']:.4f} ms "
                       f"(eager {r['whole_eager_ms']:.4f})")
         log(f"  time bf16 {name:<28} kernel {r['ms']:.4f} ms{eager}   plain "
             f"{r['plain_ms']:.4f} ms   bound {r['bound_ms']:.4f} ms "
@@ -446,7 +463,8 @@ def index_add_yardstick(d_g, gidx, num_rows, want):
     """The library yardstick of K3': one bare ``index_add_`` of the f32
     updates into the f32 (G * num_rows + 1, C) table (the spare row takes
     the out-of-range updates, which K3' drops; cast, index arithmetic and
-    zeroing are outside the timed region). Timed here only."""
+    zeroing are outside the timed region). Device time by ``graph_ms``, as
+    the kernel's. Timed here only."""
     G, K, C = d_g.shape
     src = d_g.float().reshape(G * K, C)
     idx = gidx.long()
@@ -458,7 +476,7 @@ def index_add_yardstick(d_g, gidx, num_rows, want):
     e = (out[:-1].reshape(want.shape) - want).abs().max().item()
     if not e <= 1e-4 * want.abs().max().item():
         fail(f"index_add_ yardstick: not the same function ({e:.3e})")
-    ms = cuda_ms(lambda: out.index_add_(0, flat, src), 20)
+    ms = graph_ms(lambda: out.index_add_(0, flat, src))
     log(f"  library K3' index_add_ of f32 (G*K, C) = ({G * K}, {C}) into "
         f"({G * num_rows + 1}, {C}): {ms:.4f} ms")
     return ms
@@ -614,11 +632,13 @@ def kernel_phase():
 def quad_phase():
     """K4 / K5 and the quad-gather MSDA at the det encoder: the main path's
     run (``impl="quad"`` forward + backward, bf16, which also launches K3',
-    the value-gradient scatter of this path), K4 / K5 against their
-    plain versions, the quad path against the K1 path, times and peak
-    memory."""
+    the value-gradient scatter of this path; K5 and K3' must take their
+    vector bodies), K4 / K5 against their plain versions (K5 with both
+    bodies), the quad path against the K1 path, times and peak memory."""
+    from rscotr_tpu_torch.ops.kernel_lib import BODY_LANE
     from rscotr_tpu_torch.ops.ms_deform_attn import ms_deform_attn
-    from rscotr_tpu_torch.ops.msda_ws import (ws_bwd, ws_bwd_torch, ws_fwd,
+    from rscotr_tpu_torch.ops.msda_ws import (_ws_bwd_cuda, ws_bwd,
+                                              ws_bwd_torch, ws_fwd,
                                               ws_fwd_torch)
     from rscotr_tpu_torch.ops.scatter_mm import scatter_add_mm
     g = torch.Generator(device="cuda").manual_seed(2)
@@ -631,17 +651,20 @@ def quad_phase():
     leaves = tuple(t.requires_grad_() for t in (v, loc, w))
     d_out = torch.randn(1, Nv, 8 * D, device="cuda",
                         generator=g).to(torch.bfloat16)
-    ws_fwd.launches = 0
-    ws_bwd.launches = 0
-    scatter_add_mm.launches = 0
+    for fn in (ws_fwd, ws_bwd, scatter_add_mm):
+        fn.launches = 0
+    ws_bwd.vec_launches = scatter_add_mm.vec_launches = 0
     out = ms_deform_attn(v, shapes, loc, w, impl="quad")
     grads = torch.autograd.grad(out, leaves, d_out)
     torch.cuda.synchronize()
     launches = {"K4": ws_fwd.launches, "K5": ws_bwd.launches,
-                "K3'": scatter_add_mm.launches}
-    log(f"  launches in the main path's run: {launches} (want 1 each)")
-    if launches != {"K4": 1, "K5": 1, "K3'": 1}:
-        fail(f"quad path: kernel launches {launches} != K4 1, K5 1, K3' 1")
+                "K3'": scatter_add_mm.launches,
+                "K5 vec": ws_bwd.vec_launches,
+                "K3' vec": scatter_add_mm.vec_launches}
+    log(f"  launches in the main path's run: {launches} (want 1 each: K5 "
+        "and K3' on their vector bodies)")
+    if set(launches.values()) != {1}:
+        fail(f"quad path: kernel launches {launches} != 1 each")
     if not (torch.isfinite(out).all() and
             all(torch.isfinite(t).all() for t in grads)):
         fail("quad path: non-finite output or gradient")
@@ -662,26 +685,39 @@ def quad_phase():
         torch.cuda.synchronize()
         err["K4"][bf] = check_close("K4 det-encoder", k4_out,
                                     ws_fwd_torch(gq, wt), dtype)
+        vec = ws_bwd.vec_launches
         got = ws_bwd(gq, wt, dq)
+        row = _ws_bwd_cuda(gq, wt, dq, body=BODY_LANE)
         torch.cuda.synchronize()
+        if ws_bwd.vec_launches != vec + 1:
+            fail("K5 det-encoder: not one launch on the vector body")
         ref = ws_bwd_torch(gq, wt, dq)
         # d_g is one f32 product rounded once to g's dtype on both sides
-        if not torch.equal(got[0], ref[0]):
+        if not (torch.equal(got[0], ref[0]) and torch.equal(row[0], ref[0])):
             fail("K5 d_g differs from its plain version")
         err["K5"][bf] = check_grads("K5 det-encoder", got, ref,
                                     ("d_g", "d_wt"), dtype)
+        check_grads("K5 det-encoder (warp-per-row body)", row, ref,
+                    ("d_g", "d_wt"), dtype)
+        del row
         if bf:
             # K4: one multiply-add per element of g; K5: one product for
             # d_g and one multiply-add for d_wt per element of g
+            # ms: device time (graph replay); eager_ms: events around eager
+            # calls, the wrapper's host time included
             ms, by = bound((gq, wt, k4_out), 2.0 * gq.numel(), "f32")
             times["K4 det-encoder"] = dict(
-                ms=cuda_ms(lambda: ws_fwd(gq, wt), 50),
+                ms=graph_ms(lambda: ws_fwd(gq, wt)),
+                eager_ms=cuda_ms(lambda: ws_fwd(gq, wt), 50),
                 plain_ms=cuda_ms(lambda: ws_fwd_torch(gq, wt), 10),
                 bound_ms=ms, bound_by=by, library_ms=None)
             ms, by = bound((gq, wt, dq) + tuple(got), 3.0 * gq.numel(),
                            "f32")
             times["K5 det-encoder"] = dict(
-                ms=cuda_ms(lambda: ws_bwd(gq, wt, dq), 50),
+                ms=graph_ms(lambda: ws_bwd(gq, wt, dq)),
+                eager_ms=cuda_ms(lambda: ws_bwd(gq, wt, dq), 50),
+                row_ms=graph_ms(lambda: _ws_bwd_cuda(gq, wt, dq,
+                                                     body=BODY_LANE)),
                 plain_ms=cuda_ms(lambda: ws_bwd_torch(gq, wt, dq), 10),
                 bound_ms=ms, bound_by=by, library_ms=None)
         del got, ref, k4_out, gq, wt, dq
@@ -937,7 +973,8 @@ def backward_phase():
         BODY_LANE, BODY_VEC, _msda_bwd_cuda, ms_deform_attn,
         ms_deform_attn_bwd, ms_deform_attn_bwd_torch, msda_bwd_body,
         msda_bwd_rows_torch)
-    from rscotr_tpu_torch.ops.scatter_mm import (scatter_add_mm,
+    from rscotr_tpu_torch.ops.scatter_mm import (_scatter_add_cuda,
+                                                 scatter_add_mm,
                                                  scatter_add_mm_torch)
     from rscotr_tpu_torch.ops.window_attention import (
         window_attention, window_attention_bwd, window_attention_bwd_torch)
@@ -1023,26 +1060,51 @@ def backward_phase():
                         lambda: ms_deform_attn_bwd_torch(*args), 5),
                     bound_ms=ms, bound_by=by, library_ms=None)
                 del acc
-            if "span" in kw:    # K3' alone: at the default locations only
+            if name.startswith("edge"):
                 continue
-            # K3' alone, on the plain backward's quad-row updates
+            # K3' alone, on the plain backward's quad-row updates (C = 4 D):
+            # the vector body, and the scalar body forced on the same tensors
             d_g, gidx = msda_bwd_rows_torch(v, shapes, loc, w, d_out)[:2]
             d_g, gidx = d_g.contiguous(), gidx.contiguous()
-            d_qt = scatter_add_mm(d_g, gidx, Nv)
-            e = check_grads(f"K3' {name}", [d_qt],
-                            [scatter_add_mm_torch(d_g, gidx, Nv)], ("d_qt",),
+            rows = v.shape[1]
+            vec = scatter_add_mm.vec_launches
+            d_qt = scatter_add_mm(d_g, gidx, rows)
+            scalar = _scatter_add_cuda(d_g, gidx, torch.zeros_like(d_qt),
+                                       body=BODY_LANE)
+            torch.cuda.synchronize()
+            if scatter_add_mm.vec_launches != vec + 1:
+                fail(f"K3' {name}: not one launch on the vector body")
+            want = scatter_add_mm_torch(d_g, gidx, rows)
+            e = check_grads(f"K3' {name}", [d_qt], [want], ("d_qt",),
                             torch.float32)
+            check_grads(f"K3' {name} (scalar body)", [scalar], [want],
+                        ("d_qt",), torch.float32)
             err["K3"][bf] = max(err["K3"][bf], e)
-            if bf:
+            del scalar, want
+            # timed at the det encoder, both location spans: the kernel
+            # alone into a zeroed accumulator as ``ms``, the whole wrapper
+            # (zero fill and kernel) as ``whole_ms``
+            if bf and kw["Q"] == Nv and kw["B"] == 1:
+                acc = torch.zeros_like(d_qt)
+
+                def kernel():
+                    _scatter_add_cuda(d_g, gidx, acc)
+
                 # one f32 add per update element
                 ms, by = bound((d_g, gidx, d_qt), float(d_g.numel()), "f32")
                 times[f"K3' {name}"] = dict(
-                    ms=cuda_ms(lambda: scatter_add_mm(d_g, gidx, Nv), 20),
+                    ms=graph_ms(kernel), eager_ms=cuda_ms(kernel, 20),
+                    scalar_ms=graph_ms(lambda: _scatter_add_cuda(
+                        d_g, gidx, acc, body=BODY_LANE)),
+                    whole_ms=graph_ms(lambda: scatter_add_mm(d_g, gidx,
+                                                             rows)),
+                    whole_eager_ms=cuda_ms(
+                        lambda: scatter_add_mm(d_g, gidx, rows), 20),
                     plain_ms=cuda_ms(
-                        lambda: scatter_add_mm_torch(d_g, gidx, Nv), 5),
+                        lambda: scatter_add_mm_torch(d_g, gidx, rows), 5),
                     bound_ms=ms, bound_by=by,
-                    library_ms=index_add_yardstick(d_g, gidx, Nv, d_qt)
-                    if kw["Q"] == Nv else None)
+                    library_ms=index_add_yardstick(d_g, gidx, rows, d_qt))
+                del acc
             del d_g, gidx, d_qt
     log("backward phase: K2b window_attn_bwd (autograd through "
         "window_attention) vs window_attention_bwd_torch")
@@ -1485,6 +1547,7 @@ def kernels_line(times, btimes, qtimes, err, berr, qerr, k6err, k6levels,
     # K1b's time depends on how many corners lie on the map: the headline is
     # the case with a model's locations, [0, 1]
     k1b = btimes["K1b det-encoder B=1 loc in [0, 1]"]
+    k3 = btimes["K3' det-encoder B=1 loc in [0, 1]"]
     ws_at = "det encoder g (8, 13294, 16, 128) bf16, wt (8, 13294, 64) bf16"
     det_s0 = "det 800^2 stage 0 B=1 nW=841 H=3 n=49 hd=32 shifted bf16"
     sdpa = ("F.scaled_dot_product_attention(q, k, v, attn_mask=bias + mask, "
@@ -1533,11 +1596,16 @@ def kernels_line(times, btimes, qtimes, err, berr, qerr, k6err, k6levels,
               whole_ms=k1b["whole_ms"], whole_eager_ms=k1b["whole_eager_ms"],
               stages=stages(btimes, "K1b")),
         entry("scatter_add", "scatter_add.cu", pallas + "scatter_mm.py:168",
-              "K3'", btimes["K3' det-encoder B=1"], berr["K3"],
-              "det encoder d_g (8, 212704, 128) bf16 -> (8, 13294, 128) f32",
+              "K3'", k3, berr["K3"],
+              "det encoder d_g (8, 212704, 128) bf16 -> (8, 13294, 128) f32, "
+              "the plain backward's quad-row updates at locations in [0, 1]; "
+              "ms: the launch alone into a zeroed accumulator",
               library="Tensor.index_add_(0, rows, f32 updates)",
               launches_at="the quad-gather MSDA (impl=\"quad\") backward",
-              launches_train_run=launches["K3' training"]),
+              launches_train_run=launches["K3' training"],
+              vec_launches=launches["K3' vec"], scalar_ms=k3["scalar_ms"],
+              whole_ms=k3["whole_ms"], whole_eager_ms=k3["whole_eager_ms"],
+              stages=stages(btimes, "K3'")),
         entry("window_attn_bwd", "window_attn_bwd.cu",
               pallas + "window_attention.py:116", "K2b",
               btimes["K2b det800.s0"], berr["K2b"], det_s0,
@@ -1548,7 +1616,9 @@ def kernels_line(times, btimes, qtimes, err, berr, qerr, k6err, k6levels,
         entry("ws_fwd", "msda_ws.cu", pallas + "msda_ws.py:110", "K4",
               qtimes["K4 det-encoder"], qerr["K4"], ws_at),
         entry("ws_bwd", "msda_ws.cu", pallas + "msda_ws.py:135", "K5",
-              qtimes["K5 det-encoder"], qerr["K5"], ws_at),
+              qtimes["K5 det-encoder"], qerr["K5"], ws_at,
+              vec_launches=launches["K5 vec"],
+              row_ms=qtimes["K5 det-encoder"]["row_ms"]),
         entry("weighted_gather", "weighted_gather.cu",
               "tools/probe_msda_weighted_gather_mm.py:103", "K6",
               dict(ms=k6["weighted_mm"], plain_ms=k6["prod_gather"],

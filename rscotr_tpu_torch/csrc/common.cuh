@@ -149,6 +149,15 @@ static __device__ __forceinline__ void store4(__nv_bfloat16* p,
                                             u[2] | u[3] << 16);
 }
 
+// p[0..3] += (a, b, c, d), p 16-byte aligned; nothing is read back. Used by
+// K1b (msda_bwd.cu) and K3' (scatter_add.cu).
+static __device__ __forceinline__ void red_add4(float* p, float a, float b,
+                                                float c, float d) {
+  asm volatile("red.global.add.v4.f32 [%0], {%1, %2, %3, %4};" ::"l"(
+                   __cvta_generic_to_global(p)),
+               "f"(a), "f"(b), "f"(c), "f"(d));
+}
+
 // ---- window attention (window_attn.cu, window_attn_bwd.cu) ---------------
 struct Strides {  // element strides over (image * window, head, token)
   long long b, h, n;

@@ -130,14 +130,6 @@ __global__ void __launch_bounds__(MSDA_THREADS) msda_bwd_lane_kernel(
 }
 
 // ---- vector body: D in {16, 32, 64} ---------------------------------------
-// p[0..3] += (a, b, c, d), p 16-byte aligned; nothing is read back.
-static __device__ __forceinline__ void red_add4(float* p, float a, float b,
-                                                float c, float d) {
-  asm volatile("red.global.add.v4.f32 [%0], {%1, %2, %3, %4};" ::"l"(
-                   __cvta_generic_to_global(p)),
-               "f"(a), "f"(b), "f"(c), "f"(d));
-}
-
 // One warp per (b, q, h). A task's points are taken 16 at a time (a chunk):
 // lane i < 16 owns point i of the chunk. A round gives each of the warp's
 // ROWS = 32 / (D / 4) lane groups one point: the group loads the point's

@@ -13,16 +13,34 @@
 //
 // What bounds it on the card: streaming g. At the det encoder (G=8,
 // Q=13,294, KP=16, 4D=128, bf16) g is 435.6 MB per call; K4 reads it once
-// (~0.13 ms at 3.35 TB/s), K5 reads it once and writes d_g once. The
-// arithmetic is 2 FLOP per element. The TPU kernels existed to dodge an XLA
-// relayout copy and lane-padding of the corner axis; neither exists here,
-// so the design is the plain streaming one: one warp per (g, q) row, lane j
-// owns columns j, j+32, ... of the 4D-wide row (each k row is read as
-// coalesced 64 B / 128 B segments), the row's 4*KP weights are staged once
+// (~0.13 ms at 3.35 TB/s), K5 reads it once and writes d_g once (~0.28 ms).
+// The arithmetic is 2 FLOP per element. The TPU kernels existed to dodge an
+// XLA relayout copy and lane-padding of the corner axis; neither exists here.
+// No atomics: the results are deterministic.
+//
+// K4 and K5's lane body: one warp per (g, q) row, lane j owns columns j,
+// j+32, ... of the 4D-wide row (each k row is read as coalesced 64 B / 128 B
+// segments of 2- or 4-byte accesses), the row's 4*KP weights are staged once
 // in shared memory, and per-column f32 sums over k are folded over the four
-// corners at the end through a per-warp shared buffer. K5 writes d_g in the
-// same streaming pass and warp-reduces the four corner dot products of
-// each k. No atomics: the results are deterministic.
+// corners at the end through a per-warp shared buffer. K5's lane body writes
+// d_g in the same streaming pass and warp-reduces the four corner dot
+// products of each k, one k after another (64 dependent warp sums a row at
+// KP = 16); it takes any D <= 128.
+//
+// K5's vector body (D in {16, 32, 64}, 16-byte aligned g, d_out and d_g):
+// still one warp per row, but a lane owns 4 consecutive channels, so a warp
+// instruction covers 128 consecutive elements of the row's KP x 4D block
+// (8-byte g loads and d_g stores in bf16, 16-byte in f32; at D = 32 one k
+// row). A lane's channels d..d+3 are the same in every instruction, so it
+// reads its d_out once with one 16-byte load. Batches of WS_BATCH
+// instructions issue all their g loads before the first product. A lane's
+// partial for d_wt is the sum over its 4 channels; the D/4 lanes of a
+// corner group (one (k, c) slice of an instruction) combine D/4
+// instructions' partials with a reduce-scatter by __shfl_xor_sync (D/4 - 1
+// shuffles, 7 at D = 32), after which lane s of the group holds the whole
+// sum of the group's slice in instruction s of the chunk: the stores into
+// the c-major d_wt are consecutive within a group, and no shared memory or
+// per-k warp sum is left.
 #include "common.cuh"
 
 #define WS_THREADS 256
@@ -126,6 +144,82 @@ __global__ void __launch_bounds__(WS_THREADS) ws_bwd_kernel(
   for (int i = lane; i < NW; i += 32) dw[i] = s_dw[warp][i];
 }
 
+// ---- K5's vector body: D in {16, 32, 64} -----------------------------------
+#define WS_BATCH 16  // warp instructions of a row whose g loads fly together
+
+// Instruction i of a row covers elements [128 i, 128 i + 128) of its KP x 4D
+// block; lane l's 4 elements start at e = 128 i + 4 l: k = e / 4D, corner
+// c = (e % 4D) / D, channels d = 4 l % D .. + 3. The D/4 lanes with equal
+// (k, c) in an instruction are an aligned group (at D = 16 a warp
+// instruction holds two k rows, at D = 64 half of one).
+template <typename T, int D>
+__global__ void __launch_bounds__(WS_THREADS) ws_bwd_vec_kernel(
+    const T* __restrict__ g,         // (rows, KP, 4D)
+    const T* __restrict__ wt,        // (rows, 4*KP), c-major
+    const float* __restrict__ d_out, // (rows, D)
+    T* __restrict__ d_g,             // (rows, KP, 4D)
+    float* __restrict__ d_wt,        // (rows, 4*KP), c-major
+    long long rows, int KP) {
+  constexpr int R = D / 4;  // lanes of a corner group, partials a chunk
+  constexpr int C4 = 4 * D;
+  static_assert(WS_BATCH % R == 0, "a batch holds whole chunks");
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const long long row = (long long)blockIdx.x * WS_WARPS + warp;
+  if (row >= rows) return;  // the whole warp leaves; no block-wide sync
+  const int E = KP * C4;    // elements of the row
+  const int NI = (E + 127) / 128;
+  const T* g_r = g + row * E;
+  T* dg_r = d_g + row * E;
+  const T* w_r = wt + row * 4 * KP;
+  float* dw_r = d_wt + row * 4 * KP;
+  const int s = lane % R;   // place in the corner group
+  float dov[4];
+  load4(d_out + row * D + (4 * lane) % D, dov);
+
+  for (int i0 = 0; i0 < NI; i0 += WS_BATCH) {
+    float v[WS_BATCH][4], w[WS_BATCH];
+#pragma unroll
+    for (int b = 0; b < WS_BATCH; ++b) {  // every load of the batch first
+      const int e = 128 * (i0 + b) + 4 * lane;
+      if (e < E) {
+        load4(g_r + e, v[b]);
+        w[b] = to_f32(w_r[(e % C4) / D * KP + e / C4]);
+      } else {
+        v[b][0] = v[b][1] = v[b][2] = v[b][3] = w[b] = 0.f;
+      }
+    }
+    float p[WS_BATCH];
+#pragma unroll
+    for (int b = 0; b < WS_BATCH; ++b) {
+      const int e = 128 * (i0 + b) + 4 * lane;
+      p[b] = v[b][0] * dov[0] + v[b][1] * dov[1] + v[b][2] * dov[2] +
+             v[b][3] * dov[3];
+      const float o[4] = {w[b] * dov[0], w[b] * dov[1], w[b] * dov[2],
+                          w[b] * dov[3]};
+      if (e < E) store4(dg_r + e, o);
+    }
+#pragma unroll
+    for (int m = 0; m < WS_BATCH; m += R) {
+      if (i0 + m >= NI) break;  // warp-uniform
+      // reduce-scatter of p[m .. m+R) over the group: a lane keeps the half
+      // its bit h points to and adds its partner's copy of it
+#pragma unroll
+      for (int h = R / 2; h >= 1; h >>= 1) {
+        const bool up = s & h;
+#pragma unroll
+        for (int j = 0; j < h; ++j) {
+          const float send = up ? p[m + j] : p[m + j + h];
+          const float keep = up ? p[m + j + h] : p[m + j];
+          p[m + j] = keep + __shfl_xor_sync(FULL_MASK, send, h);
+        }
+      }
+      // p[m]: the group's whole sum in instruction i0 + m + s
+      const int e = 128 * (i0 + m + s) + 4 * (lane - s);
+      if (e < E) dw_r[(e % C4) / D * KP + e / C4] = p[m];
+    }
+  }
+}
+
 static inline unsigned ws_blocks(long long rows) {
   return (unsigned)((rows + WS_WARPS - 1) / WS_WARPS);
 }
@@ -151,20 +245,47 @@ extern "C" int ws_fwd(const void* g, const void* wt, int dtype, float* out,
   return (int)cudaGetLastError();
 }
 
-// g, wt and d_g in one dtype; d_out, d_wt f32. Returns a cudaError_t.
+template <typename T>
+static cudaError_t ws_bwd_launch(const void* g, const void* wt,
+                                 const float* d_out, void* d_g, float* d_wt,
+                                 long long rows, int KP, int D, int body,
+                                 cudaStream_t s) {
+  const unsigned nb = ws_blocks(rows);
+  const T* gg = static_cast<const T*>(g);
+  const T* ww = static_cast<const T*>(wt);
+  T* dg = static_cast<T*>(d_g);
+  if (body == 0) {
+    ws_bwd_kernel<T><<<nb, WS_THREADS, 0, s>>>(gg, ww, d_out, dg, d_wt, rows,
+                                               KP, D);
+  } else if (D == 16) {
+    ws_bwd_vec_kernel<T, 16><<<nb, WS_THREADS, 0, s>>>(gg, ww, d_out, dg,
+                                                       d_wt, rows, KP);
+  } else if (D == 32) {
+    ws_bwd_vec_kernel<T, 32><<<nb, WS_THREADS, 0, s>>>(gg, ww, d_out, dg,
+                                                       d_wt, rows, KP);
+  } else if (D == 64) {
+    ws_bwd_vec_kernel<T, 64><<<nb, WS_THREADS, 0, s>>>(gg, ww, d_out, dg,
+                                                       d_wt, rows, KP);
+  } else {
+    return cudaErrorInvalidValue;
+  }
+  return cudaGetLastError();
+}
+
+// g, wt and d_g in one dtype; d_out, d_wt f32. body: 0 the lane body, 1 the
+// vector body, which needs D in {16, 32, 64} and 16-byte aligned g, d_out
+// and d_g. Returns a cudaError_t.
 extern "C" int ws_bwd(const void* g, const void* wt, int dtype,
                       const float* d_out, void* d_g, float* d_wt,
-                      long long rows, int KP, int D, void* stream) {
-  if (!ws_sizes_ok(rows, KP, D)) return (int)cudaErrorInvalidValue;
+                      long long rows, int KP, int D, int body, void* stream) {
+  if (!ws_sizes_ok(rows, KP, D) || body < 0 || body > 1)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const unsigned nb = ws_blocks(rows);
-#define WS_BWD(T)                                                          \
-  ws_bwd_kernel<T><<<nb, WS_THREADS, 0, s>>>(                              \
-      static_cast<const T*>(g), static_cast<const T*>(wt), d_out,          \
-      static_cast<T*>(d_g), d_wt, rows, KP, D)
-  if (dtype == kF32) WS_BWD(float);
-  else if (dtype == kBF16) WS_BWD(__nv_bfloat16);
-  else return (int)cudaErrorInvalidValue;
-#undef WS_BWD
-  return (int)cudaGetLastError();
+  if (dtype == kF32)
+    return (int)ws_bwd_launch<float>(g, wt, d_out, d_g, d_wt, rows, KP, D,
+                                     body, s);
+  if (dtype == kBF16)
+    return (int)ws_bwd_launch<__nv_bfloat16>(g, wt, d_out, d_g, d_wt, rows,
+                                             KP, D, body, s);
+  return (int)cudaErrorInvalidValue;
 }

@@ -30,6 +30,11 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # dtype codes of csrc/common.cuh
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
+# The two bodies of a kernel that has them (K1, K1b, K5, K3'): a lane per
+# channel with 2- or 4-byte accesses, and a vector body in which a lane owns
+# 4 consecutive channels (8- or 16-byte accesses).
+BODY_LANE, BODY_VEC = 0, 1
+
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
@@ -119,7 +124,7 @@ def _bind(path: Path) -> ctypes.CDLL:
                              _I, _I, _I, _I, _I,
                              ctypes.POINTER(ctypes.c_int), _I, _P]
     lib.msda_bwd.restype = _I
-    lib.scatter_add.argtypes = [_P, _I, _P, _P, _I, _I, _I, _I, _P]
+    lib.scatter_add.argtypes = [_P, _I, _P, _P, _I, _I, _I, _I, _I, _P]
     lib.scatter_add.restype = _I
     lib.window_attn_bwd.argtypes = [
         _P, _P, _P, _I, ctypes.POINTER(ctypes.c_longlong), _P, _P, _P,
@@ -127,12 +132,24 @@ def _bind(path: Path) -> ctypes.CDLL:
     lib.window_attn_bwd.restype = _I
     lib.ws_fwd.argtypes = [_P, _P, _I, _P, _L, _I, _I, _P]
     lib.ws_fwd.restype = _I
-    lib.ws_bwd.argtypes = [_P, _P, _I, _P, _P, _P, _L, _I, _I, _P]
+    lib.ws_bwd.argtypes = [_P, _P, _I, _P, _P, _P, _L, _I, _I, _I, _P]
     lib.ws_bwd.restype = _I
     lib.weighted_gather.argtypes = [_P, _I, _P, _P, _I, _I, _P, _I, _I,
                                     _I, _I, _P]
     lib.weighted_gather.restype = _I
     return lib
+
+
+def take_body(name: str, body, pick: int, what: str) -> int:
+    """The body a launch takes: ``pick`` unless the caller asks for the
+    lane body; the vector body is never forced where ``pick`` refuses it
+    (``what``: the shape the pick was made for, for the message)."""
+    if body is None:
+        return pick
+    if body not in (BODY_LANE, pick):
+        raise ValueError(f"{name}: body {body} does not take {what} at these "
+                         "base addresses")
+    return body
 
 
 def check(err: int, name: str) -> None:

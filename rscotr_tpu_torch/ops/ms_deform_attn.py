@@ -48,6 +48,7 @@ import torch
 import torch.nn.functional as F
 
 from rscotr_tpu_torch.ops import kernel_lib
+from rscotr_tpu_torch.ops.kernel_lib import BODY_LANE, BODY_VEC
 from rscotr_tpu_torch.ops.msda_ws import corner_weighted_sum
 from rscotr_tpu_torch.ops.scatter_mm import (scatter_add_mm,
                                              scatter_add_mm_torch)
@@ -143,7 +144,6 @@ def _levels_arg(shapes):
 
 # csrc/msda_fwd.cu and csrc/msda_bwd.cu: the lane-per-channel body, and the
 # vector body for the head widths it is instantiated for
-BODY_LANE, BODY_VEC = 0, 1
 VEC_HEAD_DIMS = (16, 32, 64)
 
 
@@ -151,17 +151,6 @@ def _pick_body(head_dim, data_ptrs) -> int:
     if head_dim in VEC_HEAD_DIMS and not any(p % 16 for p in data_ptrs):
         return BODY_VEC
     return BODY_LANE
-
-
-def _take_body(name, body, pick, head_dim) -> int:
-    """The body a launch takes: ``pick`` unless the caller asks for the
-    lane body; the vector body is never forced where ``pick`` refuses it."""
-    if body is None:
-        return pick
-    if body not in (BODY_LANE, pick):
-        raise ValueError(f"{name}: body {body} does not take head_dim "
-                         f"{head_dim} at these base addresses")
-    return body
 
 
 def msda_fwd_body(head_dim: int, data_ptrs=()) -> int:
@@ -183,8 +172,8 @@ def _ms_deform_attn_cuda(value, shapes, loc, attn, body=None):
     out = torch.empty((B, Q, H * D), dtype=value.dtype, device=value.device)
     if out.numel() == 0:
         return out
-    body = _take_body("ms_deform_attn", body, msda_fwd_body(
-        D, [t.data_ptr() for t in (value, loc, out)]), D)
+    body = kernel_lib.take_body("ms_deform_attn", body, msda_fwd_body(
+        D, [t.data_ptr() for t in (value, loc, out)]), f"head_dim {D}")
     lib = kernel_lib.load()
     with torch.cuda.device(value.device):
         err = lib.msda_fwd(
@@ -256,8 +245,9 @@ def _msda_bwd_cuda(value, shapes, loc, attn, d_out, acc=None, body=None):
                          f"float32 {tuple(value.shape)} on {dev}")
     if value.numel() == 0 or attn.numel() == 0:
         return acc, d_loc.zero_(), d_attn.zero_()
-    body = _take_body("ms_deform_attn_bwd", body, msda_bwd_body(
-        D, [t.data_ptr() for t in (value, loc, d_out, d_loc, acc)]), D)
+    body = kernel_lib.take_body("ms_deform_attn_bwd", body, msda_bwd_body(
+        D, [t.data_ptr() for t in (value, loc, d_out, d_loc, acc)]),
+        f"head_dim {D}")
     lib = kernel_lib.load()
     with torch.cuda.device(dev):
         err = lib.msda_bwd(

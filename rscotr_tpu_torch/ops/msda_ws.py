@@ -12,9 +12,10 @@ corner axis folded c-major, ``wt[..., c*KP + k]``:
     d_wt[g, q, c*KP+k]   = sum_d g[g, q, k, c*D+d] * d_out[g, q, d]
 
 products and sums in float32. For CUDA tensors ``ws_fwd`` / ``ws_bwd``
-launch the hand-written kernels of ``csrc/msda_ws.cu``; for CPU tensors they
-run the plain versions ``ws_fwd_torch`` / ``ws_bwd_torch``; any other device
-raises.
+launch the hand-written kernels of ``csrc/msda_ws.cu`` (K5's body picked by
+``ws_bwd_body`` from the head width, KP and the tensors' alignment); for CPU
+tensors they run the plain versions ``ws_fwd_torch`` / ``ws_bwd_torch``; any
+other device raises.
 
 ``corner_weighted_sum`` is the ``torch.autograd.Function`` on top, in the
 layout of the JAX package's ``_corner_weighted_sum``
@@ -31,6 +32,10 @@ from __future__ import annotations
 import torch
 
 from rscotr_tpu_torch.ops import kernel_lib
+from rscotr_tpu_torch.ops.kernel_lib import BODY_LANE, BODY_VEC
+
+# csrc/msda_ws.cu: the head widths K5's vector body is instantiated for
+WS_VEC_HEAD_DIMS = (16, 32, 64)
 
 
 def _check(name, g, wt, *more):
@@ -83,12 +88,33 @@ def ws_fwd(g: torch.Tensor, wt: torch.Tensor) -> torch.Tensor:
 ws_fwd.launches = 0
 
 
+def ws_bwd_body(head_dim: int, kp: int, data_ptrs=()) -> int:
+    """Which body of K5 a CUDA launch takes: ``BODY_VEC`` (a lane owns 4
+    consecutive channels: 8- or 16-byte g loads and d_g stores, d_wt by a
+    reduce-scatter over each corner group) for a head width in
+    ``WS_VEC_HEAD_DIMS`` and KP <= 64 when every base address in
+    ``data_ptrs`` (g, d_out and d_g) is 16-byte aligned, else ``BODY_LANE``
+    (a lane per column, one warp sum per corner and k; any D <= 128)."""
+    if head_dim in WS_VEC_HEAD_DIMS and kp <= 64 and \
+            not any(p % 16 for p in data_ptrs):
+        return BODY_VEC
+    return BODY_LANE
+
+
 def ws_bwd(g: torch.Tensor, wt: torch.Tensor, d_out: torch.Tensor):
     """Gradients of ``ws_fwd`` -> (d_g (G, Q, KP, 4D) in g's dtype, d_wt
     (G, Q, 4*KP) float32, c-major); d_out (G, Q, D) is taken in float32.
-    Kernel K5 on CUDA (``launches`` counts it)."""
+    Kernel K5 on CUDA (``launches`` counts it, ``vec_launches`` those that
+    took the vector body)."""
     if not _dispatch("ws_bwd", g):
         return ws_bwd_torch(g, wt, d_out)
+    return _ws_bwd_cuda(g, wt, d_out)
+
+
+def _ws_bwd_cuda(g, wt, d_out, body=None):
+    """Kernel K5 on CUDA tensors. ``body``: ``BODY_LANE`` where
+    ``ws_bwd_body`` would pick the vector body (for the tools that time the
+    lane body); the vector body is never forced where it refuses it."""
     d_out = d_out.float().contiguous()
     G, Q, KP, D = _check("ws_bwd", g, wt, ("d_out", d_out))
     if tuple(d_out.shape) != (G, Q, D):
@@ -98,18 +124,22 @@ def ws_bwd(g: torch.Tensor, wt: torch.Tensor, d_out: torch.Tensor):
     d_wt = torch.empty((G, Q, 4 * KP), dtype=torch.float32, device=g.device)
     if d_g.numel() == 0:
         return d_g, d_wt
+    body = kernel_lib.take_body("ws_bwd", body, ws_bwd_body(
+        D, KP, [t.data_ptr() for t in (g, d_out, d_g)]), f"D={D}, KP={KP}")
     lib = kernel_lib.load()
     with torch.cuda.device(g.device):
         err = lib.ws_bwd(g.data_ptr(), wt.data_ptr(),
                          kernel_lib.dtype_code(g, "g"), d_out.data_ptr(),
-                         d_g.data_ptr(), d_wt.data_ptr(), G * Q, KP, D,
+                         d_g.data_ptr(), d_wt.data_ptr(), G * Q, KP, D, body,
                          kernel_lib.stream_ptr(g.device))
     kernel_lib.check(err, "ws_bwd")
     ws_bwd.launches += 1
+    ws_bwd.vec_launches += body == BODY_VEC
     return d_g, d_wt
 
 
 ws_bwd.launches = 0
+ws_bwd.vec_launches = 0
 
 
 def _split(g, wt):
