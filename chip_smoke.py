@@ -35,12 +35,12 @@ Phases, each of which raises on failure (exit code 1, no result line):
    body forced on the same tensors, timed at the det encoder beside one
    ``index_add_`` call, its library yardstick;
 5. quad-gather MSDA at the det encoder: ``ms_deform_attn(impl="quad")``
-   forward + backward once (K4, K5 and K3' launches counted; K5 and K3'
-   must take their vector bodies), K4 (corner-weighted sum) and K5 (its
-   gradients; both bodies on the same tensors) against their plain
-   versions, the quad path's output and gradients against the K1 path's,
-   float32 and bfloat16; K4, K5 and both paths timed, with their peak
-   memory;
+   forward + backward once (K4, K5 and K3' launches counted; K4, K5 and
+   K3' must take their vector bodies), K4 (corner-weighted sum) and K5 (its
+   gradients), each with both bodies on the same tensors, against their
+   plain versions, the quad path's output and gradients against the K1
+   path's, float32 and bfloat16; K4, K5 and both paths timed, with their
+   peak memory, K4 beside one ``torch.bmm``, its library yardstick;
 6. K6 through the probe tool (``rscotr_tpu_torch.tools.
    probe_msda_weighted_gather_mm``): its parity check, K6 against its plain
    version at the four det-encoder level shapes, float32 and bfloat16, then
@@ -92,16 +92,15 @@ beside ``eager_ms`` and ``whole_ms`` (the whole ``ms_deform_attn_bwd``: zero
 fill, kernel, cast), timed at locations in [0, 1], as a model's are; its
 ``stages`` also hold the time at the [-0.2, 1.2] locations of the other
 kernel cases, where half the corners are off the map and skipped. K4's and
-K5's ``ms`` are device times too, beside ``eager_ms``; K5 also has
-``row_ms`` (its warp-per-row body, the first kernel, on the same
-tensors) and ``vec_launches``. K3''s ``ms`` is the device time of the
-launch alone, adding into a zeroed accumulator, at locations in [0, 1],
-beside ``eager_ms``, ``whole_ms`` / ``whole_eager_ms`` (``scatter_add_mm``
-with its zero fill), ``scalar_ms`` (the scalar body on the same tensors),
-``vec_launches`` and ``stages`` (also [-0.2, 1.2], where about half the
-sampling points clamp onto edge cells); its ``library_ms`` is device time
-too. The last line is
-{"ok": true, "device": {...}}. Without a CUDA device the script exits 1
+K5's ``ms`` are device times too, beside ``eager_ms``, ``row_ms`` (the
+warp-per-row body, the first kernel, on the same tensors) and
+``vec_launches``; K4's ``library_ms`` is device time too. K3''s ``ms`` is
+the device time of the launch alone, adding into a zeroed accumulator, at
+locations in [0, 1], beside ``eager_ms``, ``whole_ms`` / ``whole_eager_ms``
+(``scatter_add_mm`` with its zero fill), ``scalar_ms`` (the scalar body on
+the same tensors), ``vec_launches`` and ``stages`` (also [-0.2, 1.2], where
+about half the sampling points clamp onto edge cells); its ``library_ms``
+is device time too. The last line is {"ok": true, "device": {...}}. Without a CUDA device the script exits 1
 before printing any result.
 """
 
@@ -336,7 +335,7 @@ def k2_cases():
     return cases
 
 
-# the earlier bodies of K1, K5 and K3', timed on the same tensors
+# the earlier bodies of K1, K4, K5 and K3', timed on the same tensors
 OLD_BODIES = {"lane_ms": "lane body", "row_ms": "warp-per-row body",
               "scalar_ms": "scalar body"}
 
@@ -480,6 +479,37 @@ def index_add_yardstick(d_g, gidx, num_rows, want):
     log(f"  library K3' index_add_ of f32 (G*K, C) = ({G * K}, {C}) into "
         f"({G * num_rows + 1}, {C}): {ms:.4f} ms")
     return ms
+
+
+def bmm_yardstick(gq, wt, want):
+    """The library yardstick of K4: one ``torch.bmm`` of the weights in
+    k-major order, (R, 1, 4 KP), by g's rows as (R, 4 KP, D), R = G Q (a
+    row of g is (KP, 4, D) contiguous; the reorder of the weights is outside
+    the timed call), with a float32 output where the installed torch's bmm
+    takes ``out_dtype``, else in g's dtype. Device time by ``graph_ms``, as
+    the kernel's. Timed here only: (ms, what was called)."""
+    G, Q, KP, C4 = gq.shape
+    R, D = G * Q, C4 // 4
+    a = wt.view(R, 4, KP).transpose(1, 2).reshape(R, 1, 4 * KP)
+    b = gq.view(R, 4 * KP, D)
+    lib = "torch.bmm(wt k-major (R, 1, 4 KP), g (R, 4 KP, D)"
+    try:
+        got = torch.bmm(a, b, out_dtype=torch.float32)
+        lib += ", out_dtype=torch.float32)"
+
+        def call():
+            return torch.bmm(a, b, out_dtype=torch.float32)
+    except (TypeError, RuntimeError):
+        got = torch.bmm(a, b)
+        lib += f") with a {str(gq.dtype)[6:]} output: this torch's bmm " \
+               "takes no out_dtype"
+
+        def call():
+            return torch.bmm(a, b)
+    check_close("library K4 torch.bmm", got.view(G, Q, D), want, gq.dtype)
+    ms = graph_ms(call)
+    log(f"  library K4 {lib}: {ms:.4f} ms")
+    return ms, lib
 
 
 def corners_on_map(shapes, loc) -> int:
@@ -632,13 +662,14 @@ def kernel_phase():
 def quad_phase():
     """K4 / K5 and the quad-gather MSDA at the det encoder: the main path's
     run (``impl="quad"`` forward + backward, bf16, which also launches K3',
-    the value-gradient scatter of this path; K5 and K3' must take their
-    vector bodies), K4 / K5 against their plain versions (K5 with both
-    bodies), the quad path against the K1 path, times and peak memory."""
+    the value-gradient scatter of this path; K4, K5 and K3' must take their
+    vector bodies), K4 / K5 against their plain versions (both bodies of
+    each), the quad path against the K1 path, times (K4 also its library
+    yardstick) and peak memory."""
     from rscotr_tpu_torch.ops.kernel_lib import BODY_LANE
     from rscotr_tpu_torch.ops.ms_deform_attn import ms_deform_attn
-    from rscotr_tpu_torch.ops.msda_ws import (_ws_bwd_cuda, ws_bwd,
-                                              ws_bwd_torch, ws_fwd,
+    from rscotr_tpu_torch.ops.msda_ws import (_ws_bwd_cuda, _ws_fwd_cuda,
+                                              ws_bwd, ws_bwd_torch, ws_fwd,
                                               ws_fwd_torch)
     from rscotr_tpu_torch.ops.scatter_mm import scatter_add_mm
     g = torch.Generator(device="cuda").manual_seed(2)
@@ -653,16 +684,18 @@ def quad_phase():
                         generator=g).to(torch.bfloat16)
     for fn in (ws_fwd, ws_bwd, scatter_add_mm):
         fn.launches = 0
-    ws_bwd.vec_launches = scatter_add_mm.vec_launches = 0
+    ws_fwd.vec_launches = ws_bwd.vec_launches = 0
+    scatter_add_mm.vec_launches = 0
     out = ms_deform_attn(v, shapes, loc, w, impl="quad")
     grads = torch.autograd.grad(out, leaves, d_out)
     torch.cuda.synchronize()
     launches = {"K4": ws_fwd.launches, "K5": ws_bwd.launches,
                 "K3'": scatter_add_mm.launches,
+                "K4 vec": ws_fwd.vec_launches,
                 "K5 vec": ws_bwd.vec_launches,
                 "K3' vec": scatter_add_mm.vec_launches}
-    log(f"  launches in the main path's run: {launches} (want 1 each: K5 "
-        "and K3' on their vector bodies)")
+    log(f"  launches in the main path's run: {launches} (want 1 each: K4, "
+        "K5 and K3' on their vector bodies)")
     if set(launches.values()) != {1}:
         fail(f"quad path: kernel launches {launches} != 1 each")
     if not (torch.isfinite(out).all() and
@@ -681,10 +714,17 @@ def quad_phase():
         # the quad path hands K4 / K5 its slot weights in value's dtype
         wt = torch.rand(G, Nv, 4 * KP, device="cuda", generator=g).to(dtype)
         dq = torch.randn(G, Nv, D, device="cuda", generator=g)
+        vec = ws_fwd.vec_launches
         k4_out = ws_fwd(gq, wt)
+        k4_row = _ws_fwd_cuda(gq, wt, body=BODY_LANE)
         torch.cuda.synchronize()
-        err["K4"][bf] = check_close("K4 det-encoder", k4_out,
-                                    ws_fwd_torch(gq, wt), dtype)
+        if ws_fwd.vec_launches != vec + 1:
+            fail("K4 det-encoder: not one launch on the vector body")
+        k4_ref = ws_fwd_torch(gq, wt)
+        err["K4"][bf] = check_close("K4 det-encoder", k4_out, k4_ref, dtype)
+        check_close("K4 det-encoder (warp-per-row body)", k4_row, k4_ref,
+                    dtype)
+        del k4_row
         vec = ws_bwd.vec_launches
         got = ws_bwd(gq, wt, dq)
         row = _ws_bwd_cuda(gq, wt, dq, body=BODY_LANE)
@@ -706,11 +746,14 @@ def quad_phase():
             # ms: device time (graph replay); eager_ms: events around eager
             # calls, the wrapper's host time included
             ms, by = bound((gq, wt, k4_out), 2.0 * gq.numel(), "f32")
+            lib_ms, lib = bmm_yardstick(gq, wt, k4_ref)
             times["K4 det-encoder"] = dict(
                 ms=graph_ms(lambda: ws_fwd(gq, wt)),
                 eager_ms=cuda_ms(lambda: ws_fwd(gq, wt), 50),
+                row_ms=graph_ms(lambda: _ws_fwd_cuda(gq, wt,
+                                                     body=BODY_LANE)),
                 plain_ms=cuda_ms(lambda: ws_fwd_torch(gq, wt), 10),
-                bound_ms=ms, bound_by=by, library_ms=None)
+                bound_ms=ms, bound_by=by, library_ms=lib_ms, library=lib)
             ms, by = bound((gq, wt, dq) + tuple(got), 3.0 * gq.numel(),
                            "f32")
             times["K5 det-encoder"] = dict(
@@ -720,7 +763,7 @@ def quad_phase():
                                                      body=BODY_LANE)),
                 plain_ms=cuda_ms(lambda: ws_bwd_torch(gq, wt, dq), 10),
                 bound_ms=ms, bound_by=by, library_ms=None)
-        del got, ref, k4_out, gq, wt, dq
+        del got, ref, k4_out, k4_ref, gq, wt, dq
 
     # f32: the two paths sum in other orders (BTOL); bf16: the quad path
     # rounds its slot weights to bf16 before K4 (as JAX's
@@ -1261,6 +1304,7 @@ def serving_phase():
     from rscotr_tpu_torch.engine import make_infer_steps
     from rscotr_tpu_torch.models import build_model
     from rscotr_tpu_torch.ops.ms_deform_attn import ms_deform_attn
+    from rscotr_tpu_torch.ops.msda_ws import ws_fwd
     from rscotr_tpu_torch.ops.window_attention import window_attention
     from rscotr_tpu_torch.utils.config import load_model_cfg
     log("serving phase: flagship MTL (cls + det + seg), bf16, random "
@@ -1301,6 +1345,7 @@ def serving_phase():
     ms_deform_attn.launches = 0
     ms_deform_attn.vec_launches = 0
     window_attention.launches = 0
+    k4 = ws_fwd.launches
     outs = {}
     for name, (task, args) in reqs.items():
         k1, k2 = ms_deform_attn.launches, window_attention.launches
@@ -1315,6 +1360,8 @@ def serving_phase():
             fail(f"{name}: kernel launches {got} ({vec} K1 vector body) != "
                  f"{want[task]}")
     torch.cuda.synchronize()
+    if ws_fwd.launches != k4:
+        fail("serving launched K4: the quad-gather path is not the model's")
     launches = {"K1": ms_deform_attn.launches, "K2": window_attention.launches,
                 "K1 vec": ms_deform_attn.vec_launches}
     log(f"  launches in the main path's run: K1 {launches['K1']} "
@@ -1412,6 +1459,7 @@ def train_phase():
     from rscotr_tpu_torch.models.heads import dino_loss as dl
     from rscotr_tpu_torch.ops.ms_deform_attn import (ms_deform_attn,
                                                      ms_deform_attn_bwd)
+    from rscotr_tpu_torch.ops.msda_ws import ws_bwd, ws_fwd
     from rscotr_tpu_torch.ops.scatter_mm import scatter_add_mm
     from rscotr_tpu_torch.ops.window_attention import (window_attention,
                                                        window_attention_bwd)
@@ -1455,11 +1503,13 @@ def train_phase():
 
     dl.hungarian_batched = timed_solve
     counters = {"K1": ms_deform_attn, "K1b": ms_deform_attn_bwd,
-                "K3'": scatter_add_mm, "K2": window_attention,
-                "K2b": window_attention_bwd}
-    # K3' runs on the quad-gather path only: K1b does its work on this one
-    want = {"det": {"K1": 12, "K1b": 12, "K3'": 0, "K2": 12, "K2b": 12},
-            "cls": {"K1": 0, "K1b": 0, "K3'": 0, "K2": 12, "K2b": 12}}
+                "K3'": scatter_add_mm, "K4": ws_fwd, "K5": ws_bwd,
+                "K2": window_attention, "K2b": window_attention_bwd}
+    # K3', K4 and K5 run on the quad-gather path only: K1 and K1b do their
+    # work on this one
+    quad = {"K3'": 0, "K4": 0, "K5": 0}
+    want = {"det": {"K1": 12, "K1b": 12, **quad, "K2": 12, "K2b": 12},
+            "cls": {"K1": 0, "K1b": 0, **quad, "K2": 12, "K2b": 12}}
     gen = torch.Generator().manual_seed(0)
     # -- the main path's run: 2 warm-up + 10 timed steps of each task ----
     for fn in counters.values():
@@ -1614,7 +1664,10 @@ def kernels_line(times, btimes, qtimes, err, berr, qerr, k6err, k6levels,
                             "rscotr_tpu/models/backbones/swin.py:130)",
               stages=stages(btimes, "K2b")),
         entry("ws_fwd", "msda_ws.cu", pallas + "msda_ws.py:110", "K4",
-              qtimes["K4 det-encoder"], qerr["K4"], ws_at),
+              qtimes["K4 det-encoder"], qerr["K4"], ws_at,
+              library=qtimes["K4 det-encoder"]["library"],
+              vec_launches=launches["K4 vec"],
+              row_ms=qtimes["K4 det-encoder"]["row_ms"]),
         entry("ws_bwd", "msda_ws.cu", pallas + "msda_ws.py:135", "K5",
               qtimes["K5 det-encoder"], qerr["K5"], ws_at,
               vec_launches=launches["K5 vec"],

@@ -135,6 +135,21 @@ static __device__ __forceinline__ void load4(const __nv_bfloat16* p,
   v[2] = __uint_as_float(t.y << 16), v[3] = __uint_as_float(t.y & 0xffff0000u);
 }
 
+// load4 with the streaming hint (ld.global.cs, evict first), for data read
+// once. Used by K3' (scatter_add.cu) and K4 (msda_ws.cu).
+static __device__ __forceinline__ void load4_once(const float* p,
+                                                  float (&v)[4]) {
+  const float4 t = __ldcs(reinterpret_cast<const float4*>(p));
+  v[0] = t.x, v[1] = t.y, v[2] = t.z, v[3] = t.w;
+}
+
+static __device__ __forceinline__ void load4_once(const __nv_bfloat16* p,
+                                                  float (&v)[4]) {
+  const uint2 t = __ldcs(reinterpret_cast<const uint2*>(p));
+  v[0] = __uint_as_float(t.x << 16), v[1] = __uint_as_float(t.x & 0xffff0000u);
+  v[2] = __uint_as_float(t.y << 16), v[3] = __uint_as_float(t.y & 0xffff0000u);
+}
+
 static __device__ __forceinline__ void store4(float* p, const float (&v)[4]) {
   *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
 }

@@ -25,22 +25,36 @@
 // corners at the end through a per-warp shared buffer. K5's lane body writes
 // d_g in the same streaming pass and warp-reduces the four corner dot
 // products of each k, one k after another (64 dependent warp sums a row at
-// KP = 16); it takes any D <= 128.
+// KP = 16). The lane bodies take any D <= 128.
 //
-// K5's vector body (D in {16, 32, 64}, 16-byte aligned g, d_out and d_g):
-// still one warp per row, but a lane owns 4 consecutive channels, so a warp
-// instruction covers 128 consecutive elements of the row's KP x 4D block
-// (8-byte g loads and d_g stores in bf16, 16-byte in f32; at D = 32 one k
-// row). A lane's channels d..d+3 are the same in every instruction, so it
-// reads its d_out once with one 16-byte load. Batches of WS_BATCH
-// instructions issue all their g loads before the first product. A lane's
-// partial for d_wt is the sum over its 4 channels; the D/4 lanes of a
-// corner group (one (k, c) slice of an instruction) combine D/4
-// instructions' partials with a reduce-scatter by __shfl_xor_sync (D/4 - 1
-// shuffles, 7 at D = 32), after which lane s of the group holds the whole
-// sum of the group's slice in instruction s of the chunk: the stores into
-// the c-major d_wt are consecutive within a group, and no shared memory or
-// per-k warp sum is left.
+// The vector bodies (D in {16, 32, 64}; K4: 16-byte aligned g and out, K5:
+// 16-byte aligned g, d_out and d_g): still one warp per row, but a lane owns
+// 4 consecutive channels, so a warp instruction covers 128 consecutive
+// elements of the row's KP x 4D block (8-byte g loads in bf16, 16-byte in
+// f32; at D = 32 one k row). A lane's channels d..d+3 are the same in every
+// instruction. Batches of WS_BATCH instructions issue all their g loads
+// before the first product; each instruction's weight wt[c*KP + k] is a
+// 2- or 4-byte load from the row's weights, which hit in L1 after the first.
+//
+// K4's vector body loads g with the streaming hint (read once) and sums
+// v * w into 4 f32 accumulators a lane; at the row's end the 32 / (D/4)
+// lanes that hold the same channels fold their sums by __shfl_xor_sync (2
+// steps at D = 32), and lanes 0 .. D/4 - 1 write the row's D outputs with
+// one 16-byte store each. Nothing else is written, and no shared memory or
+// block-wide sync is used. Measured at the det encoder (`python -m
+// rscotr_tpu_torch.tools.msda_parts`): it takes about what a plain read of
+// g (torch.sum) takes. Its weights held in registers and handed round by
+// __shfl_sync were slower than the L1 loads, g loads without the streaming
+// hint slightly slower, and batches of 8 instructions no faster.
+//
+// K5's vector body reads its d_out once with one 16-byte load and writes
+// d_g in the same pass. A lane's partial for d_wt is the sum over its 4
+// channels; the D/4 lanes of a corner group (one (k, c) slice of an
+// instruction) combine D/4 instructions' partials with a reduce-scatter by
+// __shfl_xor_sync (D/4 - 1 shuffles, 7 at D = 32), after which lane s of
+// the group holds the whole sum of the group's slice in instruction s of
+// the chunk: the stores into the c-major d_wt are consecutive within a
+// group, and no shared memory or per-k warp sum is left.
 #include "common.cuh"
 
 #define WS_THREADS 256
@@ -49,6 +63,7 @@
 #define WS_MAX_NW 256        // 4*KP, KP <= 64
 #define WS_COLS (WS_MAX_C4 / 32)
 
+// K4's lane body
 template <typename T>
 __global__ void __launch_bounds__(WS_THREADS) ws_fwd_kernel(
     const T* __restrict__ g,     // (rows, KP, 4D)
@@ -92,6 +107,7 @@ __global__ void __launch_bounds__(WS_THREADS) ws_fwd_kernel(
            s_acc[warp][3 * D + d];
 }
 
+// K5's lane body
 template <typename T>
 __global__ void __launch_bounds__(WS_THREADS) ws_bwd_kernel(
     const T* __restrict__ g,         // (rows, KP, 4D)
@@ -144,14 +160,58 @@ __global__ void __launch_bounds__(WS_THREADS) ws_bwd_kernel(
   for (int i = lane; i < NW; i += 32) dw[i] = s_dw[warp][i];
 }
 
-// ---- K5's vector body: D in {16, 32, 64} -----------------------------------
+// ---- the vector bodies of K4 and K5: D in {16, 32, 64} -------------------
 #define WS_BATCH 16  // warp instructions of a row whose g loads fly together
 
 // Instruction i of a row covers elements [128 i, 128 i + 128) of its KP x 4D
 // block; lane l's 4 elements start at e = 128 i + 4 l: k = e / 4D, corner
 // c = (e % 4D) / D, channels d = 4 l % D .. + 3. The D/4 lanes with equal
 // (k, c) in an instruction are an aligned group (at D = 16 a warp
-// instruction holds two k rows, at D = 64 half of one).
+// instruction holds two k rows, at D = 64 half of one). Elements past the
+// row's end (e >= KP * 4D: at D = 16 with odd KP, or KP * 4D < 128) load
+// nothing and add 0.
+template <typename T, int D>
+__global__ void __launch_bounds__(WS_THREADS) ws_fwd_vec_kernel(
+    const T* __restrict__ g,     // (rows, KP, 4D)
+    const T* __restrict__ wt,    // (rows, 4*KP), c-major
+    float* __restrict__ out,     // (rows, D)
+    long long rows, int KP) {
+  constexpr int R = D / 4;  // lanes with distinct channels
+  constexpr int C4 = 4 * D;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const long long row = (long long)blockIdx.x * WS_WARPS + warp;
+  if (row >= rows) return;  // the whole warp leaves; no block-wide sync
+  const int E = KP * C4;    // elements of the row
+  const int NI = (E + 127) / 128;
+  const T* g_r = g + row * E;
+  const T* w_r = wt + row * 4 * KP;
+  float acc[4] = {0.f, 0.f, 0.f, 0.f};
+  for (int i0 = 0; i0 < NI; i0 += WS_BATCH) {
+    float v[WS_BATCH][4], w[WS_BATCH];
+#pragma unroll
+    for (int b = 0; b < WS_BATCH; ++b) {  // every load of the batch first
+      const int e = 128 * (i0 + b) + 4 * lane;
+      if (e < E) {
+        load4_once(g_r + e, v[b]);
+        w[b] = to_f32(w_r[(e % C4) / D * KP + e / C4]);
+      } else {
+        v[b][0] = v[b][1] = v[b][2] = v[b][3] = w[b] = 0.f;
+      }
+    }
+#pragma unroll
+    for (int b = 0; b < WS_BATCH; ++b)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[j] += v[b][j] * w[b];
+  }
+  // lanes l, l + R, l + 2R, ... hold the same channels
+#pragma unroll
+  for (int h = R; h < 32; h <<= 1)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      acc[j] += __shfl_xor_sync(FULL_MASK, acc[j], h);
+  if (lane < R) store4(out + row * D + 4 * lane, acc);
+}
+
 template <typename T, int D>
 __global__ void __launch_bounds__(WS_THREADS) ws_bwd_vec_kernel(
     const T* __restrict__ g,         // (rows, KP, 4D)
@@ -229,20 +289,41 @@ static inline bool ws_sizes_ok(long long rows, int KP, int D) {
          4 * D <= WS_MAX_C4;
 }
 
-// g and wt in one dtype (kF32 / kBF16), out f32. Returns a cudaError_t.
-extern "C" int ws_fwd(const void* g, const void* wt, int dtype, float* out,
-                      long long rows, int KP, int D, void* stream) {
-  if (!ws_sizes_ok(rows, KP, D)) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
+template <typename T>
+static cudaError_t ws_fwd_launch(const void* g, const void* wt, float* out,
+                                 long long rows, int KP, int D, int body,
+                                 cudaStream_t s) {
   const unsigned nb = ws_blocks(rows);
-#define WS_FWD(T)                                                          \
-  ws_fwd_kernel<T><<<nb, WS_THREADS, 0, s>>>(                              \
-      static_cast<const T*>(g), static_cast<const T*>(wt), out, rows, KP, D)
-  if (dtype == kF32) WS_FWD(float);
-  else if (dtype == kBF16) WS_FWD(__nv_bfloat16);
-  else return (int)cudaErrorInvalidValue;
-#undef WS_FWD
-  return (int)cudaGetLastError();
+  const T* gg = static_cast<const T*>(g);
+  const T* ww = static_cast<const T*>(wt);
+  if (body == 0) {
+    ws_fwd_kernel<T><<<nb, WS_THREADS, 0, s>>>(gg, ww, out, rows, KP, D);
+  } else if (D == 16) {
+    ws_fwd_vec_kernel<T, 16><<<nb, WS_THREADS, 0, s>>>(gg, ww, out, rows, KP);
+  } else if (D == 32) {
+    ws_fwd_vec_kernel<T, 32><<<nb, WS_THREADS, 0, s>>>(gg, ww, out, rows, KP);
+  } else if (D == 64) {
+    ws_fwd_vec_kernel<T, 64><<<nb, WS_THREADS, 0, s>>>(gg, ww, out, rows, KP);
+  } else {
+    return cudaErrorInvalidValue;
+  }
+  return cudaGetLastError();
+}
+
+// g and wt in one dtype (kF32 / kBF16), out f32. body: 0 the lane body, 1
+// the vector body, which needs D in {16, 32, 64} and 16-byte aligned g and
+// out. Returns a cudaError_t.
+extern "C" int ws_fwd(const void* g, const void* wt, int dtype, float* out,
+                      long long rows, int KP, int D, int body, void* stream) {
+  if (!ws_sizes_ok(rows, KP, D) || body < 0 || body > 1)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == kF32)
+    return (int)ws_fwd_launch<float>(g, wt, out, rows, KP, D, body, s);
+  if (dtype == kBF16)
+    return (int)ws_fwd_launch<__nv_bfloat16>(g, wt, out, rows, KP, D, body,
+                                             s);
+  return (int)cudaErrorInvalidValue;
 }
 
 template <typename T>

@@ -70,20 +70,6 @@ __global__ void __launch_bounds__(SA_THREADS) scatter_add_kernel(
 // elements a step by selects. The load loop has no branch, so all its loads
 // issue before the first is used: a step past the group's end loads its
 // last 4 elements again and is dropped.
-// load4 with the streaming hint (ld.global.cs, evict first)
-static __device__ __forceinline__ void load4_once(const float* p,
-                                                  float (&v)[4]) {
-  const float4 t = __ldcs(reinterpret_cast<const float4*>(p));
-  v[0] = t.x, v[1] = t.y, v[2] = t.z, v[3] = t.w;
-}
-
-static __device__ __forceinline__ void load4_once(const __nv_bfloat16* p,
-                                                  float (&v)[4]) {
-  const uint2 t = __ldcs(reinterpret_cast<const uint2*>(p));
-  v[0] = __uint_as_float(t.x << 16), v[1] = __uint_as_float(t.x & 0xffff0000u);
-  v[2] = __uint_as_float(t.y << 16), v[3] = __uint_as_float(t.y & 0xffff0000u);
-}
-
 template <typename T>
 __global__ void __launch_bounds__(SA_THREADS) scatter_add_vec_kernel(
     const T* __restrict__ updates, const int* __restrict__ idx,

@@ -30,7 +30,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # dtype codes of csrc/common.cuh
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
-# The two bodies of a kernel that has them (K1, K1b, K5, K3'): a lane per
+# The two bodies of a kernel that has them (K1, K1b, K4, K5, K3'): a lane per
 # channel with 2- or 4-byte accesses, and a vector body in which a lane owns
 # 4 consecutive channels (8- or 16-byte accesses).
 BODY_LANE, BODY_VEC = 0, 1
@@ -130,7 +130,7 @@ def _bind(path: Path) -> ctypes.CDLL:
         _P, _P, _P, _I, ctypes.POINTER(ctypes.c_longlong), _P, _P, _P,
         _P, _P, _P, _P, _I, _I, _I, _I, _I, ctypes.c_float, _I, _P]
     lib.window_attn_bwd.restype = _I
-    lib.ws_fwd.argtypes = [_P, _P, _I, _P, _L, _I, _I, _P]
+    lib.ws_fwd.argtypes = [_P, _P, _I, _P, _L, _I, _I, _I, _P]
     lib.ws_fwd.restype = _I
     lib.ws_bwd.argtypes = [_P, _P, _I, _P, _P, _P, _L, _I, _I, _I, _P]
     lib.ws_bwd.restype = _I

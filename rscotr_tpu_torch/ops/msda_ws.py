@@ -12,10 +12,13 @@ corner axis folded c-major, ``wt[..., c*KP + k]``:
     d_wt[g, q, c*KP+k]   = sum_d g[g, q, k, c*D+d] * d_out[g, q, d]
 
 products and sums in float32. For CUDA tensors ``ws_fwd`` / ``ws_bwd``
-launch the hand-written kernels of ``csrc/msda_ws.cu`` (K5's body picked by
-``ws_bwd_body`` from the head width, KP and the tensors' alignment); for CPU
-tensors they run the plain versions ``ws_fwd_torch`` / ``ws_bwd_torch``; any
-other device raises.
+launch the hand-written kernels of ``csrc/msda_ws.cu``, each with two
+bodies picked by ``ws_fwd_body`` / ``ws_bwd_body`` from the head width, KP
+and the tensors' alignment: a vector body (head widths in
+``WS_VEC_HEAD_DIMS``; a lane owns 4 consecutive channels, a batch's g loads
+issue before the first product) and a lane-per-column body for the rest.
+For CPU tensors they run the plain versions ``ws_fwd_torch`` /
+``ws_bwd_torch``; any other device raises.
 
 ``corner_weighted_sum`` is the ``torch.autograd.Function`` on top, in the
 layout of the JAX package's ``_corner_weighted_sum``
@@ -34,7 +37,8 @@ import torch
 from rscotr_tpu_torch.ops import kernel_lib
 from rscotr_tpu_torch.ops.kernel_lib import BODY_LANE, BODY_VEC
 
-# csrc/msda_ws.cu: the head widths K5's vector body is instantiated for
+# csrc/msda_ws.cu: the head widths K4's and K5's vector bodies are
+# instantiated for
 WS_VEC_HEAD_DIMS = (16, 32, 64)
 
 
@@ -65,27 +69,59 @@ def _dispatch(name, g):
     return g.device.type == "cuda"
 
 
+def _ws_body(head_dim, kp, data_ptrs):
+    """K4's and K5's vector bodies take the same head widths and KP, and
+    need every base in ``data_ptrs`` 16-byte aligned."""
+    if head_dim in WS_VEC_HEAD_DIMS and kp <= 64 and \
+            not any(p % 16 for p in data_ptrs):
+        return BODY_VEC
+    return BODY_LANE
+
+
+def ws_fwd_body(head_dim: int, kp: int, data_ptrs=()) -> int:
+    """Which body of K4 a CUDA launch takes: ``BODY_VEC`` (a lane owns 4
+    consecutive channels: 8- or 16-byte g loads with the streaming hint, a
+    batch of them before the first product, the lanes that share channels
+    folded by shuffles, one 16-byte store a lane) for a head width in
+    ``WS_VEC_HEAD_DIMS`` and KP <= 64 when every base address in
+    ``data_ptrs`` (g and out) is 16-byte aligned, else ``BODY_LANE`` (a lane
+    per column, weights and corner sums through shared memory; any D <=
+    128)."""
+    return _ws_body(head_dim, kp, data_ptrs)
+
+
 def ws_fwd(g: torch.Tensor, wt: torch.Tensor) -> torch.Tensor:
     """Corner-weighted sum, g (G, Q, KP, 4D), wt (G, Q, 4*KP) c-major in
     g's dtype -> (G, Q, D) float32. Kernel K4 on CUDA (``launches`` counts
-    it)."""
+    it, ``vec_launches`` those that took the vector body)."""
     if not _dispatch("ws_fwd", g):
         return ws_fwd_torch(g, wt)
+    return _ws_fwd_cuda(g, wt)
+
+
+def _ws_fwd_cuda(g, wt, body=None):
+    """Kernel K4 on CUDA tensors. ``body``: ``BODY_LANE`` where
+    ``ws_fwd_body`` would pick the vector body (for the tools that time the
+    lane body); the vector body is never forced where it refuses it."""
     G, Q, KP, D = _check("ws_fwd", g, wt)
     out = torch.empty((G, Q, D), dtype=torch.float32, device=g.device)
     if out.numel() == 0:
         return out
+    body = kernel_lib.take_body("ws_fwd", body, ws_fwd_body(
+        D, KP, [g.data_ptr(), out.data_ptr()]), f"D={D}, KP={KP}")
     lib = kernel_lib.load()
     with torch.cuda.device(g.device):
         err = lib.ws_fwd(g.data_ptr(), wt.data_ptr(),
                          kernel_lib.dtype_code(g, "g"), out.data_ptr(),
-                         G * Q, KP, D, kernel_lib.stream_ptr(g.device))
+                         G * Q, KP, D, body, kernel_lib.stream_ptr(g.device))
     kernel_lib.check(err, "ws_fwd")
     ws_fwd.launches += 1
+    ws_fwd.vec_launches += body == BODY_VEC
     return out
 
 
 ws_fwd.launches = 0
+ws_fwd.vec_launches = 0
 
 
 def ws_bwd_body(head_dim: int, kp: int, data_ptrs=()) -> int:
@@ -95,10 +131,7 @@ def ws_bwd_body(head_dim: int, kp: int, data_ptrs=()) -> int:
     ``WS_VEC_HEAD_DIMS`` and KP <= 64 when every base address in
     ``data_ptrs`` (g, d_out and d_g) is 16-byte aligned, else ``BODY_LANE``
     (a lane per column, one warp sum per corner and k; any D <= 128)."""
-    if head_dim in WS_VEC_HEAD_DIMS and kp <= 64 and \
-            not any(p % 16 for p in data_ptrs):
-        return BODY_VEC
-    return BODY_LANE
+    return _ws_body(head_dim, kp, data_ptrs)
 
 
 def ws_bwd(g: torch.Tensor, wt: torch.Tensor, d_out: torch.Tensor):

@@ -1,5 +1,5 @@
 """Time the MSDA kernels K1 (``csrc/msda_fwd.cu``) and K1b
-(``csrc/msda_bwd.cu``), and the quad-gather backward's K5
+(``csrc/msda_bwd.cu``), and the quad-gather path's K4, K5
 (``csrc/msda_ws.cu``) and K3' (``csrc/scatter_add.cu``), on one CUDA device
 with parts of their work switched off by their inputs.
 
@@ -30,7 +30,9 @@ warp) and all on one row (the worst contention); the [0, 1] rows of one
 group alone (G=1), and folded onto 169 rows a group (index mod 169: an
 86.5 KB table, more updates on each row). And K5, both bodies, at g (8,
 13294, 16, 128) bf16, beside a copy of g into d_g (``Tensor.copy_``: the
-bytes K5 must move, without its weights and sums).
+bytes K5 must move, without its weights and sums); K4, both bodies, on the
+same g, beside a plain read of it (``torch.sum`` of g into one float32: the
+bytes K4 must read, without its weights, products or per-row sums).
 
 Exits 1 without a CUDA device.
 """
@@ -45,7 +47,7 @@ import torch
 
 from rscotr_tpu_torch.ops import ms_deform_attn as msda
 from rscotr_tpu_torch.ops.kernel_lib import BODY_LANE
-from rscotr_tpu_torch.ops.msda_ws import _ws_bwd_cuda
+from rscotr_tpu_torch.ops.msda_ws import _ws_bwd_cuda, _ws_fwd_cuda
 from rscotr_tpu_torch.ops.scatter_mm import _scatter_add_cuda
 
 DET_SHAPES = ((100, 100), (50, 50), (25, 25), (13, 13))
@@ -138,9 +140,9 @@ def scatter_parts(g) -> None:
         print(f"  {name:<50} {vec:.4f} / {scalar:.4f}", flush=True)
 
 
-def ws_bwd_parts(g) -> None:
-    """K5 at the det encoder, ms per launch (vector / warp-per-row body),
-    beside a plain copy of the same bytes."""
+def ws_parts(g) -> None:
+    """K5 and K4 at the det encoder, ms per launch (vector / warp-per-row
+    body), beside a plain copy (K5) or read (K4) of the same bytes."""
     Nv = sum(h * w for h, w in DET_SHAPES)
     gq = torch.randn(8, Nv, 16, 128, device="cuda",
                      generator=g).to(torch.bfloat16)
@@ -154,6 +156,15 @@ def ws_bwd_parts(g) -> None:
     d_g = torch.empty_like(gq)
     print(f"  copy of g into d_g (Tensor.copy_, {2 * gq.nbytes / 1e6:.1f} MB "
           f"moved): {graph_ms(lambda: d_g.copy_(gq)):.4f}", flush=True)
+    del d_g
+    vec = graph_ms(lambda: _ws_fwd_cuda(gq, wt))
+    row = graph_ms(lambda: _ws_fwd_cuda(gq, wt, body=BODY_LANE))
+    read = graph_ms(lambda: torch.sum(gq, dtype=torch.float32))
+    print(f"K4 at the det encoder (g (8, 13294, 16, 128) bf16), ms per "
+          f"launch: vector body {vec:.4f}, warp-per-row body {row:.4f}",
+          flush=True)
+    print(f"  read of g (torch.sum into one float32, {gq.nbytes / 1e6:.1f} "
+          f"MB read): {read:.4f}", flush=True)
 
 
 def main() -> int:
@@ -182,7 +193,7 @@ def main() -> int:
               flush=True)
     del v, loc, w, d_out, acc
     scatter_parts(g)
-    ws_bwd_parts(g)
+    ws_parts(g)
     return 0
 
 
