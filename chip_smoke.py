@@ -16,7 +16,9 @@ Phases, each of which raises on failure (exit code 1, no result line):
    launch takes, and the lane-per-channel body (the first kernel), at
    locations in [0, 1] as a model's are and in [-0.2, 1.2], where about
    half the corners are off the map; a modelled-L2 line (corner rows
-   loaded, counted from the locations) beside each timed case. K2 also
+   loaded, counted from the locations) beside each timed case; also at the
+   zoo's encoders (the paper MTL's cls encoder, RSCoTrSeg-R50's 3-level
+   one). K2 also
    with q, k, v as strided views of the fused qkv
    projection, with a window count that the per-block run of windows does
    not divide, and at a head width that takes its CUDA-core instantiation
@@ -27,7 +29,8 @@ Phases, each of which raises on failure (exit code 1, no result line):
    through ``torch.autograd.grad`` of the CUDA Functions, against the plain
    decomposition at the flagship's shapes (K1b at the det and seg encoders
    and the train decoder, at a head width of 64, at one that takes its
-   lane-per-channel body, and with locations that clamp at the map's edge;
+   lane-per-channel body, with locations that clamp at the map's edge, and
+   at the zoo's encoders;
    K2b at K2's extra cases too), float32 and bfloat16, timed, with bounds;
    K3' (the scatter alone, which the quad-gather path runs) on the quad-row
    updates of the plain backward at the det encoder (locations in [0, 1]
@@ -58,23 +61,41 @@ Phases, each of which raises on failure (exit code 1, no result line):
    seg 4x512^2 and seg 1x512^2 requests; outputs are checked, kernel
    launches counted (every K1 launch must take the vector body), median
    latency (CUDA events) and peak memory reported;
-10. training: the flagship trains cls 16x224^2 (mixup / cutmix) and det
+10. training: the flagship trains cls 16x224^2 (mixup / cutmix), det
     1x800^2 (18 GT boxes padded to 100, 5 CDN groups: 200 DN + 600 matching
-    queries) interleaved under the per-task masks, drop path 0.2; losses
-    and grad norms are checked finite, the masked modules bit-identical,
-    kernel launches counted per step (every K1 launch on the vector body);
-    median step time (CUDA events around
-    the whole step, host matcher included), the host matcher's time and
-    peak memory reported.
-
-11. library yardsticks of K2 and K2b, last because cuDNN keeps workspace
+    queries) and seg 4x512^2 (uint8 labels in [0, 5) with a band of the
+    ignore index 255) interleaved under the per-task masks, drop path 0.2;
+    losses and grad norms are checked finite, the masked modules
+    bit-identical, kernel launches counted per step (every K1 and K1b
+    launch on the vector body); median step time (CUDA events around the
+    whole step, host matcher included), the host matcher's time and peak
+    memory reported;
+11. the model zoo at full width and depth, bf16, random weights: the
+    paper's MTL (``MlvlClsHead`` scheme 5, whose cls path runs the shared
+    encoder) answers 3 cls 16x224^2 requests and takes 3 cls steps under
+    the mask of ``cls_uses_encoder=True``; DINO-R50 (an MTL with a
+    ResNet-50 backbone and the det head) 3 det 1x800^2 requests and 3 det
+    steps; RSCoTrSeg-R50 (the standalone segmentor, its own 3-level
+    encoder) 3 seg 2x512^2 requests and 3 seg steps without a task mask.
+    Each path's timed calls follow 2 untimed warm-up calls, checked and
+    counted as they are. Each config is a copy with its loaders' on-device augmentation off
+    (ROADMAP M6). Every request and step runs with the kernel counts at 0
+    and is checked
+    against the counts the code gives (all K1 / K1b launches on the vector
+    body); outputs checked, median time and peak memory reported. K1 and
+    K1b are held against their plain versions at these paths' new encoder
+    shapes in phases 3 and 4 (B=16, Q=Nv=1,045, L=4; B=2, Q=Nv=5,376,
+    L=3);
+12. library yardsticks of K2 and K2b, last because cuDNN keeps workspace
     once it has run under graph capture: ``scaled_dot_product_attention``
     with the additive bias + mask, and its autograd backward, on the timed
     stages' own tensors (rebuilt from their seed), under every backend that
     takes them; the fastest is the yardstick. The port never calls it.
 
 The line before the last is {"kernels": [...]}: eight kernels, each with
-``launches`` (the main path's run), ``max_abs_err``, ``ms`` and ``plain_ms``
+``launches`` (the main path's run: the flagship's training), K1, K1b, K2
+and K2b also ``launches_paths`` (each zoo path's and each flagship task's
+run, counted from 0), ``max_abs_err``, ``ms`` and ``plain_ms``
 (kernel and plain version, same inputs), ``bound_ms`` / ``bound_by`` (the
 least time the card could take, computed from this run's tensors),
 ``library_ms`` / ``library`` (the one-call yardstick, null where there is
@@ -106,6 +127,7 @@ before printing any result.
 
 from __future__ import annotations
 
+import copy
 import json
 import os
 import subprocess
@@ -118,6 +140,14 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 TINY_CFG = os.path.join(ROOT, "configs/multi/MTL_tiny_synthetic.py")
 FLAGSHIP_CFG = os.path.join(ROOT, "configs/multi/MTL_synthetic_flagship.py")
+PAPER_CFG = os.path.join(
+    ROOT, "configs/multi/MTL_swin-t-p4-w7_1x1_resisc_dior_potsdam.py")
+DINO_R50_CFG = os.path.join(ROOT,
+                            "configs/det/dino_4scale_r50_1x1_50e_dior.py")
+RSEG_R50_CFG = os.path.join(
+    ROOT, "configs/seg/RSCoTrSeg_3scale_r50_512x512_80k_potsdam_IRRG_all.py")
+# untimed calls before each zoo path's timed ones
+ZOO_WARMUP = 2
 
 # K1 / K2 against the plain version on the same inputs. float32: kernel and
 # plain differ only in summation order. bfloat16: the plain version runs in
@@ -163,6 +193,11 @@ PARAM_ATOL, PARAM_RTOL, PARAM_FRAC, PARAM_MAX = 2e-4, 5e-3, 1e-3, 8e-4
 # and Swin stages (maps padded to a multiple of the 7-wide window)
 DET_SHAPES = ((100, 100), (50, 50), (25, 25), (13, 13))
 SEG_SHAPES = ((64, 64), (32, 32), (16, 16), (8, 8))
+# the paper MTL's cls encoder at 224^2 (levels low -> high resolution, the
+# order the pixel decoders hand the encoder) and RSCoTrSeg-R50's 3-level
+# encoder at 512^2
+CLS_SHAPES = ((4, 4), (7, 7), (14, 14), (28, 28))
+RSEG_SHAPES = ((16, 16), (32, 32), (64, 64))
 K2_SHAPES = {  # name: (B, nW, H, shifted)
     "det800.s0": (1, 841, 3, True), "det800.s1": (1, 225, 6, True),
     "det800.s2": (1, 64, 12, True), "det800.s3": (1, 16, 24, True),
@@ -541,6 +576,8 @@ K1_CASES = {
     "seg-encoder B=1": (1, None, SEG_SHAPES, K1_SPAN, False),
     "seg-encoder B=4 loc in [0, 1]": (4, None, SEG_SHAPES, (0.0, 1.0), True),
     "seg-encoder B=4": (4, None, SEG_SHAPES, K1_SPAN, False),
+    "paper cls-encoder B=16": (16, None, CLS_SHAPES, K1_SPAN, False),
+    "RSCoTrSeg-R50 encoder B=2 L=3": (2, None, RSEG_SHAPES, K1_SPAN, False),
 }
 K1_HEADLINE = "det-encoder B=1 loc in [0, 1]"
 
@@ -1047,6 +1084,12 @@ def backward_phase():
                                              BODY_LANE, False),
         "edge locations [-0.1, 1.1]": (dict(B=1, Q=4000, span=(-0.1, 1.1)),
                                        BODY_VEC, False),
+        "paper cls-encoder B=16": (dict(
+            B=16, Q=sum(h * w for h, w in CLS_SHAPES), shapes=CLS_SHAPES),
+            BODY_VEC, False),
+        "RSCoTrSeg-R50 encoder B=2 L=3": (dict(
+            B=2, Q=sum(h * w for h, w in RSEG_SHAPES), shapes=RSEG_SHAPES),
+            BODY_VEC, False),
     }
     for dtype in (torch.float32, torch.bfloat16):
         bf = int(dtype == torch.bfloat16)
@@ -1103,7 +1146,8 @@ def backward_phase():
                         lambda: ms_deform_attn_bwd_torch(*args), 5),
                     bound_ms=ms, bound_by=by, library_ms=None)
                 del acc
-            if name.startswith("edge"):
+            if name.startswith("edge") or kw.get("shapes") in (CLS_SHAPES,
+                                                               RSEG_SHAPES):
                 continue
             # K3' alone, on the plain backward's quad-row updates (C = 4 D):
             # the vector body, and the scalar body forced on the same tensors
@@ -1450,6 +1494,15 @@ def flagship_det_batch(rng):
                 dn_wide=np.zeros((0, 20), np.float32))
 
 
+def seg_train_batch(rng, B, hw=512):
+    """Seg labels as the Potsdam loader gives them: uint8 classes in [0, 5)
+    with a band of the ignore index 255 (the padded border of a crop)."""
+    labels = rng.integers(0, 5, (B, hw, hw)).astype(np.uint8)
+    labels[:, hw - 40:] = 255
+    return dict(img=rng.integers(0, 256, (B, hw, hw, 3)).astype(np.uint8),
+                gt_semantic_seg=labels)
+
+
 def train_phase():
     from rscotr_tpu_torch.apis import make_step_config
     from rscotr_tpu_torch.engine.optimizer import (build_optimizer,
@@ -1464,10 +1517,10 @@ def train_phase():
     from rscotr_tpu_torch.ops.window_attention import (window_attention,
                                                        window_attention_bwd)
     from rscotr_tpu_torch.utils.config import load_cfg
-    log("training phase: flagship MTL (cls + det), bf16 compute, f32 "
+    log("training phase: flagship MTL (cls + det + seg), bf16 compute, f32 "
         "params, drop path 0.2, random weights (seed 0)")
     cfg = load_cfg(FLAGSHIP_CFG)
-    model = build_model(cfg["model"], tasks=("cls", "det"), device="cuda",
+    model = build_model(cfg["model"], device="cuda",
                         generator=torch.Generator().manual_seed(0))
     step_cfg = make_step_config(cfg)
     cdn = step_cfg.cdn
@@ -1481,15 +1534,17 @@ def train_phase():
                           grad_clip=cfg["optimizer_config"]["grad_clip"])
     names = [n for n, _ in model.named_parameters()]
     masks = task_param_masks(names)
+    tasks = ("cls", "det", "seg")
     steps = {t: make_train_step(model, opt, t, step_cfg, masks[t])
-             for t in ("cls", "det")}
+             for t in tasks}
     rng = np.random.default_rng(0)
     batches = {"cls": dict(
         img=rng.integers(0, 256, (16, 224, 224, 3)).astype(np.uint8),
         gt_label=rng.integers(0, 45, 16).astype(np.int32)),
-        "det": flagship_det_batch(rng)}
-    frozen = {"cls": ("bbox_head.", "neck.", "shared_encoder."),
-              "det": ("cls_head.",)}
+        "det": flagship_det_batch(rng), "seg": seg_train_batch(rng, 4)}
+    frozen = {"cls": ("bbox_head.", "neck.", "shared_encoder.", "seg_head."),
+              "det": ("cls_head.", "seg_head."),
+              "seg": ("cls_head.", "bbox_head.")}
     params = dict(model.named_parameters())
     # host matcher time: the LAP solves inside dino_loss
     lap = []
@@ -1508,22 +1563,27 @@ def train_phase():
     # K3', K4 and K5 run on the quad-gather path only: K1 and K1b do their
     # work on this one
     quad = {"K3'": 0, "K4": 0, "K5": 0}
+    # seg: K1 / K1b from the pixel decoder's 6 encoder layers
     want = {"det": {"K1": 12, "K1b": 12, **quad, "K2": 12, "K2b": 12},
-            "cls": {"K1": 0, "K1b": 0, **quad, "K2": 12, "K2b": 12}}
+            "cls": {"K1": 0, "K1b": 0, **quad, "K2": 12, "K2b": 12},
+            "seg": {"K1": 6, "K1b": 6, **quad, "K2": 12, "K2b": 12}}
     gen = torch.Generator().manual_seed(0)
     # -- the main path's run: 2 warm-up + 10 timed steps of each task ----
     for fn in counters.values():
         fn.launches = 0
     ms_deform_attn.vec_launches = 0
-    times = {"cls": [], "det": []}
-    peak = {"cls": 0.0, "det": 0.0}
-    schedule = ["cls", "det"] * 12
+    ms_deform_attn_bwd.vec_launches = 0
+    times = {t: [] for t in tasks}
+    peak = {t: 0.0 for t in tasks}
+    per_task = {t: {} for t in tasks}
+    schedule = list(tasks) * 12
     try:
         for i, task in enumerate(schedule):
             snap = {n: p.detach().clone() for n, p in params.items()
                     if n.startswith(frozen[task])}
             before = {k: fn.launches for k, fn in counters.items()}
-            vec = ms_deform_attn.vec_launches
+            vec = (ms_deform_attn.vec_launches,
+                   ms_deform_attn_bwd.vec_launches)
             torch.cuda.reset_peak_memory_stats()
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
@@ -1533,11 +1593,16 @@ def train_phase():
             torch.cuda.synchronize()
             ms = start.elapsed_time(end)
             got = {k: fn.launches - before[k] for k, fn in counters.items()}
+            for k, v in got.items():
+                per_task[task][k] = per_task[task].get(k, 0) + v
             if got != want[task]:
                 fail(f"{task} step {i}: kernel launches {got} != "
                      f"{want[task]}")
-            if ms_deform_attn.vec_launches - vec != got["K1"]:
-                fail(f"{task} step {i}: a K1 launch took the lane body")
+            if (ms_deform_attn.vec_launches - vec[0],
+                    ms_deform_attn_bwd.vec_launches - vec[1]) != \
+                    (got["K1"], got["K1b"]):
+                fail(f"{task} step {i}: a K1 or K1b launch took the lane "
+                     "body")
             vals = {k: float(v) for k, v in lv.items()}
             if not all(np.isfinite(v) for v in vals.values()):
                 fail(f"{task} step {i}: non-finite loss terms {vals}")
@@ -1546,7 +1611,7 @@ def train_phase():
             if moved:
                 fail(f"{task} step {i}: masked parameters moved: "
                      f"{moved[:5]}")
-            if i >= 4:
+            if i >= 2 * len(tasks):
                 times[task].append(ms)
                 peak[task] = max(peak[task],
                                  torch.cuda.max_memory_allocated() / 2 ** 20)
@@ -1559,6 +1624,8 @@ def train_phase():
         dl.hungarian_batched = solve
     launches = {k: fn.launches for k, fn in counters.items()}
     launches["K1 vec"] = ms_deform_attn.vec_launches
+    launches["K1b vec"] = ms_deform_attn_bwd.vec_launches
+    launches["per task"] = per_task
     log(f"  launches in the main path's run ({len(schedule)} steps): "
         f"{launches}")
     # the one device-to-host copy of the matching costs, alone
@@ -1570,7 +1637,7 @@ def train_phase():
         cost.cpu()
         copy_ms.append((time.perf_counter() - t0) * 1e3)
     res = {}
-    for task in ("cls", "det"):
+    for task in tasks:
         med = float(np.median(times[task]))
         res[task] = dict(median_ms=med, min_ms=min(times[task]),
                          max_ms=max(times[task]), steps=len(times[task]),
@@ -1585,6 +1652,217 @@ def train_phase():
         f"(7 x 100 x 600, 18 valid rows), cost copy alone "
         f"{np.median(copy_ms):.3f} ms (1.68 MB); "
         f"{100 * lap_med / res['det']['median_ms']:.1f}% of the det step")
+    return launches, res
+
+
+def without_device_augment(cfg):
+    """A copy of a composed config with its loaders' on-device augmentation
+    options off (ROADMAP M6: ``make_step_config`` refuses them), and the
+    options it turned off."""
+    cfg = copy.deepcopy(cfg)
+    off = []
+    for name, entry in cfg.get("data", {}).items():
+        loader = entry.get("loader", {})
+        for key in ("cls_device_augment", "det_device_augment",
+                    "seg_device_augment"):
+            if loader.get(key):
+                loader[key] = False
+                off.append(f"{name}.loader.{key}")
+    return cfg, off
+
+
+def zoo_phase():
+    """The zoo's paths at full width and depth, bf16 compute, random
+    weights (seed 0): the paper's MTL (MlvlClsHead scheme 5, cls through
+    the shared encoder), DINO-R50 (an MTL with a ResNet-50 backbone and
+    the det head only) and RSCoTrSeg-R50 (the standalone segmentor with its
+    own 3-level encoder). Each request and step runs with the kernel counts
+    set to 0 just before it and read just after, against the counts the
+    code gives; every K1 / K1b launch must take the vector body. Each path
+    first runs ``ZOO_WARMUP`` untimed calls (cuDNN's algorithm search and
+    the allocator's first growth fall there), checked and counted as the
+    timed ones."""
+    from rscotr_tpu_torch.apis import derive_cls_hw, make_step_config
+    from rscotr_tpu_torch.engine import make_infer_steps
+    from rscotr_tpu_torch.engine.optimizer import (build_optimizer,
+                                                   task_param_masks)
+    from rscotr_tpu_torch.engine.train_step import make_train_step
+    from rscotr_tpu_torch.models import build_model
+    from rscotr_tpu_torch.ops.ms_deform_attn import (ms_deform_attn,
+                                                     ms_deform_attn_bwd)
+    from rscotr_tpu_torch.ops.window_attention import (window_attention,
+                                                       window_attention_bwd)
+    from rscotr_tpu_torch.utils.config import load_cfg
+    counters = {"K1": ms_deform_attn, "K1b": ms_deform_attn_bwd,
+                "K2": window_attention, "K2b": window_attention_bwd}
+    rng = np.random.default_rng(1)
+    launches, calls, res = {}, {}, {}
+
+    def counted(name, want, fn):
+        """Run ``fn`` with every count at 0, check the launches, and return
+        (fn's result, device ms by CUDA events)."""
+        for c in counters.values():
+            c.launches = 0
+        ms_deform_attn.vec_launches = ms_deform_attn_bwd.vec_launches = 0
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fn()
+        end.record()
+        torch.cuda.synchronize()
+        got = {k: c.launches for k, c in counters.items()}
+        vec = (ms_deform_attn.vec_launches, ms_deform_attn_bwd.vec_launches)
+        if got != want or vec != (got["K1"], got["K1b"]):
+            fail(f"{name}: kernel launches {got} (vector body K1 {vec[0]}, "
+                 f"K1b {vec[1]}) != {want}, all on the vector body")
+        for k, v in got.items():
+            launches.setdefault(name, {})[k] = \
+                launches.get(name, {}).get(k, 0) + v
+        calls[name] = calls.get(name, 0) + 1
+        return out, start.elapsed_time(end)
+
+    def report(name, times, extra=""):
+        peak = torch.cuda.max_memory_allocated() / 2 ** 20
+        res[name] = dict(median_ms=float(np.median(times)), n=len(times),
+                         min_ms=min(times), max_ms=max(times),
+                         peak_mib=peak)
+        log(f"  {name}: median {res[name]['median_ms']:.2f} ms over "
+            f"{len(times)} after {ZOO_WARMUP} untimed (min {min(times):.2f}, "
+            f"max {max(times):.2f}); peak memory {peak:.0f} MiB; launches "
+            f"per call "
+            f"{ {k: v // calls[name] for k, v in launches[name].items()} }"
+            f"{extra}")
+
+    def steps_for(cfg, model, task, mask):
+        opt = build_optimizer(
+            cfg["optimizer"], model.named_parameters(),
+            lr_config=cfg.get("lr_config"),
+            grad_clip=(cfg.get("optimizer_config") or {}).get("grad_clip"))
+        return make_train_step(model, opt, task, make_step_config(cfg), mask)
+
+    def train(name, model, step, batch, n, want, watch):
+        gen = torch.Generator().manual_seed(0)
+        params = dict(model.named_parameters())
+        before = params[watch].detach().clone()
+        torch.cuda.reset_peak_memory_stats()
+        times = []
+        for i in range(ZOO_WARMUP + n):
+            lv, ms = counted(name, want, lambda: step(batch, gen))
+            vals = {k: float(v) for k, v in lv.items()}
+            if not all(np.isfinite(v) for v in vals.values()):
+                fail(f"{name}: non-finite loss terms {vals}")
+            if i >= ZOO_WARMUP:
+                times.append(ms)
+        if torch.equal(before, params[watch]):
+            fail(f"{name}: {watch} did not move")
+        report(name, times, f"; loss {vals['loss']:.4f}, grad_norm "
+               f"{vals['grad_norm']:.3f}, {watch} moved")
+
+    # -- the paper MTL: MlvlClsHead scheme 5, cls 16x224^2 ----------------
+    cfg, off = without_device_augment(load_cfg(PAPER_CFG))
+    hw = derive_cls_hw(cfg)
+    log(f"zoo phase: paper MTL (MlvlClsHead scheme "
+        f"{cfg['model']['cls_head']['scheme']}, cls_hw {hw}), cls task, "
+        f"bf16, random weights (seed 0); a copy of the config with {off} "
+        "off (ROADMAP M6)")
+    model = build_model(cfg["model"], tasks=("cls",), device="cuda",
+                        generator=torch.Generator().manual_seed(0),
+                        cls_hw=hw)
+    n = model.cls_head.out_proj.weight.shape[1]
+    if n != 16:
+        fail(f"paper MTL: out_proj over {n} tokens, want 16 (4^2 at 224^2)")
+    infer = make_infer_steps(model)
+    img = rng.integers(0, 256, (16, 224, 224, 3)).astype(np.uint8)
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for i in range(ZOO_WARMUP + 3):
+        probs, ms = counted("paper MTL cls 16x224^2 request",
+                            {"K1": 6, "K1b": 0, "K2": 12, "K2b": 0},
+                            lambda: infer["cls"](img))
+        if i >= ZOO_WARMUP:
+            times.append(ms)
+    if tuple(probs.shape) != (16, 45) or not torch.isfinite(probs).all() or \
+            (probs.sum(-1) - 1).abs().max() > 1e-3:
+        fail(f"paper MTL cls output invalid: {tuple(probs.shape)}")
+    report("paper MTL cls 16x224^2 request", times,
+           "; probs (16, 45) finite, rows sum to 1")
+    head = cfg["model"]["cls_head"]
+    # the cls mask as the JAX package's train_model computes it
+    mask = task_param_masks(
+        [k for k, _ in model.named_parameters()],
+        cls_uses_encoder=head.get("type") == "MlvlClsHead")["cls"]
+    batch = dict(img=img, gt_label=rng.integers(0, 45, 16).astype(np.int32))
+    train("paper MTL cls 16x224^2 step", model,
+          steps_for(cfg, model, "cls", mask), batch, 3,
+          {"K1": 6, "K1b": 6, "K2": 12, "K2b": 12},
+          "shared_encoder.layers.0.ffns.0.layers.1.weight")
+    del model, infer, probs
+    torch.cuda.empty_cache()
+
+    # -- DINO-R50: det 1x800^2 --------------------------------------------
+    cfg, off = without_device_augment(load_cfg(DINO_R50_CFG))
+    log(f"zoo phase: DINO-R50 det (MTL, ResNet-50, det head), bf16, random "
+        f"weights (seed 0); a copy of the config with {off} off "
+        "(ROADMAP M6)")
+    model = build_model(cfg["model"], device="cuda",
+                        generator=torch.Generator().manual_seed(0))
+    infer = make_infer_steps(model, max_per_img=300)
+    img = rng.integers(0, 256, (1, 800, 800, 3)).astype(np.uint8)
+    img_hw = np.array([[800, 800]], np.int32)
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for i in range(ZOO_WARMUP + 3):
+        (det, labels), ms = counted(
+            "DINO-R50 det 1x800^2 request",
+            {"K1": 12, "K1b": 0, "K2": 0, "K2b": 0},
+            lambda: infer["det"](img, img_hw, np.ones((1, 4), np.float32)))
+        if i >= ZOO_WARMUP:
+            times.append(ms)
+    if tuple(det.shape) != (1, 300, 5) or not torch.isfinite(det).all() or \
+            not bool(((labels >= 0) & (labels < 20)).all()):
+        fail(f"DINO-R50 det output invalid: {tuple(det.shape)}")
+    report("DINO-R50 det 1x800^2 request", times,
+           "; det (1, 300, 5) finite, labels in [0, 20)")
+    mask = task_param_masks([k for k, _ in model.named_parameters()])["det"]
+    train("DINO-R50 det 1x800^2 step", model,
+          steps_for(cfg, model, "det", mask), flagship_det_batch(rng), 3,
+          {"K1": 12, "K1b": 12, "K2": 0, "K2b": 0},
+          "shared_encoder.layers.0.ffns.0.layers.1.weight")
+    del model, infer, det, labels
+    torch.cuda.empty_cache()
+
+    # -- RSCoTrSeg-R50: seg 2x512^2 ---------------------------------------
+    cfg, off = without_device_augment(load_cfg(RSEG_R50_CFG))
+    log(f"zoo phase: RSCoTrSeg-R50 seg (ResNet-50, own 3-level encoder), "
+        f"bf16, random weights (seed 0); a copy of the config with {off} "
+        "off (ROADMAP M6)")
+    model = build_model(cfg["model"], device="cuda",
+                        generator=torch.Generator().manual_seed(0))
+    C = cfg["model"]["decode_head"]["num_queries"]
+    infer = make_infer_steps(model,
+                             seg_test_cfg=cfg["model"]["test_cfg"]["seg"])
+    img = rng.integers(0, 256, (2, 512, 512, 3)).astype(np.uint8)
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for i in range(ZOO_WARMUP + 3):
+        labels, ms = counted("RSCoTrSeg-R50 seg 2x512^2 request",
+                             {"K1": 6, "K1b": 0, "K2": 0, "K2b": 0},
+                             lambda: infer["seg"](img))
+        if i >= ZOO_WARMUP:
+            times.append(ms)
+    if tuple(labels.shape) != (2, 512, 512) or \
+            not bool(((labels >= 0) & (labels < C)).all()):
+        fail(f"RSCoTrSeg-R50 labels invalid: {tuple(labels.shape)}")
+    report("RSCoTrSeg-R50 seg 2x512^2 request", times,
+           f"; labels (2, 512, 512) in [0, {C}), "
+           f"{labels.unique().numel()} distinct")
+    # no task mask: the standalone encoder trains (ROADMAP C6)
+    train("RSCoTrSeg-R50 seg 2x512^2 step", model,
+          steps_for(cfg, model, "seg", None), seg_train_batch(rng, 2), 3,
+          {"K1": 6, "K1b": 6, "K2": 0, "K2b": 0},
+          "encoder.layers.0.ffns.0.layers.1.weight")
+    del model, infer, labels
+    torch.cuda.empty_cache()
     return launches, res
 
 
@@ -1629,6 +1907,7 @@ def kernels_line(times, btimes, qtimes, err, berr, qerr, k6err, k6levels,
               pallas + "ms_deform_attn_kernel.py:138", "K1",
               k1, err["K1"], det_enc + ", locations in [0, 1]",
               lane_ms=k1["lane_ms"], launches_serving=launches["K1 serving"],
+              launches_paths=launches["paths"]["K1"],
               vec_launches=launches["K1 vec"],
               vec_launches_serving=launches["K1 vec serving"],
               stages=stages(times, "K1")),
@@ -1636,6 +1915,7 @@ def kernels_line(times, btimes, qtimes, err, berr, qerr, k6err, k6levels,
               pallas + "window_attention.py:116", "K2",
               times["K2 det800.s0"], err["K2"], det_s0, library=sdpa,
               launches_serving=launches["K2 serving"],
+              launches_paths=launches["paths"]["K2"],
               stages=stages(times, "K2")),
         entry("msda_bwd", "msda_bwd.cu",
               pallas + "ms_deform_attn_kernel.py:138", "K1b",
@@ -1643,6 +1923,8 @@ def kernels_line(times, btimes, qtimes, err, berr, qerr, k6err, k6levels,
               replaces_part="backward (JAX: autodiff of _ms_deform_attn_xla,"
                             " rscotr_tpu/ops/ms_deform_attn.py:270)",
               fuses="scatter_add (K3') on the model path",
+              vec_launches=launches["K1b vec"],
+              launches_paths=launches["paths"]["K1b"],
               whole_ms=k1b["whole_ms"], whole_eager_ms=k1b["whole_eager_ms"],
               stages=stages(btimes, "K1b")),
         entry("scatter_add", "scatter_add.cu", pallas + "scatter_mm.py:168",
@@ -1662,6 +1944,7 @@ def kernels_line(times, btimes, qtimes, err, berr, qerr, k6err, k6levels,
               library="torch.autograd.grad of " + sdpa + " for q, k, v",
               replaces_part="backward (JAX: autodiff of the einsum path, "
                             "rscotr_tpu/models/backbones/swin.py:130)",
+              launches_paths=launches["paths"]["K2b"],
               stages=stages(btimes, "K2b")),
         entry("ws_fwd", "msda_ws.cu", pallas + "msda_ws.py:110", "K4",
               qtimes["K4 det-encoder"], qerr["K4"], ws_at,
@@ -1718,6 +2001,7 @@ def main(argv) -> int:
     train_parity_phase()
     slaunches, lat = serving_phase()
     launches, train = train_phase()
+    zlaunches, zoo = zoo_phase()
     library_phase(times, btimes)
     # K3' is launched by the quad-gather path; the training run launches it
     # 0 times (train_phase checks every step), K1b doing its work there
@@ -1725,12 +2009,19 @@ def main(argv) -> int:
                      "K1 vec serving": slaunches["K1 vec"],
                      "K2 serving": slaunches["K2"], "K6": k6launches,
                      "K3' training": launches["K3'"]}, **qlaunches)
+    # the launches of each path beside the main path, per kernel
+    zlaunches.update({f"flagship {t} steps (12)": n
+                      for t, n in launches.pop("per task").items()})
+    launches["paths"] = {k: {path: n[k] for path, n in zlaunches.items()}
+                         for k in ("K1", "K1b", "K2", "K2b")}
 
     log(f"summary ({smi}): " + "; ".join(
         f"serve {n} {ms:.3f} ms, peak {mb:.0f} MiB"
         for n, (ms, mb) in lat.items()) + "; " + "; ".join(
         f"train {t} {r['median_ms']:.2f} ms, peak {r['peak_mib']:.0f} MiB"
         for t, r in train.items()) + "; " + "; ".join(
+        f"{n} {r['median_ms']:.2f} ms, peak {r['peak_mib']:.0f} MiB"
+        for n, r in zoo.items()) + "; " + "; ".join(
         f"MSDA impl={i} fwd+bwd {qtimes[f'MSDA {i}'][1]:.4f} ms"
         for i in ("quad", "kernel")))
     log(smi)

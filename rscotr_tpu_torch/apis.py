@@ -1,6 +1,7 @@
-"""Config-level entry points of the port (PyTorch counterpart of the cls and
-det parts of rscotr_tpu/apis.py, written out again here because that module
-imports jax).
+"""Config-level entry points of the port (PyTorch counterpart of
+``make_step_config``, ``derive_img_norm`` and the cls size of
+``derive_shapes`` in rscotr_tpu/apis.py, written out again here because
+that module imports jax).
 
 ``make_step_config(cfg)`` derives the ``TrainStepConfig`` from a composed
 config (``utils.config.load_cfg``): task weights, the CDN setup with the
@@ -45,6 +46,20 @@ def derive_img_norm(cfg: dict) -> Optional[Tuple[tuple, tuple]]:
     return found if found is not None or not asked else _IMAGENET
 
 
+def derive_cls_hw(cfg: dict) -> Optional[Tuple[int, int]]:
+    """The cls input size of a composed config, as ``derive_shapes`` takes
+    it: the last cls dataset's ``loader.cls_size`` (224 when the loader
+    sets none); None when the config has no cls dataset. ``build_model``
+    takes it as ``cls_hw`` to size an ``MlvlClsHead`` of scheme 5, 6 or
+    7."""
+    hw = None
+    for entry in cfg.get("data", {}).values():
+        if entry["task"] == "cls":
+            s = dict(entry.get("loader", {})).get("cls_size", 224)
+            hw = (s, s)
+    return hw
+
+
 def make_step_config(cfg: dict) -> TrainStepConfig:
     model_cfg = cfg["model"]
     for entry in cfg.get("data", {}).values():
@@ -53,7 +68,7 @@ def make_step_config(cfg: dict) -> TrainStepConfig:
         if wanted:
             raise NotImplementedError(
                 f"loader options {wanted}: on-device augmentation is not "
-                "ported to rscotr_tpu_torch yet (ROADMAP P4)")
+                "ported to rscotr_tpu_torch yet (ROADMAP M6)")
     tw = dict(model_cfg.get("task_weight", {"cls": 1, "det": 1, "seg": 1}))
     cdn_cfg = det_cfg = None
     if model_cfg.get("bbox_head"):
@@ -100,5 +115,6 @@ def make_step_config(cfg: dict) -> TrainStepConfig:
         cls_num_classes=cls_cfg.get("num_classes", 45),
         cls_label_smooth=loss_cfg.get("label_smooth_val", 0.1),
         cls_use_augments=bool(train_cls.get("augments")),
+        seg_ignore_index=255,
         cdn=cdn_cfg, det=det_cfg,
         img_norm=derive_img_norm(cfg))

@@ -12,6 +12,7 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 from rscotr_tpu_torch.models.heads.dino_loss import dino_get_bboxes
 from rscotr_tpu_torch.models.heads.pixel_decoders import _resize_bilinear
@@ -44,17 +45,20 @@ def _slide_origins(size: int, crop: int, stride: int):
     return sorted({min(i * stride, size - crop) for i in range(n)})
 
 
-def upsample_logits(logits: torch.Tensor, hw) -> torch.Tensor:
-    """(B, h, w, C) -> (B, H, W, C) float32, bilinear with half-pixel
-    centres (``F.interpolate(align_corners=False)``). For upsampling this
-    equals the JAX package's ``jax.image.resize(method="linear")``; for
-    downsampling it would not (jax antialiases), so only upsampling is
-    taken."""
+def resize_linear(x: torch.Tensor, hw) -> torch.Tensor:
+    """(B, h, w, C) -> (B, H, W, C) float32, ``jax.image.resize(x, ...,
+    method="linear")``, for any size: the triangle kernel at half-pixel
+    centres, widened by in/out on an axis that shrinks and normalised per
+    output. That is ``F.interpolate``'s bilinear mode with antialiasing,
+    which is taken when an axis shrinks; when none does, the widening is
+    void and the plain bilinear grid (``_resize_bilinear``) is the same."""
     H, W = int(hw[0]), int(hw[1])
-    if H < logits.shape[1] or W < logits.shape[2]:
-        raise ValueError(f"upsample_logits: {tuple(logits.shape[1:3])} -> "
-                         f"{(H, W)} is not an upsampling")
-    return _resize_bilinear(logits.float(), (H, W))
+    x = x.float()
+    if H >= x.shape[1] and W >= x.shape[2]:
+        return _resize_bilinear(x, (H, W))
+    return F.interpolate(x.permute(0, 3, 1, 2), size=(H, W), mode="bilinear",
+                         align_corners=False, antialias=True
+                         ).permute(0, 2, 3, 1)
 
 
 def make_infer_steps(model, max_per_img: int = 300, img_norm=None,
@@ -105,7 +109,7 @@ def make_infer_steps(model, max_per_img: int = 300, img_norm=None,
             pred = cnt = None
             for y in _slide_origins(H, hc, hs):
                 for x in _slide_origins(W, wc, ws):
-                    logits = upsample_logits(model.forward_seg(
+                    logits = resize_linear(model.forward_seg(
                         img[:, y:y + hc, x:x + wc]), (hc, wc))
                     if pred is None:
                         pred = logits.new_zeros((B, H, W, logits.shape[-1]))
@@ -115,7 +119,7 @@ def make_infer_steps(model, max_per_img: int = 300, img_norm=None,
             return pred / cnt[None, :, :, None]
     else:
         def seg_logits(img):
-            return upsample_logits(model.forward_seg(img), img.shape[1:3])
+            return resize_linear(model.forward_seg(img), img.shape[1:3])
 
     @torch.inference_mode()
     def infer_seg_logits(img):

@@ -11,9 +11,8 @@ takes an explicit ``torch.Generator`` for everything random in the step
 keeps those draws off the device's critical path. ``log_vars`` holds every
 weighted loss term, their sum ``loss`` and ``grad_norm``, as device scalars.
 
-Ported: the cls and det steps. The seg step (ROADMAP P2), the on-device
-augment branches (ROADMAP P4) and the K-step scanned dispatch (not carried
-over, ROADMAP P4) are not.
+Ported: the cls, det and seg steps. The on-device augment branches
+(ROADMAP M6) and the K-step scanned dispatch (not carried over) are not.
 """
 
 from __future__ import annotations
@@ -25,13 +24,14 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from rscotr_tpu_torch.engine.infer import device_normalize
+from rscotr_tpu_torch.engine.infer import device_normalize, resize_linear
 from rscotr_tpu_torch.models.heads.cdn import (CdnConfig, cdn_self_attn_mask,
                                                draw_cdn_noise,
                                                generate_cdn_queries)
 from rscotr_tpu_torch.models.heads.dino_loss import DetLossConfig, dino_loss
 from rscotr_tpu_torch.ops.box_ops import bbox_xyxy_to_cxcywh
-from rscotr_tpu_torch.ops.losses import label_smooth_loss
+from rscotr_tpu_torch.ops.losses import (label_smooth_loss,
+                                        softmax_cross_entropy)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -42,6 +42,8 @@ class TrainStepConfig:
     cls_mixup_alpha: float = 0.8
     cls_cutmix_alpha: float = 1.0
     cls_use_augments: bool = True
+    seg_ignore_index: int = 255
+    seg_loss_weight: float = 1.0
     cdn: Optional[CdnConfig] = None
     det: Optional[DetLossConfig] = None
     # (mean, std) in 0-255 range for uint8 batches; None = ImageNet stats
@@ -110,6 +112,19 @@ def cls_loss_fn(model, batch, generator, cfg: TrainStepConfig):
         logits, target, label_smooth_val=cfg.cls_label_smooth)}
 
 
+def seg_loss_fn(model, batch, generator, cfg: TrainStepConfig):
+    """mmseg's decode-head CE: the logits resized to the labels' size as
+    ``jax.image.resize(method="linear")`` does (``resize_linear``, which
+    averages when it shrinks), softmax CE over every channel (scheme 2's
+    one per query too, ROADMAP C4) with ``seg_ignore_index``."""
+    img = device_normalize(batch["img"], cfg.img_norm, batch.get("img_hw"))
+    gt = batch["gt_semantic_seg"]
+    logits = resize_linear(model.forward_seg(img, generator), gt.shape[1:3])
+    loss = softmax_cross_entropy(logits, gt,
+                                 ignore_index=cfg.seg_ignore_index)
+    return {"seg.loss_ce": loss * cfg.seg_loss_weight}
+
+
 def det_loss_fn(model, batch, generator, cfg: TrainStepConfig,
                 mask_cache: Optional[dict] = None):
     img_hw = batch["img_hw"]
@@ -163,11 +178,7 @@ def make_train_step(model, optimizer, task: str, cfg: TrainStepConfig,
                     task_mask: Optional[Dict[str, float]] = None):
     """Returns ``step(batch, generator) -> log_vars``; ``batch`` holds numpy
     arrays or tensors, moved to the model's device."""
-    if task == "seg":
-        raise NotImplementedError(
-            "the seg train step is not ported to rscotr_tpu_torch yet: "
-            "ROADMAP P2 (seg training: the seg loss and task mask)")
-    if task not in ("cls", "det"):
+    if task not in ("cls", "det", "seg"):
         raise ValueError(f"unknown task {task!r}")
     weight = float(cfg.task_weight.get(task, 1.0))
     params = dict(model.named_parameters())
@@ -181,6 +192,8 @@ def make_train_step(model, optimizer, task: str, cfg: TrainStepConfig,
             p.grad = None
         if task == "cls":
             losses = cls_loss_fn(model, batch, generator, cfg)
+        elif task == "seg":
+            losses = seg_loss_fn(model, batch, generator, cfg)
         else:
             losses = det_loss_fn(model, batch, generator, cfg, mask_cache)
         total, log_vars = parse_losses(losses)

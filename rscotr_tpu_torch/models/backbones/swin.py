@@ -147,9 +147,12 @@ class SwinBlock(nn.Module):
     def _mask(self, Hp, Wp, shift, device):
         key = (Hp, Wp, shift, device)
         if key not in self._masks:
-            self._masks[key] = torch.as_tensor(
-                _shift_attn_mask(Hp, Wp, self.window_size, shift),
-                device=device)
+            # a normal tensor even when first made under inference_mode, so
+            # that a training step after a request can save it for backward
+            with torch.inference_mode(False):
+                self._masks[key] = torch.as_tensor(
+                    _shift_attn_mask(Hp, Wp, self.window_size, shift),
+                    device=device)
         return self._masks[key]
 
     def forward(self, x, generator=None):
@@ -256,6 +259,19 @@ class SwinTransformer(nn.Module):
             if down is not None:
                 dim *= 2
         self.stages = nn.ModuleList(stages)
+
+    def out_hw(self, hw):
+        """The (h, w) of each returned map for an (H, W) input: the patch
+        embedding pads to a multiple of the patch, each patch merging to an
+        even size."""
+        ps = self.patch_embed.patch_size
+        h, w = -(-int(hw[0]) // ps), -(-int(hw[1]) // ps)
+        outs = []
+        for si in range(len(self.stages)):
+            if si in self.out_indices:
+                outs.append((h, w))
+            h, w = -(-h // 2), -(-w // 2)
+        return outs
 
     def forward(self, x, generator=None):
         """x: (B, H, W, 3) -> tuple of (B, H/s, W/s, C_i)."""

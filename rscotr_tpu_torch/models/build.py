@@ -2,43 +2,37 @@
 rscotr_tpu/models/build.py).
 
 Reads the same reference-shaped ``cfg.model`` dicts and ``type`` names and
-builds only the parts that are ported. A part that is not ported yet raises
-``NotImplementedError`` naming its ROADMAP item; a head whose task is left
-out of ``tasks`` is not built.
+builds the model types ``MTL``, ``DINO`` and ``RSCoTrSeg``; a head whose
+task is left out of ``tasks`` is not built (MTL only). Swin's
+``drop_rate`` and ``drop_path_rate`` run in training mode; every other
+dropout rate must be 0 (``_no_dropout``), as in every config.
 """
 
 from __future__ import annotations
 
 import copy
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Tuple
 
 import torch
 
+from rscotr_tpu_torch.models.backbones.resnet import ResNet
 from rscotr_tpu_torch.models.backbones.swin import SwinTransformer
-from rscotr_tpu_torch.models.heads.cls_heads import SlvlClsHead
+from rscotr_tpu_torch.models.dino import DINO
+from rscotr_tpu_torch.models.heads.cls_heads import MlvlClsHead, SlvlClsHead
 from rscotr_tpu_torch.models.heads.dino_head import DINOHead
 from rscotr_tpu_torch.models.heads.mask2former_head import Mask2FormerHead
 from rscotr_tpu_torch.models.layers.common import init_weights
 from rscotr_tpu_torch.models.layers.transformer import DeformableEncoder
 from rscotr_tpu_torch.models.mtl import MTL
 from rscotr_tpu_torch.models.necks.channel_mapper import ChannelMapper
+from rscotr_tpu_torch.models.rscotr_seg import RSCoTrSeg
 
-_NOT_PORTED = {
-    "ResNet": "P3 (ResNet-50 backbone)",
-    "MlvlClsHead": "P3 (MlvlClsHead)",
-}
 _HEAD_KEYS = {"cls": "cls_head", "det": "bbox_head", "seg": "seg_head"}
 
 
 def _pop_type(cfg: dict):
     cfg = copy.deepcopy(dict(cfg))
-    t = cfg.pop("type")
-    if t in _NOT_PORTED:
-        raise NotImplementedError(
-            f"{t} is not ported to rscotr_tpu_torch yet: ROADMAP "
-            f"{_NOT_PORTED[t]}. Leave an unported head out with the "
-            "``tasks`` argument of build_model.")
-    return t, cfg
+    return cfg.pop("type"), cfg
 
 
 def _no_dropout(name: str, **rates) -> None:
@@ -52,22 +46,29 @@ def _no_dropout(name: str, **rates) -> None:
 
 def build_backbone(cfg: dict, dtype, device):
     t, c = _pop_type(cfg)
-    if t != "SwinTransformer":
-        raise KeyError(f"unknown backbone type {t}")
-    _no_dropout(t, attn_drop_rate=c.get("attn_drop_rate", 0.0))
-    return SwinTransformer(
-        embed_dims=c.get("embed_dims", 96),
-        depths=tuple(c.get("depths", (2, 2, 6, 2))),
-        num_heads=tuple(c.get("num_heads", (3, 6, 12, 24))),
-        window_size=c.get("window_size", 7),
-        mlp_ratio=c.get("mlp_ratio", 4),
-        qkv_bias=c.get("qkv_bias", True),
-        qk_scale=c.get("qk_scale", None),
-        drop_rate=c.get("drop_rate", 0.0),
-        drop_path_rate=c.get("drop_path_rate", 0.2),
-        patch_norm=c.get("patch_norm", True),
-        out_indices=tuple(c.get("out_indices", (0, 1, 2, 3))),
-        dtype=dtype, device=device)
+    if t == "SwinTransformer":
+        _no_dropout(t, attn_drop_rate=c.get("attn_drop_rate", 0.0))
+        return SwinTransformer(
+            embed_dims=c.get("embed_dims", 96),
+            depths=tuple(c.get("depths", (2, 2, 6, 2))),
+            num_heads=tuple(c.get("num_heads", (3, 6, 12, 24))),
+            window_size=c.get("window_size", 7),
+            mlp_ratio=c.get("mlp_ratio", 4),
+            qkv_bias=c.get("qkv_bias", True),
+            qk_scale=c.get("qk_scale", None),
+            drop_rate=c.get("drop_rate", 0.0),
+            drop_path_rate=c.get("drop_path_rate", 0.2),
+            patch_norm=c.get("patch_norm", True),
+            out_indices=tuple(c.get("out_indices", (0, 1, 2, 3))),
+            dtype=dtype, device=device)
+    if t == "ResNet":
+        return ResNet(depth=c.get("depth", 50),
+                      num_stages=c.get("num_stages", 4),
+                      out_indices=tuple(c.get("out_indices", (0, 1, 2, 3))),
+                      frozen_stages=c.get("frozen_stages", 1),
+                      norm_eval=c.get("norm_eval", True),
+                      dtype=dtype, device=device)
+    raise KeyError(f"unknown backbone type {t}")
 
 
 def build_neck(cfg: Optional[dict], dtype, device):
@@ -106,13 +107,24 @@ def build_shared_encoder(cfg: dict, dtype, device):
         dtype=dtype, device=device)
 
 
-def build_cls_head(cfg: dict, dtype, device):
+def build_cls_head(cfg: dict, dtype, device, token_counts=None):
+    """``token_counts``: h * w of each encoder level (low -> high
+    resolution) at the cls input size, for an ``MlvlClsHead``."""
     t, c = _pop_type(cfg)
-    if t != "SlvlClsHead":
-        raise KeyError(f"unknown cls head type {t}")
-    return SlvlClsHead(num_classes=c.get("num_classes", 45),
-                       in_channels=c.get("in_channels", 768),
-                       dtype=dtype, device=device)
+    if t == "SlvlClsHead":
+        return SlvlClsHead(num_classes=c.get("num_classes", 45),
+                           in_channels=c.get("in_channels", 768),
+                           dtype=dtype, device=device)
+    if t == "MlvlClsHead":
+        pd = c.get("pixel_decoder", {}) or {}
+        return MlvlClsHead(num_classes=c.get("num_classes", 45),
+                           scheme=c.get("scheme", 5),
+                           num_encoder_levels=pd.get("num_encoder_levels", 4),
+                           strides=tuple(pd.get("strides", (8, 16, 32, 64))),
+                           feat_channels=pd.get("feat_channels", 256),
+                           token_counts=token_counts, dtype=dtype,
+                           device=device)
+    raise KeyError(f"unknown cls head type {t}")
 
 
 def build_bbox_head(cfg: dict, dtype, device):
@@ -142,7 +154,7 @@ def build_bbox_head(cfg: dict, dtype, device):
         dtype=dtype, device=device)
 
 
-def build_seg_head(cfg: dict, dtype, device):
+def build_seg_head(cfg: dict, dtype, device, input_convs: bool = False):
     t, c = _pop_type(cfg)
     if t != "Mask2FormerHead":
         raise KeyError(f"unknown seg head type {t}")
@@ -164,34 +176,51 @@ def build_seg_head(cfg: dict, dtype, device):
         feedforward_channels=ffn.get("feedforward_channels", 2048),
         pos_temperature=c.get("positional_encoding", {}).get(
             "temperature", 10000),
-        dtype=dtype, device=device)
+        pixel_decoder_input_convs=input_convs, dtype=dtype, device=device)
+
+
+def _token_counts(cls_cfg, backbone, neck, neck_in_levels, cls_hw):
+    """h * w of each encoder level (low -> high resolution) of an
+    ``MlvlClsHead`` at the cls input size; None when there is no size."""
+    if not cls_cfg or cls_cfg.get("type") != "MlvlClsHead" or cls_hw is None:
+        return None
+    if isinstance(cls_hw, int):
+        cls_hw = (cls_hw, cls_hw)
+    hw = backbone.out_hw(cls_hw)
+    if neck is not None:
+        hw = neck.out_hw(hw[len(hw) - neck_in_levels:])
+    L = (cls_cfg.get("pixel_decoder", {}) or {}).get("num_encoder_levels", 4)
+    return [h * w for h, w in reversed(hw)][:L]
 
 
 def build_model(cfg: dict, tasks: Optional[Sequence[str]] = None,
-                device="cuda", generator: Optional[torch.Generator] = None):
-    """Build the MTL model from a reference-shaped model config, in eval
-    mode, with weights initialised from ``generator`` (seed 0 when None;
-    nothing is initialised on the ``meta`` device).
+                device="cuda", generator: Optional[torch.Generator] = None,
+                cls_hw: Optional[Tuple[int, int]] = None):
+    """Build a model (``MTL``, ``DINO`` or ``RSCoTrSeg``) from a
+    reference-shaped model config, in eval mode, with weights initialised
+    from ``generator`` (seed 0 when None; nothing is initialised on the
+    ``meta`` device).
 
     ``device``: where the model is built, the card by default. Without a
     CUDA device a CUDA build raises; pass ``device="cpu"`` to build on the
     CPU, as the tests do: nothing is built there unasked.
 
-    ``tasks``: the task heads to build (default: every head the config
-    has). ``cfg['compute_dtype'] = 'bfloat16'`` runs linears and convs in
-    bf16 with float32 params, norms and task outputs.
+    ``tasks``: the task heads of an MTL to build (default: every head the
+    config has); the single-task types build their one head.
+    ``cfg['compute_dtype'] = 'bfloat16'`` runs linears and convs in bf16
+    with float32 params, norms and task outputs.
+
+    ``cls_hw``: the cls input size (H, W), or one int for a square. An
+    ``MlvlClsHead`` of scheme 5, 6 or 7 sizes its ``out_proj`` from the
+    token count at that size, as flax does at init from the cls input
+    (``apis.derive_cls_hw`` reads it from a composed config's data section,
+    as the JAX package's ``derive_shapes`` does); such a head raises without
+    it. Other parts ignore it.
     """
     cfg = copy.deepcopy(dict(cfg))
     t = cfg.get("type", "MTL")
-    if t != "MTL":
-        raise NotImplementedError(
-            f"model type {t} is not ported to rscotr_tpu_torch (MTL only; "
-            "the standalone RSCoTrSeg segmentor is ROADMAP P3)")
-    if tasks is None:
-        tasks = tuple(k for k, key in _HEAD_KEYS.items() if cfg.get(key))
-    unknown = set(tasks) - set(_HEAD_KEYS)
-    if unknown:
-        raise ValueError(f"unknown tasks {sorted(unknown)}")
+    if t not in ("MTL", "DINO", "RSCoTrSeg"):
+        raise KeyError(f"unknown model type {t}")
     dtype = {None: torch.float32, "float32": torch.float32,
              "bfloat16": torch.bfloat16}[cfg.get("compute_dtype")]
     device = torch.device(device)
@@ -199,19 +228,44 @@ def build_model(cfg: dict, tasks: Optional[Sequence[str]] = None,
         raise RuntimeError(
             f"build_model: no CUDA device for device={str(device)!r} (the "
             "default is the card); pass device=\"cpu\" to build on the CPU")
+    backbone = build_backbone(cfg["backbone"], dtype, device)
     neck_cfg = cfg.get("neck")
-    model = MTL(
-        backbone=build_backbone(cfg["backbone"], dtype, device),
-        neck=build_neck(neck_cfg, dtype, device),
-        shared_encoder=build_shared_encoder(cfg["shared_encoder"], dtype,
-                                            device),
-        cls_head=(build_cls_head(cfg["cls_head"], dtype, device)
-                  if "cls" in tasks else None),
-        bbox_head=(build_bbox_head(cfg["bbox_head"], dtype, device)
-                   if "det" in tasks else None),
-        seg_head=(build_seg_head(cfg["seg_head"], dtype, device)
-                  if "seg" in tasks else None),
-        neck_in_levels=len(neck_cfg["in_channels"]) if neck_cfg else 0)
+    neck = build_neck(neck_cfg, dtype, device)
+    neck_in_levels = len(neck_cfg["in_channels"]) if neck_cfg else 0
+    if t == "MTL":
+        if tasks is None:
+            tasks = tuple(k for k, key in _HEAD_KEYS.items() if cfg.get(key))
+        unknown = set(tasks) - set(_HEAD_KEYS)
+        if unknown:
+            raise ValueError(f"unknown tasks {sorted(unknown)}")
+        counts = _token_counts(cfg.get("cls_head"), backbone, neck,
+                               neck_in_levels, cls_hw)
+        model = MTL(
+            backbone=backbone, neck=neck,
+            shared_encoder=build_shared_encoder(cfg["shared_encoder"], dtype,
+                                                device),
+            cls_head=(build_cls_head(cfg["cls_head"], dtype, device, counts)
+                      if "cls" in tasks else None),
+            bbox_head=(build_bbox_head(cfg["bbox_head"], dtype, device)
+                       if "det" in tasks else None),
+            seg_head=(build_seg_head(cfg["seg_head"], dtype, device)
+                      if "seg" in tasks else None),
+            neck_in_levels=neck_in_levels)
+    else:
+        encoder = build_shared_encoder(
+            cfg.get("encoder") or cfg.get("shared_encoder"), dtype, device)
+        if t == "DINO":
+            model = DINO(backbone=backbone, neck=neck,
+                         bbox_head=build_bbox_head(cfg["bbox_head"], dtype,
+                                                   device),
+                         encoder=encoder, neck_in_levels=neck_in_levels)
+        else:
+            model = RSCoTrSeg(
+                backbone=backbone,
+                seg_head=build_seg_head(
+                    cfg.get("seg_head") or cfg.get("decode_head"), dtype,
+                    device, input_convs=True),
+                encoder=encoder)
     if device.type != "meta":
         init_weights(model, generator if generator is not None
                      else torch.Generator().manual_seed(0))

@@ -1,7 +1,7 @@
-"""The seg pixel decoder that routes neck features through the SHARED
-encoder (PyTorch counterpart of rscotr_tpu/models/heads/pixel_decoders.py:
-``_flatten_levels_for_encoder``, ``_split_levels``, ``MlvlSegPixelDecoder``,
-``_resize_bilinear``).
+"""The pixel decoders that route neck features through the SHARED encoder
+(PyTorch counterpart of rscotr_tpu/models/heads/pixel_decoders.py:
+``_flatten_levels_for_encoder``, ``_split_levels``, ``MlvlClsPixelDecoder``,
+``MlvlSegPixelDecoder``, ``_resize_bilinear``).
 
 Encoder levels are taken from the LAST (lowest-resolution) neck level on, so
 tokens run low -> high resolution; each level gets the sine position
@@ -9,7 +9,8 @@ encoding (temperature 10000) plus a learned level embedding and normalized
 centre reference points. After the shared encoder (``encode_fn``, the MTL's
 one module) the tokens are split back into per-level NHWC maps, the
 remaining high-resolution BACKBONE levels are FPN-fused, and a 1x1 conv
-gives the mask feature. Keys follow the reference's mm layout:
+gives the mask feature. The cls variant stops after the split. Keys follow
+the reference's mm layout:
 ``level_encoding.weight``, ``lateral_convs.{k}.conv/gn`` and
 ``output_convs.{k}.conv/gn`` (k counts from the FPN level nearest the
 encoder: backbone level ``num_fpn - 1 - k``), ``mask_feature``,
@@ -97,6 +98,29 @@ class ConvGN(nn.Module):
 
     def forward(self, x):
         return self.gn(self.conv(x))
+
+
+class MlvlClsPixelDecoder(nn.Module):
+    """Runs the neck levels through the shared encoder and returns the
+    per-level maps, low -> high resolution (the multi-level cls head's
+    input). ``strides`` are the neck levels' (8..64 in the MTL)."""
+
+    def __init__(self, num_encoder_levels: int = 4,
+                 strides: Sequence[int] = (8, 16, 32, 64),
+                 feat_channels: int = 256, pos_temperature: float = 10000.0,
+                 device=None):
+        super().__init__()
+        self.num_encoder_levels = num_encoder_levels
+        self.strides = tuple(strides)
+        self.pos_temperature = pos_temperature
+        self.level_encoding = Embedding(num_encoder_levels, feat_channels,
+                                        device=device)
+
+    def forward(self, encode_fn: Callable, neck_feats):
+        tokens, pos, ref, shapes = _flatten_levels_for_encoder(
+            neck_feats, self.level_encoding.weight, self.num_encoder_levels,
+            self.strides, self.pos_temperature)
+        return _split_levels(encode_fn(tokens, pos, ref, shapes), shapes)
 
 
 class MlvlSegPixelDecoder(nn.Module):

@@ -2,11 +2,12 @@
 counterpart of rscotr_tpu/models/mtl.py).
 
 Shared backbone -> ChannelMapper neck over the last ``neck_in_levels``
-backbone levels -> shared deformable encoder, passed to the det and seg
-heads as ``encode_fn`` (one module, so its parameters appear once). Task
-outputs are cast to float32 at the model boundary (``outputs_f32``). JAX's
-``deterministic`` flag is the module mode: ``model.train()`` turns on drop
-path and dropout, which draw from the ``generator`` given to the forward.
+backbone levels -> shared deformable encoder, passed to the heads that run
+it (det, seg, and cls with an ``MlvlClsHead``) as ``encode_fn`` (one
+module, so its parameters appear once). Task outputs are cast to float32 at
+the model boundary (``outputs_f32``). JAX's ``deterministic`` flag is the
+module mode: ``model.train()`` turns on drop path and dropout, which draw
+from the ``generator`` given to the forward.
 """
 
 from __future__ import annotations
@@ -15,6 +16,8 @@ from typing import Optional
 
 import torch
 from torch import nn
+
+from rscotr_tpu_torch.models.heads.cls_heads import MlvlClsHead
 
 
 def outputs_f32(out):
@@ -50,6 +53,9 @@ class MTL(nn.Module):
         return self.neck(bb[len(bb) - self.neck_in_levels:]), bb
 
     def forward_cls(self, img, generator: Optional[torch.Generator] = None):
+        if isinstance(self.cls_head, MlvlClsHead):
+            nk, _ = self.extract_feat(img, generator)
+            return outputs_f32(self.cls_head(nk, self.shared_encoder))
         # SlvlClsHead reads only the last backbone map. Under jit XLA drops
         # the unused neck of the JAX forward; eagerly it would run, so the
         # backbone is called alone.

@@ -50,6 +50,16 @@ class ChannelMapper(nn.Module):
                                     norm_groups, dtype, device))
         self.extra_convs = nn.ModuleList(extra)
 
+    def out_hw(self, in_hw):
+        """The (h, w) of each output for input maps of sizes ``in_hw``: the
+        k x k convs keep the size, each stride-2 3x3 extra conv halves it,
+        rounding up."""
+        outs = [tuple(hw) for hw in in_hw]
+        for _ in self.extra_convs:
+            h, w = outs[-1]
+            outs.append((-(-h // 2), -(-w // 2)))
+        return outs
+
     def forward(self, feats):
         """feats: tuple of NHWC maps, one per input level."""
         if len(feats) != len(self.convs):

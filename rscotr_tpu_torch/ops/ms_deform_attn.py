@@ -219,6 +219,7 @@ def ms_deform_attn_bwd(value: torch.Tensor,
 
 
 ms_deform_attn_bwd.launches = 0
+ms_deform_attn_bwd.vec_launches = 0   # those of them that took the vector body
 
 
 def _msda_bwd_cuda(value, shapes, loc, attn, d_out, acc=None, body=None):
@@ -259,6 +260,7 @@ def _msda_bwd_cuda(value, shapes, loc, attn, d_out, acc=None, body=None):
             kernel_lib.stream_ptr(dev))
     kernel_lib.check(err, "msda_bwd")
     ms_deform_attn_bwd.launches += 1
+    ms_deform_attn_bwd.vec_launches += body == BODY_VEC
     return acc, d_loc, d_attn
 
 

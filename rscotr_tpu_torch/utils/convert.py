@@ -1,13 +1,19 @@
-"""Weight bridge: JAX (flax) MTL params -> the port's state dict.
+"""Weight bridge: JAX (flax) model params -> the port's state dict.
 
-``state_dict_from_jax(tree)`` takes the JAX ``params["params"]`` tree (numpy
-or array leaves) and returns the reference's mm-layout state dict, which is
-the port's own, so ``MTL.load_state_dict(..., strict=True)`` takes it as it
-is (and so will the reference's published ``.pth`` files). The mapping is
-the one of rscotr_tpu/utils/torch_convert.py::reverse_mtl_checkpoint
-(reverse_swin_mm, reverse_channel_mapper, reverse_deformable_encoder,
+``state_dict_from_jax(tree, batch_stats)`` takes the JAX
+``params["params"]`` tree (numpy or array leaves), and for a ResNet
+backbone the ``params["batch_stats"]`` collection, and returns the
+reference's mm-layout state dict, which is the port's own, so
+``model.load_state_dict(..., strict=True)`` takes it as it is (and so will
+the reference's published ``.pth`` files). The mapping is the one of
+rscotr_tpu/utils/torch_convert.py::reverse_mtl_checkpoint (reverse_swin_mm,
+reverse_resnet, reverse_channel_mapper, reverse_deformable_encoder,
 reverse_cls_head, reverse_dino_head, reverse_mask2former_head), written out
-again here because importing that package pulls in jax:
+again here because importing that package pulls in jax. The standalone
+``DINO`` and ``RSCoTrSeg`` trees map part by part the same way, with their
+owned encoder at the top-level ``encoder.`` where the JAX tree has it; the
+JAX package defines no mm layout of its own for these two types
+(``reverse_mtl_checkpoint`` covers the MTL only).
 
 * flax Dense kernel (in, out) -> Linear weight (out, in); Conv kernel
   (kh, kw, I, O) -> (O, I, kh, kw); norm scale/bias -> weight/bias.
@@ -15,6 +21,12 @@ again here because importing that package pulls in jax:
 * Swin PatchMerging: the JAX block order [x00; x10; x01; x11] -> mmdet's
   unfold order on ``reduction`` columns and the ``norm`` (inverse of
   ``_unfold_perm``).
+* ResNet (torchvision / mm layout): ``layer{s}_block{b}`` ->
+  ``layer{s}.{b}``, ``downsample_conv`` / ``downsample_bn`` ->
+  ``downsample.0`` / ``.1``; BN ``running_mean`` / ``running_var`` from
+  ``batch_stats`` and mm's ``num_batches_tracked`` (int64 0).
+* MlvlClsHead: ``out_proj_w`` (n, 1) -> ``out_proj.weight`` (1, n),
+  ``pixel_decoder.level_encoding`` -> ``pixel_decoder.level_encoding.weight``.
 * Mask2Former: ``decoder_layers_{i}`` cross / self attention ->
   ``attentions.0`` / ``.1``; ``mask_embed`` layers -> ``mask_embed.{0,2,4}``;
   the pixel decoder's FPN level ``lvl`` -> ``lateral_convs`` /
@@ -23,7 +35,7 @@ again here because importing that package pulls in jax:
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -141,12 +153,56 @@ def _encoder(tree, prefix="shared_encoder.") -> Dict[str, np.ndarray]:
     return out
 
 
+def _resnet(tree, stats, prefix="backbone.") -> Dict[str, np.ndarray]:
+    out: Dict[str, np.ndarray] = {}
+
+    def bn(sub, st, key):
+        _ln(out, key, sub["bn"])
+        out[f"{key}.running_mean"] = np.asarray(st["bn"]["mean"])
+        out[f"{key}.running_var"] = np.asarray(st["bn"]["var"])
+        out[f"{key}.num_batches_tracked"] = np.zeros((), np.int64)
+
+    _conv(out, f"{prefix}conv1", tree["conv1"])
+    bn(tree["bn1"], stats["bn1"], f"{prefix}bn1")
+    s = 1
+    while f"layer{s}_block0" in tree:
+        b = 0
+        while f"layer{s}_block{b}" in tree:
+            blk, st = tree[f"layer{s}_block{b}"], stats[f"layer{s}_block{b}"]
+            dst = f"{prefix}layer{s}.{b}"
+            for i in (1, 2, 3):
+                _conv(out, f"{dst}.conv{i}", blk[f"conv{i}"])
+                bn(blk[f"bn{i}"], st[f"bn{i}"], f"{dst}.bn{i}")
+            if "downsample_conv" in blk:
+                _conv(out, f"{dst}.downsample.0", blk["downsample_conv"])
+                bn(blk["downsample_bn"], st["downsample_bn"],
+                   f"{dst}.downsample.1")
+            b += 1
+        s += 1
+    return out
+
+
+def _backbone(tree, stats, prefix="backbone.") -> Dict[str, np.ndarray]:
+    """Swin or ResNet, told apart by the tree's keys."""
+    if "patch_embed" in tree:
+        return _swin(tree, prefix)
+    if stats is None:
+        raise ValueError("a ResNet backbone needs its batch_stats (the "
+                         "running BatchNorm statistics)")
+    return _resnet(tree, stats, prefix)
+
+
 def _cls_head(tree, prefix="cls_head.") -> Dict[str, np.ndarray]:
-    if set(tree) != {"fc"}:
-        raise NotImplementedError(
-            "only SlvlClsHead is ported (MlvlClsHead: ROADMAP P3)")
+    """SlvlClsHead (``fc``) or MlvlClsHead (``fc``, ``pixel_decoder``,
+    ``out_proj_w`` / ``out_proj_b`` for schemes 5-8)."""
     out: Dict[str, np.ndarray] = {}
     _dense(out, f"{prefix}fc", tree["fc"])
+    if "pixel_decoder" in tree:
+        out[f"{prefix}pixel_decoder.level_encoding.weight"] = np.asarray(
+            tree["pixel_decoder"]["level_encoding"])
+    if "out_proj_w" in tree:
+        out[f"{prefix}out_proj.weight"] = _t_lin(tree["out_proj_w"])
+        out[f"{prefix}out_proj.bias"] = np.asarray(tree["out_proj_b"])
     return out
 
 
@@ -235,18 +291,25 @@ def _seg_pixel_decoder(pd_tree, pd) -> Dict[str, np.ndarray]:
     return out
 
 
-_PARTS = {"backbone": _swin, "neck": _channel_mapper,
-          "shared_encoder": _encoder, "cls_head": _cls_head,
+_PARTS = {"neck": _channel_mapper, "shared_encoder": _encoder,
+          "encoder": _encoder, "cls_head": _cls_head,
           "bbox_head": _dino_head, "seg_head": _mask2former_head}
 
 
-def state_dict_from_jax(tree: dict) -> Dict[str, torch.Tensor]:
-    """JAX MTL ``params["params"]`` tree -> the port's (mm-layout) state
-    dict of float32 CPU tensors that own their memory."""
+def state_dict_from_jax(tree: dict, batch_stats: Optional[dict] = None
+                        ) -> Dict[str, torch.Tensor]:
+    """JAX ``params["params"]`` tree of an MTL, DINO or RSCoTrSeg (and its
+    ``params["batch_stats"]`` when the backbone is a ResNet) -> the port's
+    (mm-layout) state dict of CPU tensors that own their memory: float32,
+    and int64 for ``num_batches_tracked``."""
     out: Dict[str, np.ndarray] = {}
     for name, sub in tree.items():
-        if name not in _PARTS:
-            raise KeyError(f"unknown MTL part {name!r}")
-        out.update(_PARTS[name](sub))
-    return {k: torch.from_numpy(np.array(v, dtype=np.float32, copy=True))
-            for k, v in out.items()}
+        if name == "backbone":
+            out.update(_backbone(sub, (batch_stats or {}).get("backbone")))
+        elif name in _PARTS:
+            out.update(_PARTS[name](sub, f"{name}."))
+        else:
+            raise KeyError(f"unknown model part {name!r}")
+    return {k: torch.from_numpy(np.array(
+        v, dtype=np.int64 if k.endswith("num_batches_tracked")
+        else np.float32, copy=True)) for k, v in out.items()}

@@ -100,15 +100,32 @@ def test_flagship_meta_keys_and_shapes():
 
 
 def test_build_refuses_unported_parts():
+    """Every part and model type of ``configs/`` is ported: RSCoTrSeg,
+    MlvlClsHead and ResNet build; a type the JAX package does not know is
+    refused, as JAX's builder refuses it."""
     cfg = load_model_cfg(TINY)
-    with pytest.raises(NotImplementedError, match="ROADMAP P3"):
-        build_model(dict(cfg, type="RSCoTrSeg"), device="meta")
-    mlvl = dict(cfg, cls_head=dict(type="MlvlClsHead", num_classes=45))
-    with pytest.raises(NotImplementedError, match="ROADMAP P3"):
-        build_model(mlvl, tasks=("cls", "det"), device="meta")
-    resnet = dict(cfg, backbone=dict(type="ResNet", depth=50))
-    with pytest.raises(NotImplementedError, match="ROADMAP P3"):
-        build_model(resnet, tasks=("cls", "det"), device="meta")
+    seg = build_model(dict(cfg, type="RSCoTrSeg", encoder=dict(
+        cfg["shared_encoder"], transformerlayers=dict(
+            cfg["shared_encoder"]["transformerlayers"], attn_cfgs=dict(
+                cfg["shared_encoder"]["transformerlayers"]["attn_cfgs"],
+                num_levels=3))),
+        seg_head=dict(cfg["seg_head"], num_transformer_feat_level=3)),
+        device="meta")
+    assert type(seg).__name__ == "RSCoTrSeg"
+    assert seg.seg_head.pixel_decoder.input_convs is not None
+    mlvl = dict(cfg, cls_head=dict(type="MlvlClsHead", num_classes=45,
+                                   scheme=1, pixel_decoder=dict(
+                                       feat_channels=64)))
+    assert build_model(mlvl, tasks=("cls", "det"), device="meta"
+                       ).cls_head.out_proj is None
+    resnet = dict(cfg, backbone=dict(type="ResNet", depth=50),
+                  neck=dict(cfg["neck"], in_channels=[512, 1024, 2048]))
+    assert build_model(resnet, tasks=("cls", "det"), device="meta"
+                       ).backbone.layer4[2].conv3.weight.shape[0] == 2048
+    with pytest.raises(KeyError, match="unknown model type"):
+        build_model(dict(cfg, type="MaskRCNN"), device="meta")
+    with pytest.raises(KeyError, match="unknown backbone type"):
+        build_model(dict(cfg, backbone=dict(type="ViT")), device="meta")
     assert build_model(cfg, device="meta").seg_head is not None
     det_only = build_model(cfg, tasks=("det",), device="meta")
     assert det_only.cls_head is None and det_only.bbox_head is not None

@@ -10,7 +10,8 @@ and the same numpy-seeded inputs:
 * the tiny config's ``seg_logits`` / ``seg`` through both
   ``make_infer_steps``, whole and slide (one window = whole; two
   overlapping windows);
-* the logits upsampling against ``jax.image.resize(method="linear")``;
+* the logits resize against ``jax.image.resize(method="linear")``, up and
+  down;
 * the flagship's seg keys and shapes on ``meta``, against
   ``reverse_mtl_checkpoint`` as well.
 
@@ -41,7 +42,7 @@ from rscotr_tpu.models.layers import attention as jattn
 from rscotr_tpu.models.layers import transformer as jtr
 from rscotr_tpu.utils.torch_convert import reverse_mtl_checkpoint
 from rscotr_tpu_torch.engine import make_infer_steps
-from rscotr_tpu_torch.engine.infer import upsample_logits
+from rscotr_tpu_torch.engine.infer import resize_linear
 from rscotr_tpu_torch.models import build_model
 from rscotr_tpu_torch.models.heads.mask2former_head import Mask2FormerHead
 from rscotr_tpu_torch.models.heads.pixel_decoders import MlvlSegPixelDecoder
@@ -334,10 +335,13 @@ def test_upsample_logits_equals_jax_image_resize(src, dst):
         np.float32)
     want = jax.image.resize(jnp.asarray(x), (2,) + dst + (3,),
                             method="linear")
-    got = upsample_logits(torch.from_numpy(x), dst)
+    got = resize_linear(torch.from_numpy(x), dst)
     close(got.numpy(), want, 1e-6)
-    with pytest.raises(ValueError, match="not an upsampling"):
-        upsample_logits(torch.from_numpy(x), (src[0] - 1, src[1]))
+    # a shrink takes jax.image.resize's antialiased weights too
+    small = (src[0] - 1, src[1])
+    want = jax.image.resize(jnp.asarray(x), (2,) + small + (3,),
+                            method="linear")
+    close(resize_linear(torch.from_numpy(x), small).numpy(), want, 1e-6)
 
 
 def test_flagship_seg_keys_and_shapes_on_meta():

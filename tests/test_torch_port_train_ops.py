@@ -674,8 +674,12 @@ def test_step_config_names_roadmap_for_unported():
     from rscotr_tpu_torch.engine.train_step import make_train_step
     from rscotr_tpu_torch.utils.config import load_cfg
     cfg = load_cfg(TINY)
+    step_cfg = make_step_config(cfg)
     cfg["data"]["resisc"]["loader"]["cls_device_augment"] = True
-    with pytest.raises(NotImplementedError, match="ROADMAP P4"):
+    with pytest.raises(NotImplementedError, match="ROADMAP M6"):
         make_step_config(cfg)
-    with pytest.raises(NotImplementedError, match="ROADMAP P2"):
-        make_train_step(torch.nn.Linear(1, 1), None, "seg", None)
+    # seg training is ported: the step builds; an unknown task is refused
+    model = torch.nn.Linear(1, 1)
+    assert callable(make_train_step(model, None, "seg", step_cfg))
+    with pytest.raises(ValueError, match="unknown task"):
+        make_train_step(model, None, "depth", step_cfg)

@@ -1,10 +1,11 @@
-"""The training slice end to end: the tiny config's cls and det train steps
-through the port's ``make_train_step`` against the JAX package's, on the
-schedule cls, det, det, cls from the same weights (carried across by
-``state_dict_from_jax``), the same numpy-seeded batches and the same CDN
-noise (the ``dn_noise_*`` batch entries), float32, JAX under highest matmul
-precision, ``cls_use_augments=False`` (the augment draws come from each
-framework's own generator; ``cls_batch_augment`` has its own test).
+"""The training slice end to end: the tiny config's cls, det and seg train
+steps through the port's ``make_train_step`` against the JAX package's, on
+the schedule cls, det, seg, det, cls, seg from the same weights (carried
+across by ``state_dict_from_jax``), the same numpy-seeded batches (seg:
+uint8 labels in [0, 5) with a band of the ignore index 255) and the same
+CDN noise (the ``dn_noise_*`` batch entries), float32, JAX under highest
+matmul precision, ``cls_use_augments=False`` (the augment draws come from
+each framework's own generator; ``cls_batch_augment`` has its own test).
 
 Tolerances are those of tests/test_composed_parity.py: every loss term and
 ``grad_norm`` per step at rtol 2e-3 / atol 2e-4, the final parameters at
@@ -40,7 +41,8 @@ from rscotr_tpu_torch.utils.convert import state_dict_from_jax
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TINY = os.path.join(ROOT, "configs/multi/MTL_tiny_synthetic.py")
-SCHEDULE = ("cls", "det", "det", "cls")
+SCHEDULE = ("cls", "det", "seg", "det", "cls", "seg")
+TASKS = ("cls", "det", "seg")
 
 
 def _batches(cdn):
@@ -72,7 +74,14 @@ def _batches(cdn):
                            ).astype(np.float32),
             dn_noise_part=nrng.uniform(size=shape + (4,)).astype(
                 np.float32)))
-    return cls, det, noises
+    seg = []
+    for _ in range(2):
+        labels = rng.integers(0, 5, (2, 64, 64)).astype(np.uint8)
+        labels[:, 20:23] = 255
+        seg.append(dict(
+            img=rng.integers(0, 256, (2, 64, 64, 3)).astype(np.uint8),
+            gt_semantic_seg=labels))
+    return cls, det, noises, seg
 
 
 @pytest.fixture(scope="module")
@@ -87,10 +96,10 @@ def trained():
     params = jax.jit(lambda k: jm.init(
         k, cls_img=jnp.zeros((1, 64, 64, 3)),
         det_img=jnp.zeros((1, 128, 128, 3)),
-        det_img_hw=jnp.array([[128, 128]], jnp.int32)))(jax.random.key(0))
+        det_img_hw=jnp.array([[128, 128]], jnp.int32),
+        seg_img=jnp.zeros((1, 64, 64, 3))))(jax.random.key(0))
     tree = jax.tree.map(lambda x: np.asarray(x).copy(), params["params"])
-    model = build_model(cfg["model"], tasks=("cls", "det"),
-                        device="cpu")
+    model = build_model(cfg["model"], device="cpu")
     model.load_state_dict(state_dict_from_jax(tree), strict=True)
 
     kw = dict(lr_config=cfg["lr_config"],
@@ -99,22 +108,25 @@ def trained():
     jstate = jopt.init(params["params"])
     jmasks = jax_task_param_masks(params["params"])
     jsteps = {t: jax_make_train_step(jm, jopt, t, jstep_cfg, jmasks[t],
-                                     donate=False) for t in ("cls", "det")}
+                                     donate=False) for t in TASKS}
     opt = build_optimizer(cfg["optimizer"], model.named_parameters(), **kw)
     masks = task_param_masks(n for n, _ in model.named_parameters())
     steps = {t: make_train_step(model, opt, t, step_cfg, masks[t])
-             for t in ("cls", "det")}
+             for t in TASKS}
 
-    cls_b, det_b, noises = _batches(step_cfg.cdn)
+    cls_b, det_b, noises, seg_b = _batches(step_cfg.cdn)
     logs = []
     gen = torch.Generator().manual_seed(0)
-    n_det = 0
+    n_det = n_seg = 0
     with jax.default_matmul_precision("highest"):
         for i, task in enumerate(SCHEDULE):
             batch = cls_b
             if task == "det":
                 batch = dict(det_b, **noises[n_det])
                 n_det += 1
+            elif task == "seg":
+                batch = seg_b[n_seg]
+                n_seg += 1
             params, jstate, jlv = jsteps[task](
                 params, jstate, {k: jnp.asarray(v) for k, v in batch.items()},
                 jax.random.key(i))
@@ -146,6 +158,8 @@ def test_step_losses_match_jax(trained, i):
     assert set(got) == set(want), (sorted(got), sorted(want))
     if task == "det":
         assert "d0.dn_loss_iou" in got and "interm_loss_cls" in got
+    if task == "seg":
+        assert set(got) == {"seg.loss_ce", "loss", "grad_norm"}
     for k in want:
         np.testing.assert_allclose(got[k], want[k], rtol=2e-3, atol=2e-4,
                                    err_msg=f"step {i} ({task}) {k}")
