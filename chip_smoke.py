@@ -86,7 +86,23 @@ Phases, each of which raises on failure (exit code 1, no result line):
     K1b are held against their plain versions at these paths' new encoder
     shapes in phases 3 and 4 (B=16, Q=Nv=1,045, L=4; B=2, Q=Nv=5,376,
     L=3);
-12. library yardsticks of K2 and K2b, last because cuDNN keeps workspace
+12. evaluation (``eval_phase``): the flagship saved with the port's
+    ``save_checkpoint`` and loaded back through ``resolve_checkpoint(
+    work_dir/latest.pth)`` into a model of another seed, its cls, det and
+    seg outputs bit-equal to the saver's; then the port's
+    ``tools/test.py`` (``rscotr_tpu_torch.tools.test.main``) on that
+    checkpoint over the whole synthetic val sets (cls 4 x 8 x 224^2, det 2
+    x 4 x 800^2, seg 2 x 4 x 512^2), launches counted per batch (K1 / K2:
+    cls 0 / 12, det 12 / 12, seg 6 / 12, every K1 on the vector body, no
+    backward or quad-path kernel), the metric keys (``resisc.accuracy_top-1``,
+    ``dior.bbox_mAP`` and its classwise keys, ``potsdam.mIoU``,
+    ``potsdam.mFscore``) and finite values checked, and per dataset the
+    median batch time after one untimed batch, images/s, the loader's and
+    the infer step's share of the wall time and the peak memory reported;
+    the seg logits path (crop and resize on the host) timed once; the tiny
+    config's ``make_val_step`` for cls, det and seg on the CPU and on the
+    card, float32, TF32 off, every log var within SLICE_TOL;
+13. library yardsticks of K2 and K2b, last because cuDNN keeps workspace
     once it has run under graph capture: ``scaled_dot_product_attention``
     with the additive bias + mask, and its autograd backward, on the timed
     stages' own tensors (rebuilt from their seed), under every backend that
@@ -94,8 +110,8 @@ Phases, each of which raises on failure (exit code 1, no result line):
 
 The line before the last is {"kernels": [...]}: eight kernels, each with
 ``launches`` (the main path's run: the flagship's training), K1, K1b, K2
-and K2b also ``launches_paths`` (each zoo path's and each flagship task's
-run, counted from 0), ``max_abs_err``, ``ms`` and ``plain_ms``
+and K2b also ``launches_paths`` (each zoo path's, each flagship task's
+and the flagship eval's run, counted from 0), ``max_abs_err``, ``ms`` and ``plain_ms``
 (kernel and plain version, same inputs), ``bound_ms`` / ``bound_by`` (the
 least time the card could take, computed from this run's tensors),
 ``library_ms`` / ``library`` (the one-call yardstick, null where there is
@@ -1866,6 +1882,284 @@ def zoo_phase():
     return launches, res
 
 
+# the flagship's val sets: dataset -> (task, batches, images a batch)
+EVAL_SETS = {"resisc": ("cls", 4, 8), "dior": ("det", 2, 4),
+             "potsdam": ("seg", 2, 4)}
+# K1, K2 launches per eval batch, as in serving (K1: 6 encoder + 6 decoder
+# layers per det forward, the pixel decoder's 6 encoder layers per seg one;
+# K2: 12 Swin blocks per backbone pass)
+EVAL_WANT = {"cls": (0, 12), "det": (12, 12), "seg": (6, 12)}
+
+
+def eval_phase(smi):
+    """The port's evaluation on the card, in three parts. (1) The flagship
+    (seed 0) saved with ``save_checkpoint`` and loaded through
+    ``resolve_checkpoint(work_dir/latest.pth)`` into a model built from
+    seed 1: its cls, det and seg outputs on the first val batch of each
+    task equal the saver's bit for bit. (2) ``rscotr_tpu_torch.tools.
+    test.main`` on that checkpoint over the whole val sets (cls 4 x 8 x
+    224^2, det 2 x 4 x 800^2, seg 2 x 4 x 512^2), every count set to 0 just
+    before and read just after; each infer call is counted alone too (K1 /
+    K2 per batch as ``EVAL_WANT``, every K1 on the vector body, no backward
+    or quad-path launch); the metric keys and values checked; per dataset
+    the median batch time after one untimed batch, images/s, the loader's
+    and the step's share of the wall time and the peak memory. Then the seg
+    logits path (a batch that must be cropped and resized) timed once. (3)
+    The tiny config's ``make_val_step`` for cls, det and seg on the CPU
+    (plain versions) and on the card (kernels), float32, TF32 off, every
+    log var within SLICE_TOL (relative above 1)."""
+    import shutil
+    import tempfile
+
+    from rscotr_tpu_torch.apis import make_step_config
+    from rscotr_tpu_torch.data import build_dataloaders, build_datasets
+    from rscotr_tpu_torch.engine import infer as infer_mod
+    from rscotr_tpu_torch.engine import (load_checkpoint, make_infer_steps,
+                                         make_val_step, resolve_checkpoint,
+                                         save_checkpoint)
+    from rscotr_tpu_torch.engine.test import _seg_results
+    from rscotr_tpu_torch.models import build_model
+    from rscotr_tpu_torch.ops.ms_deform_attn import (ms_deform_attn,
+                                                     ms_deform_attn_bwd)
+    from rscotr_tpu_torch.ops.msda_ws import ws_bwd, ws_fwd
+    from rscotr_tpu_torch.ops.scatter_mm import scatter_add_mm
+    from rscotr_tpu_torch.ops.window_attention import (window_attention,
+                                                       window_attention_bwd)
+    from rscotr_tpu_torch.tools import test as test_cli
+    from rscotr_tpu_torch.utils.config import load_cfg
+    counters = {"K1": ms_deform_attn, "K1b": ms_deform_attn_bwd,
+                "K2": window_attention, "K2b": window_attention_bwd,
+                "K3'": scatter_add_mm, "K4": ws_fwd, "K5": ws_bwd}
+
+    def counts():
+        return dict({k: c.launches for k, c in counters.items()},
+                    **{"K1 vec": ms_deform_attn.vec_launches})
+
+    cfg = load_cfg(FLAGSHIP_CFG)
+    stc = cfg["model"]["test_cfg"]["seg"]
+    log("eval phase: flagship MTL, bf16, random weights (seed 0), saved and "
+        "evaluated over the synthetic val sets")
+    work_dir = tempfile.mkdtemp(prefix="rscotr_eval_")
+    try:
+        # -- 1. checkpoint round trip -------------------------------------
+        datasets = build_datasets(cfg["data"], split="val")
+        classes = {n: list(d.CLASSES) for n, d in datasets.items()}
+        loaders = build_dataloaders(datasets, cfg["data"], train=False)
+        batches = {d.task: next(iter(loaders[n]))
+                   for n, d in datasets.items()}
+        model = build_model(cfg["model"], device="cuda",
+                            generator=torch.Generator().manual_seed(0))
+        t0 = time.perf_counter()
+        path = save_checkpoint(work_dir, 0, model, meta={"CLASSES": classes})
+        t_save = time.perf_counter() - t0
+        fresh = build_model(cfg["model"], device="cuda",
+                            generator=torch.Generator().manual_seed(1))
+        t0 = time.perf_counter()
+        ck = load_checkpoint(resolve_checkpoint(
+            os.path.join(work_dir, "latest.pth")), model=fresh)
+        t_load = time.perf_counter() - t0
+        if ck["path"] != path or ck["meta"]["CLASSES"] != classes:
+            fail(f"checkpoint: latest.pth resolved to {ck['path']}, not "
+                 f"{path}, or its CLASSES differ")
+        outs = []
+        for m in (model, fresh):
+            steps = make_infer_steps(m, max_per_img=300, seg_test_cfg=stc)
+            det = batches["det"]
+            outs.append((steps["cls"](batches["cls"]["img"]),
+                         *steps["det"](det["img"], det["img_hw"],
+                                       det["scale_factor"]),
+                         steps["seg"](batches["seg"]["img"])))
+        names = ("cls probs", "det boxes", "det labels", "seg labels")
+        for name, a, b in zip(names, *outs):
+            if not torch.equal(a, b):
+                fail(f"checkpoint round trip: {name} {tuple(a.shape)} differ "
+                     f"(max abs {(a.float() - b.float()).abs().max():.3e})")
+        mib = os.path.getsize(path) / 2 ** 20
+        log(f"  checkpoint: {os.path.basename(path)} {mib:.1f} MiB, "
+            f"{len(ck['state_dict'])} tensors, saved in {t_save:.2f} s, "
+            f"loaded (strict) into a seed-1 model in {t_load:.2f} s; "
+            f"{', '.join(names)} of the first val batches bit-equal")
+        del model, fresh, outs, steps
+        torch.cuda.empty_cache()
+
+        # -- 2. the CLI end to end ----------------------------------------
+        calls = []
+        real = infer_mod.make_infer_steps
+
+        def counted_steps(*a, **kw):
+            def wrap(task, fn):
+                def call(*args):
+                    before = counts()
+                    out = fn(*args)
+                    after = counts()
+                    calls.append((task, {k: after[k] - before[k]
+                                         for k in after}))
+                    return out
+                return call
+            return {t: wrap(t, f) for t, f in real(*a, **kw).items()}
+
+        stats = {}
+        out = os.path.join(work_dir, "eval_metrics.json")
+        argv = [FLAGSHIP_CFG, os.path.join(work_dir, "latest.pth"),
+                "--eval-out", out, "--work-dir", work_dir]
+        log(f"  rscotr_tpu_torch.tools.test {' '.join(argv)}")
+        infer_mod.make_infer_steps = counted_steps
+        try:
+            for c in counters.values():
+                c.launches = 0
+            ms_deform_attn.vec_launches = 0
+            t0 = time.perf_counter()
+            metrics = test_cli.main(argv, stats=stats)
+            wall = time.perf_counter() - t0
+            total = counts()
+        finally:
+            infer_mod.make_infer_steps = real
+        if json.dumps(json.load(open(out)), sort_keys=True) != \
+                json.dumps(metrics, sort_keys=True):
+            fail("eval: --eval-out holds other metrics than main returned")
+        per_task = {}
+        for task, got in calls:
+            per_task[task] = per_task.get(task, 0) + 1
+            want = dict.fromkeys(got, 0)
+            want.update(zip(("K1", "K2"), EVAL_WANT.get(task, (-1, -1))))
+            want["K1 vec"] = want["K1"]
+            if got != want:
+                fail(f"eval {task} batch: launches {got} != {want}")
+        want_calls = {t: n for t, n, _ in EVAL_SETS.values()}
+        if per_task != want_calls:
+            fail(f"eval: infer calls {per_task} != {want_calls} (the seg "
+                 "tiles take the on-device argmax, no logits call)")
+        launches = {k: total[k] for k in counters}
+        want_total = {"K1": sum(EVAL_WANT[t][0] * n for t, n in
+                                want_calls.items()),
+                      "K2": sum(EVAL_WANT[t][1] * n for t, n in
+                                want_calls.items())}
+        if total["K1 vec"] != total["K1"] or any(
+                launches[k] != want_total.get(k, 0) for k in launches):
+            fail(f"eval: launches {total} != {want_total}, all K1 on the "
+                 "vector body, nothing else")
+        log(f"  launches in the eval run: {total} (per batch K1 / K2: "
+            + ", ".join(f"{t} {k1} / {k2}" for t, (k1, k2) in
+                        EVAL_WANT.items())
+            + f"; batches {want_calls})")
+
+        dior = classes["dior"]
+        want_keys = (["resisc.accuracy_top-1", "dior.bbox_mAP",
+                      "potsdam.mIoU", "potsdam.mFscore"]
+                     + [f"dior.bbox_AP_{c}" for c in dior])
+        missing = [k for k in want_keys if k not in metrics]
+        if missing:
+            fail(f"eval: metric keys missing: {missing}")
+        # 0 / 0, as mm gives it: a det class with no GT in the val set has
+        # no AP (the flagship's 8 images hold all 20); a seg class the
+        # model never predicts has no precision (nor F-score), its IoU 0
+        gt = set(np.concatenate([a["labels"] for a in
+                                 datasets["dior"].get_annotations()]))
+        nan_ok = {f"dior.bbox_AP_{c}" for i, c in enumerate(dior)
+                  if i not in gt}
+        nan_ok |= {f"potsdam.{m}.{c}" for c in classes["potsdam"]
+                   for m in ("Precision", "Fscore")
+                   if metrics.get(f"potsdam.IoU.{c}") == 0.0}
+        bad = [k for k, v in metrics.items()
+               if not np.isfinite(v) and k not in nan_ok]
+        if bad:
+            fail(f"eval: non-finite metrics {bad}")
+        nans = sorted(k for k in nan_ok if not np.isfinite(metrics[k]))
+        log(f"  metrics: {len(metrics)} keys, finite but for 0/0 at {nans};"
+            " " + ", ".join(f"{k} {metrics[k]:.4f}" for k in want_keys[:4]))
+
+        res = {}
+        for name, (task, n, bs) in EVAL_SETS.items():
+            s = stats[name]
+            load, infer = s["load_s"][1:], s["infer_s"][1:]
+            batch_ms = [1e3 * (a + b) for a, b in zip(load, infer)]
+            res[name] = dict(
+                task=task, batches=n, batch_size=bs,
+                median_batch_ms=float(np.median(batch_ms)),
+                images_per_s=bs * len(batch_ms) / (sum(batch_ms) / 1e3),
+                load_share=sum(load) / (sum(load) + sum(infer)),
+                infer_share=sum(infer) / (sum(load) + sum(infer)),
+                first_batch_ms=1e3 * (s["load_s"][0] + s["infer_s"][0]),
+                peak_mib=s["peak_bytes"] / 2 ** 20)
+            r = res[name]
+            log(f"  eval {name} ({task} {n} x {bs}): median batch "
+                f"{r['median_batch_ms']:.2f} ms over {len(batch_ms)} after "
+                f"1 untimed ({r['first_batch_ms']:.2f} ms); "
+                f"{r['images_per_s']:.1f} images/s; loader "
+                f"{100 * r['load_share']:.1f}% / infer step "
+                f"{100 * r['infer_share']:.1f}% of the wall time; peak "
+                f"memory {r['peak_mib']:.0f} MiB  [{smi}]")
+        log(f"  the CLI's whole run (model build, checkpoint load, 8 batches,"
+            f" metrics) {wall:.2f} s")
+
+        # the seg logits path: the same tiles as if cropped from 384 x 512
+        # and resized back to 300 x 400 (f32 logits to the host, numpy
+        # crop, bilinear resize and argmax, as the JAX package does)
+        model = build_model(cfg["model"], device="cuda",
+                            generator=torch.Generator().manual_seed(0))
+        steps = make_infer_steps(model, max_per_img=300, seg_test_cfg=stc)
+        batch = dict(batches["seg"], img_hw=np.tile([[384, 512]], (4, 1)),
+                     ori_hw=np.tile([[300, 400]], (4, 1)))
+        for i in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            preds = _seg_results(steps, batch, 4)
+            ms = 1e3 * (time.perf_counter() - t0)
+        if [p.shape for p in preds] != [(300, 400)] * 4:
+            fail(f"seg logits path: label maps {[p.shape for p in preds]}")
+        t0 = time.perf_counter()
+        lg = steps["seg_logits"](batch["img"]).cpu()
+        step_ms = 1e3 * (time.perf_counter() - t0)
+        mib = lg.numel() * 4 / 2 ** 20
+        res["seg logits path"] = dict(ms=ms, logits_step_ms=step_ms,
+                                      logits_mib=mib)
+        log(f"  seg logits path, 4 x 512^2 cropped to 384 x 512 and resized "
+            f"to 300 x 400: {ms:.1f} ms a batch (second call), of which "
+            f"the logits step with its f32 {tuple(lg.shape)} ({mib:.0f} MiB)"
+            f" copied to the host {step_ms:.1f} ms, the rest numpy crop, "
+            f"resize and argmax  [{smi}]")
+        del model, steps, lg, preds
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(work_dir, ignore_errors=True)
+
+    # -- 3. the val step, CPU vs card -------------------------------------
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    tiny = load_cfg(TINY_CFG)
+    step_cfg = make_step_config(tiny)
+    cpu = build_model(tiny["model"], device="cpu",
+                      generator=torch.Generator().manual_seed(0))
+    gpu = build_model(tiny["model"], device="cuda")
+    gpu.load_state_dict(cpu.state_dict(), strict=True)
+    cls_b, det_b, noises = tiny_train_batches(step_cfg.cdn)
+    seg_b = seg_train_batch(np.random.default_rng(6), 2, hw=64)
+    vbatches = {"cls": cls_b, "det": dict(det_b, **noises[0]), "seg": seg_b}
+    for task, batch in vbatches.items():
+        got = {}
+        for key, m in (("cpu", cpu), ("cuda", gpu)):
+            before = counts()
+            lv = make_val_step(m, task, step_cfg)(
+                batch, torch.Generator().manual_seed(0))
+            got[key] = {k: float(v) for k, v in lv.items()}
+            after = counts()
+            if key == "cuda" and any(after[k] != before[k] for k in
+                                     ("K1b", "K2b", "K3'", "K4", "K5")):
+                fail(f"val step {task}: a backward or quad kernel launched")
+        worst = max(abs(got["cpu"][k] - got["cuda"][k]) /
+                    max(1.0, abs(got["cpu"][k])) for k in got["cpu"])
+        log(f"  val step {task}: {len(got['cpu'])} log vars, CPU vs CUDA "
+            f"max err {worst:.2e} (tol {SLICE_TOL:g}, relative above 1); "
+            f"loss {got['cpu']['loss']:.5f}")
+        if set(got["cpu"]) != set(got["cuda"]) or not worst <= SLICE_TOL:
+            fail(f"val step {task}: CPU and CUDA log vars differ")
+    (torch.backends.cuda.matmul.allow_tf32,
+     torch.backends.cudnn.allow_tf32) = tf32
+    return launches, res
+
+
 def kernels_line(times, btimes, qtimes, err, berr, qerr, k6err, k6levels,
                  launches):
     """The ``{"kernels": [...]}`` object: eight kernels, each with its
@@ -2002,6 +2296,7 @@ def main(argv) -> int:
     slaunches, lat = serving_phase()
     launches, train = train_phase()
     zlaunches, zoo = zoo_phase()
+    elaunches, evals = eval_phase(smi)
     library_phase(times, btimes)
     # K3' is launched by the quad-gather path; the training run launches it
     # 0 times (train_phase checks every step), K1b doing its work there
@@ -2012,6 +2307,7 @@ def main(argv) -> int:
     # the launches of each path beside the main path, per kernel
     zlaunches.update({f"flagship {t} steps (12)": n
                       for t, n in launches.pop("per task").items()})
+    zlaunches["flagship eval (cls 4, det 2, seg 2 batches)"] = elaunches
     launches["paths"] = {k: {path: n[k] for path, n in zlaunches.items()}
                          for k in ("K1", "K1b", "K2", "K2b")}
 
@@ -2022,6 +2318,10 @@ def main(argv) -> int:
         for t, r in train.items()) + "; " + "; ".join(
         f"{n} {r['median_ms']:.2f} ms, peak {r['peak_mib']:.0f} MiB"
         for n, r in zoo.items()) + "; " + "; ".join(
+        f"eval {n} batch {r['median_batch_ms']:.2f} ms, "
+        f"{r['images_per_s']:.1f} img/s, loader "
+        f"{100 * r['load_share']:.0f}%, peak {r['peak_mib']:.0f} MiB"
+        for n, r in evals.items() if n in EVAL_SETS) + "; " + "; ".join(
         f"MSDA impl={i} fwd+bwd {qtimes[f'MSDA {i}'][1]:.4f} ms"
         for i in ("quad", "kernel")))
     log(smi)

@@ -1,6 +1,6 @@
 """Config-level entry points of the port (PyTorch counterpart of
-``make_step_config``, ``derive_img_norm`` and the cls size of
-``derive_shapes`` in rscotr_tpu/apis.py, written out again here because
+``make_step_config``, ``derive_img_norm``, ``make_eval_fn`` and the cls size
+of ``derive_shapes`` in rscotr_tpu/apis.py, written out again here because
 that module imports jax).
 
 ``make_step_config(cfg)`` derives the ``TrainStepConfig`` from a composed
@@ -118,3 +118,34 @@ def make_step_config(cfg: dict) -> TrainStepConfig:
         seg_ignore_index=255,
         cdn=cdn_cfg, det=det_cfg,
         img_norm=derive_img_norm(cfg))
+
+
+def make_eval_fn(cfg: dict, model, max_per_img: int = 300,
+                 skip_det: bool = False, max_batches: int = 0):
+    """``eval_fn() -> {"{dataset}.{metric}": value}``: the val datasets of a
+    composed config (its test datasets when it has no val split; det left
+    out with ``skip_det``) through ``make_infer_steps`` and each dataset's
+    ``evaluate``, with the model in eval mode. One process (the mesh of
+    JAX's ``make_eval_fn`` waits for ROADMAP M7)."""
+    from rscotr_tpu_torch.data.build import build_dataloaders, build_datasets
+    from rscotr_tpu_torch.engine.infer import make_infer_steps
+    from rscotr_tpu_torch.engine.test import (evaluate_results,
+                                              single_device_test)
+    val_datasets = build_datasets(cfg["data"], split="val") or \
+        build_datasets(cfg["data"], split="test")
+    if skip_det:
+        val_datasets = {k: v for k, v in val_datasets.items()
+                        if v.task != "det"}
+    loaders = build_dataloaders(val_datasets, cfg["data"], train=False)
+    infer = make_infer_steps(
+        model, max_per_img=max_per_img, img_norm=derive_img_norm(cfg),
+        seg_test_cfg=(cfg["model"].get("test_cfg") or {}).get("seg"))
+    eval_kwargs = {t: dict((cfg.get("evaluation") or {}).get(t, {}))
+                   for t in ("cls", "det", "seg")}
+
+    def eval_fn() -> dict:
+        model.eval()
+        results = single_device_test(infer, loaders, max_batches=max_batches)
+        return evaluate_results(val_datasets, results, eval_kwargs)
+
+    return eval_fn

@@ -1,0 +1,158 @@
+"""Checkpoints of the port as mmcv ``.pth`` files (counterpart of
+rscotr_tpu/engine/checkpoint.py, whose checkpoints are orbax directories).
+
+A checkpoint is ``{"meta": {..., "iter": N}, "state_dict": <the model's
+state dict>, "optimizer": <MtlOptimizer.state_dict()>}`` (``optimizer``
+only when one was saved). The port's state dict is the reference's mm
+layout, so the file is what the reference's ``load_checkpoint`` reads, and
+the JAX package's ``tools/convert_checkpoint.py`` turns it into an orbax
+checkpoint (forward) or makes one from an orbax checkpoint
+(``--to-torch``). Meta is plain JSON types, so ``torch.load(...,
+weights_only=True)`` reads the whole file.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import re
+from typing import Any, Dict, Optional
+
+import torch
+
+_ITER_RE = re.compile(r"iter_(\d+)\.pth")
+_CONVERT = ("python tools/convert_checkpoint.py CONFIG {path} OUT.pth "
+            "--to-torch")
+
+
+def save_checkpoint(work_dir: str, step: int, model, optimizer=None,
+                    meta: Optional[Dict[str, Any]] = None,
+                    name: Optional[str] = None) -> str:
+    """Write ``work_dir/iter_{step}.pth`` (or ``work_dir/{name}[.pth]``)
+    and return its path. A regular save then points
+    ``work_dir/last_checkpoint`` at it; a named save (``best_checkpoint``)
+    leaves the pointer alone. The file is written under a temporary name
+    and renamed, and the pointer after that, so neither ever names an
+    incomplete file."""
+    work_dir = os.path.abspath(work_dir)
+    os.makedirs(work_dir, exist_ok=True)
+    if name is None:
+        fname = f"iter_{int(step)}.pth"
+    else:
+        fname = name if name.endswith(".pth") else f"{name}.pth"
+    path = os.path.join(work_dir, fname)
+    m = json.loads(json.dumps(dict(meta or {}, iter=int(step)), default=str))
+    ckpt = {"meta": m,
+            "state_dict": {k: v.detach().cpu()
+                           for k, v in model.state_dict().items()}}
+    if optimizer is not None:
+        ckpt["optimizer"] = optimizer.state_dict()
+    tmp = path + ".tmp"
+    torch.save(ckpt, tmp)
+    os.replace(tmp, path)
+    if name is None:
+        pointer = os.path.join(work_dir, "last_checkpoint")
+        with open(pointer + ".tmp", "w") as f:
+            f.write(path)
+        os.replace(pointer + ".tmp", pointer)
+    return path
+
+
+def find_latest_checkpoint(work_dir: str) -> Optional[str]:
+    """mmcv ``find_latest_checkpoint``: the file ``last_checkpoint`` names,
+    else the ``iter_N.pth`` of the largest N, else None."""
+    if not os.path.isdir(work_dir):
+        return None
+    pointer = os.path.join(work_dir, "last_checkpoint")
+    if os.path.isfile(pointer):
+        with open(pointer) as f:
+            p = f.read().strip()
+        if os.path.isfile(p):
+            return p
+    best, best_iter = None, -1
+    for f in os.listdir(work_dir):
+        m = _ITER_RE.fullmatch(f)
+        if m and int(m.group(1)) > best_iter:
+            best, best_iter = os.path.join(work_dir, f), int(m.group(1))
+    return best
+
+
+def _refuse_dir(path: str, given: str):
+    raise ValueError(
+        f"{given!r} resolves to the directory {path}, not a .pth file: an "
+        "orbax checkpoint of the JAX package? rscotr_tpu_torch reads mm "
+        "format only; convert it first: " + _CONVERT.format(path=path))
+
+
+def resolve_checkpoint(path: str) -> str:
+    """The ``.pth`` file a checkpoint argument names, with the JAX
+    package's aliases:
+
+    - a ``.pth`` file: itself;
+    - a work_dir: its latest checkpoint (``find_latest_checkpoint``);
+    - ``.../latest[.pth]``: the latest checkpoint in that directory;
+    - ``.../best...[.pth]``: ``best_checkpoint.pth`` in that directory;
+    - ``.../name``: ``.../name.pth``.
+
+    A directory that is no work_dir (an orbax checkpoint) is refused with
+    the command that converts it."""
+    p = os.path.abspath(path)
+    if os.path.isfile(p):
+        return p
+    if os.path.isdir(p):
+        if os.path.isfile(os.path.join(p, "last_checkpoint")) or any(
+                _ITER_RE.fullmatch(f) for f in os.listdir(p)):
+            latest = find_latest_checkpoint(p)
+            if latest is not None:
+                return latest
+        _refuse_dir(p, path)
+    base = os.path.basename(p)
+    stem = base[:-4] if base.endswith(".pth") else base
+    parent = os.path.dirname(p)
+    if stem == "latest":
+        latest = find_latest_checkpoint(parent)
+        if latest is not None:
+            return latest
+    elif stem.startswith("best"):
+        cand = os.path.join(parent, "best_checkpoint.pth")
+        if os.path.isfile(cand):
+            return cand
+    cand = os.path.join(parent, stem + ".pth")
+    if os.path.isfile(cand):
+        return cand
+    if os.path.isdir(os.path.join(parent, stem)):
+        _refuse_dir(os.path.join(parent, stem), path)
+    raise FileNotFoundError(
+        f"checkpoint {path!r} not found (tried the file, a work_dir's "
+        "latest, and the latest / best / name.pth aliases)")
+
+
+def load_checkpoint(path: str, model=None, optimizer=None,
+                    map_location="cpu") -> Dict[str, Any]:
+    """Read the checkpoint ``path`` resolves to: ``{"meta", "state_dict",
+    "optimizer"}`` (meta ``{}`` and optimizer None where the file has
+    none). The state dict is unwrapped from a ``state_dict`` or ``model``
+    entry and its DDP ``module.`` prefixes dropped, as the JAX package's
+    converter does; given a ``model``, it is loaded with ``strict=True``
+    (every key present, none extra), and given an ``optimizer``, its
+    state too."""
+    path = resolve_checkpoint(path)
+    raw = torch.load(path, map_location=map_location, weights_only=True)
+    state, meta = raw, {}
+    if isinstance(raw, dict):
+        meta = raw.get("meta") or {}
+        for key in ("state_dict", "model"):
+            if isinstance(raw.get(key), dict):
+                state = raw[key]
+                break
+    state = {k.removeprefix("module."): v for k, v in state.items()
+             if isinstance(v, torch.Tensor)}
+    if model is not None:
+        model.load_state_dict(state, strict=True)
+    opt_state = raw.get("optimizer") if isinstance(raw, dict) else None
+    if optimizer is not None:
+        if opt_state is None:
+            raise KeyError(f"{path}: no optimizer state to load")
+        optimizer.load_state_dict(opt_state)
+    return {"meta": meta, "state_dict": state, "optimizer": opt_state,
+            "path": path}

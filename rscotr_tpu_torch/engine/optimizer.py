@@ -244,6 +244,39 @@ class MtlOptimizer:
         self.step += 1
         return gnorm
 
+    def state_dict(self) -> dict:
+        """The state to resume from: the step, the per-parameter update
+        counts, the moments (and the gradient accumulators when
+        ``cumulative_iters > 1``), tensors copied to the CPU."""
+        out = {"step": self.step, "count": dict(self.count),
+               "mu": {n: t.detach().cpu().clone() for n, t in
+                      self.mu.items()},
+               "nu": {n: t.detach().cpu().clone() for n, t in
+                      self.nu.items()}}
+        if self.cumulative_iters > 1:
+            out["accum"] = {n: t.detach().cpu().clone()
+                            for n, t in self.accum.items()}
+            out["accum_mask"] = dict(self.accum_mask)
+        return out
+
+    @torch.no_grad()
+    def load_state_dict(self, state: dict) -> None:
+        """Restore ``state_dict()``'s output, over the same parameter
+        names."""
+        if set(state["mu"]) != set(self.params):
+            raise KeyError("optimizer state names other parameters: "
+                           f"{sorted(set(state['mu']) ^ set(self.params))}")
+        self.step = int(state["step"])
+        self.count = {n: int(state["count"][n]) for n in self.params}
+        for n in self.params:
+            self.mu[n].copy_(state["mu"][n])
+            self.nu[n].copy_(state["nu"][n])
+        if self.cumulative_iters > 1:
+            for n in self.params:
+                self.accum[n].copy_(state["accum"][n])
+            self.accum_mask = {n: float(state["accum_mask"][n])
+                               for n in self.params}
+
 
 def build_optimizer(optimizer_cfg: dict,
                     named_params: Iterable[Tuple[str, torch.Tensor]],

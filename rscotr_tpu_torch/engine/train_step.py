@@ -11,8 +11,9 @@ takes an explicit ``torch.Generator`` for everything random in the step
 keeps those draws off the device's critical path. ``log_vars`` holds every
 weighted loss term, their sum ``loss`` and ``grad_norm``, as device scalars.
 
-Ported: the cls, det and seg steps. The on-device augment branches
-(ROADMAP M6) and the K-step scanned dispatch (not carried over) are not.
+Ported: the cls, det and seg steps, and ``make_val_step`` (their losses
+with the model in eval mode). The on-device augment branches (ROADMAP M6)
+and the K-step scanned dispatch (not carried over) are not.
 """
 
 from __future__ import annotations
@@ -99,34 +100,42 @@ def cls_batch_augment(img: torch.Tensor, labels: torch.Tensor,
 # per-task loss functions
 # ---------------------------------------------------------------------------
 
-def cls_loss_fn(model, batch, generator, cfg: TrainStepConfig):
+def cls_loss_fn(model, batch, generator, cfg: TrainStepConfig,
+                train: bool = True):
+    """``train=False`` (the val step, on a model in eval mode) skips the
+    batch augments and draws nothing in the forward, as JAX's
+    ``deterministic=True`` does; the same holds for the seg and det loss."""
     img = device_normalize(batch["img"], cfg.img_norm)
     target = batch["gt_label"]
-    if cfg.cls_use_augments:
+    if train and cfg.cls_use_augments:
         draws = draw_cls_augment(generator, *img.shape[:3],
                                  cfg.cls_mixup_alpha, cfg.cls_cutmix_alpha)
         img, target = cls_batch_augment(img, target, cfg.cls_num_classes,
                                         draws)
-    logits = model.forward_cls(img, generator)
+    logits = model.forward_cls(img, generator if train else None)
     return {"loss_cls": label_smooth_loss(
         logits, target, label_smooth_val=cfg.cls_label_smooth)}
 
 
-def seg_loss_fn(model, batch, generator, cfg: TrainStepConfig):
+def seg_loss_fn(model, batch, generator, cfg: TrainStepConfig,
+                train: bool = True):
     """mmseg's decode-head CE: the logits resized to the labels' size as
     ``jax.image.resize(method="linear")`` does (``resize_linear``, which
     averages when it shrinks), softmax CE over every channel (scheme 2's
     one per query too, ROADMAP C4) with ``seg_ignore_index``."""
     img = device_normalize(batch["img"], cfg.img_norm, batch.get("img_hw"))
     gt = batch["gt_semantic_seg"]
-    logits = resize_linear(model.forward_seg(img, generator), gt.shape[1:3])
+    logits = resize_linear(
+        model.forward_seg(img, generator if train else None), gt.shape[1:3])
     loss = softmax_cross_entropy(logits, gt,
                                  ignore_index=cfg.seg_ignore_index)
     return {"seg.loss_ce": loss * cfg.seg_loss_weight}
 
 
 def det_loss_fn(model, batch, generator, cfg: TrainStepConfig,
-                mask_cache: Optional[dict] = None):
+                mask_cache: Optional[dict] = None, train: bool = True):
+    """With ``train=False`` the CDN noise is still drawn from ``generator``
+    (JAX's val step draws it from its key too)."""
     img_hw = batch["img_hw"]
     img = device_normalize(batch["img"], cfg.img_norm, img_hw)
     gt_bboxes, gt_labels = batch["gt_bboxes"], batch["gt_labels"]
@@ -157,7 +166,7 @@ def det_loss_fn(model, batch, generator, cfg: TrainStepConfig,
         cache[cdn_cfg] = torch.as_tensor(cdn_self_attn_mask(cdn_cfg),
                                          device=img.device)
     outs = model.forward_det(img, img_hw, dn_label_q, dn_bbox_q,
-                             cache[cdn_cfg], generator)
+                             cache[cdn_cfg], generator if train else None)
     return dino_loss(*outs, gt_bboxes, gt_labels, gt_valid, img_hw, cdn_cfg,
                      cfg.det)
 
@@ -204,5 +213,34 @@ def make_train_step(model, optimizer, task: str, cfg: TrainStepConfig,
         for p in params.values():
             p.grad = None
         return log_vars
+
+    return step
+
+
+def make_val_step(model, task: str, cfg: TrainStepConfig):
+    """Returns ``step(batch, generator) -> log_vars``: the task's loss terms
+    and their sum ``loss``, each scaled by ``task_weight[task]``, with the
+    model in eval mode and no gradients (JAX's ``make_val_step``, the loss
+    functions with ``train=False``). ``generator`` draws the det step's CDN
+    noise (unless the batch carries it) and nothing else."""
+    if task not in ("cls", "det", "seg"):
+        raise ValueError(f"unknown task {task!r}")
+    weight = float(cfg.task_weight.get(task, 1.0))
+    device = next(model.parameters()).device
+    mask_cache: dict = {}
+
+    @torch.no_grad()
+    def step(batch, generator: torch.Generator) -> Dict[str, torch.Tensor]:
+        batch = {k: torch.as_tensor(v).to(device) for k, v in batch.items()}
+        model.eval()
+        if task == "cls":
+            losses = cls_loss_fn(model, batch, generator, cfg, train=False)
+        elif task == "seg":
+            losses = seg_loss_fn(model, batch, generator, cfg, train=False)
+        else:
+            losses = det_loss_fn(model, batch, generator, cfg, mask_cache,
+                                 train=False)
+        _, log_vars = parse_losses(losses)
+        return {k: v * weight for k, v in log_vars.items()}
 
     return step
