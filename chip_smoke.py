@@ -102,7 +102,25 @@ Phases, each of which raises on failure (exit code 1, no result line):
     the seg logits path (crop and resize on the host) timed once; the tiny
     config's ``make_val_step`` for cls, det and seg on the CPU and on the
     card, float32, TF32 off, every log var within SLICE_TOL;
-13. library yardsticks of K2 and K2b, last because cuDNN keeps workspace
+13. the co-training loop (``loop_phase``): the port's ``tools/train.py``
+    (``rscotr_tpu_torch.tools.train.main``) on the flagship config as
+    written (round_robin, ``steps_per_dispatch=16``: JAX's grouped order)
+    for 48 iterations in a temporary work dir: the task of every step
+    against the order the port's grouping derives without a step (16 cls,
+    16 det, 16 seg), every iteration's launches (cls K2 / K2b 12; det K1 /
+    K1b / K2 / K2b 12; seg K1 / K1b 6, K2 / K2b 12; every K1 / K1b on the
+    vector body, no quad-path kernel), every loss term and grad_norm
+    finite, ``iter_48.pth``, ``last_checkpoint``, ``best_checkpoint.pth``
+    and ``metrics.jsonl`` (steps 5, 10, ..., 45, 48), the eval hook at step
+    48 over the whole val sets with the eval phase's per-batch counts and
+    metric keys; then a resume from ``iter_48.pth`` to 52: model and
+    optimizer state bit-equal to the file, start at step 48 with the
+    optimizer's schedule clock at 48, 4 cls steps counted as above.
+    Reported per task: the median step time (CUDA events around the step
+    call) and host wall after each group's first step, the median
+    data_time, the peak memory; the loop's data-wait share, the
+    checkpoint save and load times, the eval hook's time, the phase's;
+14. library yardsticks of K2 and K2b, last because cuDNN keeps workspace
     once it has run under graph capture: ``scaled_dot_product_attention``
     with the additive bias + mask, and its autograd backward, on the timed
     stages' own tensors (rebuilt from their seed), under every backend that
@@ -110,8 +128,9 @@ Phases, each of which raises on failure (exit code 1, no result line):
 
 The line before the last is {"kernels": [...]}: eight kernels, each with
 ``launches`` (the main path's run: the flagship's training), K1, K1b, K2
-and K2b also ``launches_paths`` (each zoo path's, each flagship task's
-and the flagship eval's run, counted from 0), ``max_abs_err``, ``ms`` and ``plain_ms``
+and K2b also ``launches_paths`` (each zoo path's, each flagship task's,
+the flagship eval's run, each loop step's per task and the loop's whole
+run, counted from 0), ``max_abs_err``, ``ms`` and ``plain_ms``
 (kernel and plain version, same inputs), ``bound_ms`` / ``bound_by`` (the
 least time the card could take, computed from this run's tensors),
 ``library_ms`` / ``library`` (the one-call yardstick, null where there is
@@ -2160,6 +2179,399 @@ def eval_phase(smi):
     return launches, res
 
 
+LOOP_ITERS, LOOP_RESUME = 48, 52
+# launches per loop iteration, as in the training phase (det: 6 encoder + 6
+# decoder MSDA layers; seg: the pixel decoder's 6 encoder layers; every
+# task: 12 Swin blocks); the quad-gather kernels never
+LOOP_WANT = {"cls": {"K1": 0, "K1b": 0, "K2": 12, "K2b": 12},
+             "det": {"K1": 12, "K1b": 12, "K2": 12, "K2b": 12},
+             "seg": {"K1": 6, "K1b": 6, "K2": 12, "K2b": 12}}
+
+
+def loop_order(cfg, max_iters, k):
+    """The task of each step that the port's grouped order gives the
+    flagship's train loaders, derived without data or a step: stand-in
+    loaders of the real lengths whose batches carry only the task, under
+    the config's strategy and stand-in hooks at the checkpoint and eval
+    intervals (the log hook does not bound a group)."""
+    from rscotr_tpu_torch.data import build_datasets
+    from rscotr_tpu_torch.data.build import build_iteration_strategy
+    from rscotr_tpu_torch.data.loader import MultiDataLoader
+    from rscotr_tpu_torch.engine.hooks import Hook
+    from rscotr_tpu_torch.engine.runner import IterBasedRunner
+
+    class Stand:
+        def __init__(self, ds, n):
+            self.dataset, self.n, self._epoch = ds, n, 0
+
+        def __len__(self):
+            return self.n
+
+        def __iter__(self):
+            return iter([{"img": np.zeros(0)}] * self.n)
+
+        def set_epoch(self, epoch):
+            self._epoch = epoch
+
+    loaders = {}
+    for name, ds in build_datasets(cfg["data"]).items():
+        bs = cfg["data"][name]["data"].get("samples_per_gpu", 1)
+        loaders[name] = Stand(ds, len(ds) // bs)
+    mdl = MultiDataLoader(loaders, build_iteration_strategy(cfg, loaders))
+    tasks = []
+    runner = IterBasedRunner(
+        {t: (lambda b, g, t=t: tasks.append(t) or {})
+         for t in ("cls", "det", "seg")}, max_iters=max_iters, prefetch=0,
+        steps_per_dispatch=k, handle_preemption=False)
+    for iv in (cfg["checkpoint_config"]["interval"],
+               cfg["evaluation"]["interval"]):
+        runner.register_hook(type("Interval", (Hook,), {"interval": iv})())
+    runner.run(mdl)
+    return tasks
+
+
+def loop_phase(smi):
+    """The co-training loop through the port's ``tools/train.py``
+    (``rscotr_tpu_torch.tools.train.main``) on the flagship config as
+    written (round_robin, ``steps_per_dispatch=16``: JAX's grouped order),
+    full width, bf16, random weights from seed 0, in a temporary work dir,
+    ``--max-iters 48``; every count set to 0 just before and read just
+    after. Checked: the task of each step against ``loop_order`` (16 cls,
+    16 det, 16 seg), each iteration's K1 / K1b / K2 / K2b launches against
+    ``LOOP_WANT`` (every K1 and K1b on the vector body, no quad-path
+    kernel), every loss term and grad_norm finite, ``iter_48.pth``,
+    ``last_checkpoint``, ``best_checkpoint.pth`` and the ``metrics.jsonl``
+    lines of the log interval (5) and the last step; the eval hook at step
+    48 over the whole val sets with the eval phase's per-batch counts and
+    the metric keys. Then ``--resume-from iter_48.pth --max-iters 52
+    --no-validate``: the model and the optimizer state at the start equal
+    the file bit for bit, the run starts at step 48 with the optimizer's
+    schedule clock at 48, and 4 cls steps follow, counted as above.
+    Reported per task: the median step time (CUDA events around the step
+    call, no host sync added) and host wall after each group's first step,
+    the median data_time, the peak memory; the loop's data-wait share; the
+    checkpoint save and load times, the eval hook's time, the phase's."""
+    import shutil
+    import tempfile
+
+    from rscotr_tpu_torch import apis
+    from rscotr_tpu_torch.engine import checkpoint as ck_mod
+    from rscotr_tpu_torch.engine import hooks as hooks_mod
+    from rscotr_tpu_torch.engine import infer as infer_mod
+    from rscotr_tpu_torch.engine import train_step as ts_mod
+    from rscotr_tpu_torch.engine.hooks import Hook
+    from rscotr_tpu_torch.ops.ms_deform_attn import (ms_deform_attn,
+                                                     ms_deform_attn_bwd)
+    from rscotr_tpu_torch.ops.msda_ws import ws_bwd, ws_fwd
+    from rscotr_tpu_torch.ops.scatter_mm import scatter_add_mm
+    from rscotr_tpu_torch.ops.window_attention import (window_attention,
+                                                       window_attention_bwd)
+    from rscotr_tpu_torch.tools import train as train_cli
+    from rscotr_tpu_torch.utils.config import load_cfg
+    t_phase = time.perf_counter()
+    counters = {"K1": ms_deform_attn, "K1b": ms_deform_attn_bwd,
+                "K2": window_attention, "K2b": window_attention_bwd,
+                "K3'": scatter_add_mm, "K4": ws_fwd, "K5": ws_bwd}
+
+    def counts():
+        return dict({k: c.launches for k, c in counters.items()},
+                    **{"K1 vec": ms_deform_attn.vec_launches,
+                       "K1b vec": ms_deform_attn_bwd.vec_launches})
+
+    def zero():
+        for c in counters.values():
+            c.launches = 0
+        ms_deform_attn.vec_launches = 0
+        ms_deform_attn_bwd.vec_launches = 0
+
+    cfg = load_cfg(FLAGSHIP_CFG)
+    K = cfg["runner"]["steps_per_dispatch"]
+    want_tasks = loop_order(cfg, LOOP_ITERS, K)
+    if want_tasks != ["cls"] * 16 + ["det"] * 16 + ["seg"] * 16:
+        fail(f"loop: the grouped order derives {want_tasks}")
+    log(f"loop phase: rscotr_tpu_torch.tools.train on the flagship config "
+        f"(steps_per_dispatch {K}, round_robin), bf16, random weights "
+        f"(seed 0), {LOOP_ITERS} iterations, then a resume to "
+        f"{LOOP_RESUME}; derived order: 16 cls, 16 det, 16 seg")
+
+    steps, evals, saves, loads, infer_calls = [], [], [], [], []
+
+    class Probe(Hook):
+        """First hook of an iteration (priority 0): the step's launches
+        (since the last hook of the iteration before) and its log vars;
+        ``Tail`` (priority 100) closes the iteration."""
+        priority = 0
+
+        def before_run(self, runner):
+            self.start = runner.step
+            self.opt_step = runner.optimizer.step
+            self.model = {k: v.detach().to("cpu", copy=True) for k, v in
+                          runner.model.state_dict().items()}
+            self.opt = runner.optimizer.state_dict()
+            self.last = counts()
+
+        def after_train_iter(self, runner):
+            now = counts()
+            steps[-1]["launches"] = {k: now[k] - self.last[k] for k in now}
+            steps[-1]["step"] = runner.step
+            steps[-1]["log_vars"] = dict(runner.log_vars)
+
+    class Tail(Hook):
+        priority = 100
+
+        def after_train_iter(self, runner):
+            probe.last = counts()
+
+    probe = Probe()
+    real_make, real_save = ts_mod.make_train_step, hooks_mod.save_checkpoint
+    real_load, real_eval = ck_mod.load_checkpoint, apis.make_eval_fn
+    real_infer = infer_mod.make_infer_steps
+
+    def timed_make(model, optimizer, task, step_cfg, mask=None):
+        step = real_make(model, optimizer, task, step_cfg, mask)
+
+        def call(batch, generator):
+            torch.cuda.reset_peak_memory_stats()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            t0 = time.perf_counter()
+            start.record()
+            lv = step(batch, generator)
+            end.record()
+            steps.append(dict(task=task, events=(start, end),
+                              host_ms=1e3 * (time.perf_counter() - t0),
+                              peak_mib=torch.cuda.max_memory_allocated()
+                              / 2 ** 20))
+            return lv
+        return call
+
+    def timed(fn, out):
+        def call(*a, **kw):
+            t0 = time.perf_counter()
+            r = fn(*a, **kw)
+            out.append(time.perf_counter() - t0)
+            return r
+        return call
+
+    def timed_eval(*a, **kw):
+        return timed(real_eval(*a, **kw), evals)
+
+    def counted_infer(*a, **kw):
+        def wrap(task, fn):
+            def call(*args):
+                before = counts()
+                out = fn(*args)
+                after = counts()
+                infer_calls.append((task, {k: after[k] - before[k]
+                                           for k in after}))
+                return out
+            return call
+        return {t: wrap(t, f) for t, f in real_infer(*a, **kw).items()}
+
+    work_dir = tempfile.mkdtemp(prefix="rscotr_loop_")
+    ts_mod.make_train_step = timed_make
+    hooks_mod.save_checkpoint = timed(real_save, saves)
+    ck_mod.load_checkpoint = timed(real_load, loads)
+    apis.make_eval_fn = timed_eval
+    infer_mod.make_infer_steps = counted_infer
+    try:
+        argv = [FLAGSHIP_CFG, "--work-dir", work_dir, "--max-iters",
+                str(LOOP_ITERS)]
+        log(f"  rscotr_tpu_torch.tools.train {' '.join(argv)}")
+        zero()
+        t0 = time.perf_counter()
+        runner = train_cli.main(argv, hooks=[probe, Tail()])
+        wall = time.perf_counter() - t0
+        total = counts()
+        torch.cuda.synchronize()
+        first = dict(steps=steps[:], infer=infer_calls[:], wall=wall,
+                     total=total, start=probe.start)
+        del runner
+        ckpt = os.path.join(work_dir, f"iter_{LOOP_ITERS}.pth")
+        for f in (f"iter_{LOOP_ITERS}.pth", "last_checkpoint",
+                  "best_checkpoint.pth", "metrics.jsonl", "train.log"):
+            if not os.path.isfile(os.path.join(work_dir, f)):
+                fail(f"loop: {f} missing from the work dir")
+        with open(os.path.join(work_dir, "metrics.jsonl")) as f:
+            lines = [json.loads(x) for x in f]
+        saved = torch.load(ckpt, map_location="cpu", weights_only=True)
+
+        steps.clear()
+        infer_calls.clear()
+        argv = [FLAGSHIP_CFG, "--work-dir", work_dir, "--max-iters",
+                str(LOOP_RESUME), "--resume-from", ckpt, "--no-validate"]
+        log(f"  rscotr_tpu_torch.tools.train {' '.join(argv)}")
+        zero()
+        t0 = time.perf_counter()
+        runner = train_cli.main(argv, hooks=[probe, Tail()])
+        resume_wall = time.perf_counter() - t0
+        resume_total = counts()
+        torch.cuda.synchronize()
+        resumed = dict(steps=steps[:], start=probe.start,
+                       opt_step=probe.opt_step, end_step=runner.step,
+                       end_opt_step=runner.optimizer.step)
+        model_equal = all(torch.equal(probe.model[k], v)
+                          for k, v in saved["state_dict"].items()) and \
+            sorted(probe.model) == sorted(saved["state_dict"])
+        so, po = saved["optimizer"], probe.opt
+        opt_equal = so["step"] == po["step"] and so["count"] == po["count"] \
+            and all(torch.equal(po[p][k], v) for p in ("mu", "nu")
+                    for k, v in so[p].items())
+        del runner, saved, probe.model, probe.opt
+    finally:
+        ts_mod.make_train_step = real_make
+        hooks_mod.save_checkpoint = real_save
+        ck_mod.load_checkpoint = real_load
+        apis.make_eval_fn = real_eval
+        infer_mod.make_infer_steps = real_infer
+        shutil.rmtree(work_dir, ignore_errors=True)
+        torch.cuda.empty_cache()
+
+    # -- the first run ----------------------------------------------------
+    got_tasks = [s["task"] for s in first["steps"]]
+    if got_tasks != want_tasks:
+        fail(f"loop: tasks {got_tasks} != the derived order {want_tasks}")
+    quad = ("K3'", "K4", "K5")
+    for run in (first, resumed):
+        for s in run["steps"]:
+            got = s["launches"]
+            want = dict(LOOP_WANT[s["task"]], **dict.fromkeys(quad, 0))
+            if {k: got[k] for k in want} != want or \
+                    (got["K1 vec"], got["K1b vec"]) != (got["K1"],
+                                                        got["K1b"]):
+                fail(f"loop step {s['step']} ({s['task']}): launches {got}"
+                     f" != {want}, all K1 / K1b on the vector body")
+            # every loss term, their sum and grad_norm (read here, after
+            # the run: the loop itself syncs only in its log hook)
+            vals = {k: float(v) for k, v in s["log_vars"].items()}
+            if not all(np.isfinite(v) for v in vals.values()):
+                fail(f"loop step {s['step']}: non-finite log vars {vals}")
+            s["loss"] = next(v for k, v in vals.items()
+                             if k.endswith(".loss"))
+            s["grad_norm"] = vals["grad_norm"]
+            s["n_terms"] = len(vals) - 2
+    if [s["step"] for s in first["steps"]] != list(range(1, LOOP_ITERS + 1)):
+        fail("loop: the first run's steps are not 1..48")
+    for i in (0, 16, 32, 47):
+        s = first["steps"][i]
+        log(f"  loop step {s['step']} {s['task']}: {s['n_terms']} log vars, "
+            f"loss {s['loss']:.4f}, grad_norm {s['grad_norm']:.3f}, "
+            f"launches {s['launches']}")
+    want_total = {k: sum(LOOP_WANT[t].get(k, 0) for t in got_tasks)
+                  for k in ("K1", "K1b", "K2", "K2b")}
+    infer_total = {k: sum(c[k] for _, c in first["infer"])
+                   for k in ("K1", "K2")}
+    log(f"  launches in the loop run (48 steps and the eval at 48): "
+        f"{first['total']}; steps {want_total}, eval {infer_total}")
+    for k, v in want_total.items():
+        extra = infer_total.get(k, 0)
+        if first["total"][k] != v + extra:
+            fail(f"loop: {k} launched {first['total'][k]} times, not "
+                 f"{v} + the eval's {extra}")
+    if any(first["total"][k] for k in quad):
+        fail(f"loop: a quad-path kernel launched: {first['total']}")
+
+    # -- logs, checkpoints, eval ------------------------------------------
+    want_lines = list(range(5, LOOP_ITERS, 5)) + [LOOP_ITERS]
+    if [x["step"] for x in lines] != want_lines:
+        fail(f"loop: metrics.jsonl steps {[x['step'] for x in lines]} != "
+             f"{want_lines}")
+    bad = [(x["step"], k) for x in lines for k, v in x.items()
+           if isinstance(v, float) and not k.startswith("val/")
+           and not np.isfinite(v)]
+    if bad:
+        fail(f"loop: non-finite logged values {bad}")
+    want_keys = {"val/resisc.accuracy_top-1", "val/dior.bbox_mAP",
+                 "val/potsdam.mIoU", "val/potsdam.mFscore"}
+    if not want_keys <= set(lines[-1]):
+        fail(f"loop: eval keys missing at step 48: "
+             f"{want_keys - set(lines[-1])}")
+    per_task = {}
+    for task, got in first["infer"]:
+        per_task[task] = per_task.get(task, 0) + 1
+        want = dict.fromkeys(got, 0)
+        want.update(zip(("K1", "K2"), EVAL_WANT[task]))
+        want["K1 vec"] = want["K1"]
+        if got != want:
+            fail(f"loop eval {task} batch: launches {got} != {want}")
+    want_calls = {t: n for t, n, _ in EVAL_SETS.values()}
+    if per_task != want_calls or len(evals) != 1:
+        fail(f"loop: the eval hook ran {len(evals)} times over {per_task} "
+             f"batches, not once over {want_calls}")
+    log(f"  eval hook at step {LOOP_ITERS}: {sum(want_calls.values())} "
+        f"batches {per_task}, per batch K1 / K2 as the eval phase; "
+        + ", ".join(f"{k} {lines[-1][k]:.4f}" for k in sorted(want_keys)))
+
+    # -- the resume ---------------------------------------------------------
+    r_tasks = [s["task"] for s in resumed["steps"]]
+    if not (model_equal and opt_equal):
+        fail(f"loop resume: model bit-equal {model_equal}, optimizer state "
+             f"bit-equal {opt_equal}")
+    if (resumed["start"], resumed["opt_step"], resumed["end_step"],
+            resumed["end_opt_step"], r_tasks) != (
+            LOOP_ITERS, LOOP_ITERS, LOOP_RESUME, LOOP_RESUME, ["cls"] * 4):
+        fail(f"loop resume: start {resumed['start']} (optimizer step "
+             f"{resumed['opt_step']}), end {resumed['end_step']} "
+             f"({resumed['end_opt_step']}), tasks {r_tasks}")
+    log(f"  resume from iter_{LOOP_ITERS}.pth: model and optimizer state "
+        f"bit-equal to the file, start at step {resumed['start']} (the "
+        f"optimizer's schedule clock {resumed['opt_step']}), then {r_tasks}"
+        f" with launches {resumed['steps'][0]['launches']} each; "
+        f"{resume_total}")
+
+    # -- times ---------------------------------------------------------------
+    res = {}
+    groups = {}
+    for i, s in enumerate(first["steps"]):
+        s["ms"] = s["events"][0].elapsed_time(s["events"][1])
+        first_of_group = i == 0 or first["steps"][i - 1]["task"] != s["task"]
+        if not first_of_group:
+            groups.setdefault(s["task"], []).append(s)
+    for s in first["steps"]:
+        s.pop("events")
+    data = [float(s["log_vars"]["data_time"]) for s in first["steps"]]
+    whole = [float(s["log_vars"]["time"]) for s in first["steps"]]
+    for task in ("cls", "det", "seg"):
+        ss = groups[task]
+        all_task = [s for s in first["steps"] if s["task"] == task]
+        res[task] = dict(
+            median_ms=float(np.median([s["ms"] for s in ss])),
+            median_host_ms=float(np.median([s["host_ms"] for s in ss])),
+            first_ms=all_task[0]["ms"],
+            median_data_ms=1e3 * float(np.median(
+                [float(s["log_vars"]["data_time"]) for s in all_task])),
+            peak_mib=max(s["peak_mib"] for s in all_task), steps=len(ss))
+        r = res[task]
+        log(f"  loop {task} step: median {r['median_ms']:.2f} ms (CUDA "
+            f"events), host {r['median_host_ms']:.2f} ms, over {r['steps']}"
+            f" steps after the group's first ({r['first_ms']:.2f} ms); "
+            f"median data_time {r['median_data_ms']:.3f} ms; peak memory "
+            f"{r['peak_mib']:.0f} MiB  [{smi}]")
+    res["data_share"] = sum(data) / sum(whole)
+    res["group_data_ms"] = [1e3 * data[i] for i in (0, 16, 32)]
+    res["save_s"] = list(saves)
+    res["load_s"] = list(loads)
+    res["eval_s"] = evals[0]
+    res["run_s"], res["resume_s"] = first["wall"], resume_wall
+    res["phase_s"] = time.perf_counter() - t_phase
+    log(f"  loop data wait: {100 * res['data_share']:.2f}% of the "
+        f"{LOOP_ITERS} steps' time (the three groups' collections "
+        + ", ".join(f"{x:.1f}" for x in res["group_data_ms"])
+        + " ms); checkpoint saves "
+        + ", ".join(f"{x:.2f}" for x in saves) + " s (best_checkpoint, "
+        f"iter_48, iter_52: the eval hook fires first), resume load "
+        + ", ".join(f"{x:.2f}" for x in loads) + f" s; eval hook "
+        f"{evals[0]:.2f} s; run {first['wall']:.1f} s, resume "
+        f"{resume_wall:.1f} s, phase {res['phase_s']:.1f} s  [{smi}]")
+    # each task's first step, measured (every step was held to LOOP_WANT)
+    launches = {f"flagship loop {t} step": {
+        k: next(s for s in first["steps"] if s["task"] == t)["launches"][k]
+        for k in ("K1", "K1b", "K2", "K2b")} for t in ("cls", "det", "seg")}
+    launches[f"flagship loop run ({LOOP_ITERS} steps + eval)"] = \
+        {k: first["total"][k] for k in ("K1", "K1b", "K2", "K2b")}
+    return launches, res
+
+
 def kernels_line(times, btimes, qtimes, err, berr, qerr, k6err, k6levels,
                  launches):
     """The ``{"kernels": [...]}`` object: eight kernels, each with its
@@ -2297,6 +2709,7 @@ def main(argv) -> int:
     launches, train = train_phase()
     zlaunches, zoo = zoo_phase()
     elaunches, evals = eval_phase(smi)
+    llaunches, loop = loop_phase(smi)
     library_phase(times, btimes)
     # K3' is launched by the quad-gather path; the training run launches it
     # 0 times (train_phase checks every step), K1b doing its work there
@@ -2308,6 +2721,7 @@ def main(argv) -> int:
     zlaunches.update({f"flagship {t} steps (12)": n
                       for t, n in launches.pop("per task").items()})
     zlaunches["flagship eval (cls 4, det 2, seg 2 batches)"] = elaunches
+    zlaunches.update(llaunches)
     launches["paths"] = {k: {path: n[k] for path, n in zlaunches.items()}
                          for k in ("K1", "K1b", "K2", "K2b")}
 
@@ -2322,6 +2736,9 @@ def main(argv) -> int:
         f"{r['images_per_s']:.1f} img/s, loader "
         f"{100 * r['load_share']:.0f}%, peak {r['peak_mib']:.0f} MiB"
         for n, r in evals.items() if n in EVAL_SETS) + "; " + "; ".join(
+        f"loop {t} step {loop[t]['median_ms']:.2f} ms, peak "
+        f"{loop[t]['peak_mib']:.0f} MiB" for t in ("cls", "det", "seg"))
+        + f"; loop data wait {100 * loop['data_share']:.2f}%; " + "; ".join(
         f"MSDA impl={i} fwd+bwd {qtimes[f'MSDA {i}'][1]:.4f} ms"
         for i in ("quad", "kernel")))
     log(smi)

@@ -1,7 +1,8 @@
 """Config-level entry points of the port (PyTorch counterpart of
-``make_step_config``, ``derive_img_norm``, ``make_eval_fn`` and the cls size
-of ``derive_shapes`` in rscotr_tpu/apis.py, written out again here because
-that module imports jax).
+rscotr_tpu/apis.py, written out again here because that module imports
+jax): the step config, the eval function, the schedule and checkpoint
+resolution, and ``train_model``, which wires model, data, optimizer, runner
+and hooks together from a composed config.
 
 ``make_step_config(cfg)`` derives the ``TrainStepConfig`` from a composed
 config (``utils.config.load_cfg``): task weights, the CDN setup with the
@@ -12,11 +13,15 @@ and batch augments, and the device-side normalization stats.
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import os
+from typing import Dict, Optional, Sequence, Tuple
+
+import torch
 
 from rscotr_tpu_torch.engine.train_step import TrainStepConfig
 from rscotr_tpu_torch.models.heads.cdn import CdnConfig
 from rscotr_tpu_torch.models.heads.dino_loss import DetLossConfig
+from rscotr_tpu_torch.utils.logging import get_root_logger
 
 _IMAGENET = ((123.675, 116.28, 103.53), (58.395, 57.12, 57.375))
 _DEVICE_AUG = ("cls_device_augment", "seg_device_augment",
@@ -46,18 +51,37 @@ def derive_img_norm(cfg: dict) -> Optional[Tuple[tuple, tuple]]:
     return found if found is not None or not asked else _IMAGENET
 
 
+def derive_shapes(cfg: dict) -> Dict[str, tuple]:
+    """The static input shape of each task from the data config (NHWC at
+    ``samples_per_gpu``; det at its largest bucket, with ``det_max_gt``)."""
+    shapes = {}
+    for entry in (cfg.get("data") or {}).values():
+        task = entry["task"]
+        opts = dict(entry.get("loader", {}))
+        bs = entry["data"].get("samples_per_gpu", 1)
+        if task == "cls":
+            s = opts.get("cls_size", 224)
+            shapes["cls"] = (bs, s, s, 3)
+        elif task == "det":
+            bucket = opts.get("det_bucket_hw", (800, 800))
+            if isinstance(bucket[0], (tuple, list)):
+                bucket = max(bucket, key=lambda b: b[0] * b[1])
+            shapes["det"] = (bs, bucket[0], bucket[1], 3)
+            shapes["det_max_gt"] = opts.get("max_gt", 100)
+        elif task == "seg":
+            s = opts.get("seg_size", 512)
+            shapes["seg"] = (bs, s, s, 3)
+    return shapes
+
+
 def derive_cls_hw(cfg: dict) -> Optional[Tuple[int, int]]:
-    """The cls input size of a composed config, as ``derive_shapes`` takes
-    it: the last cls dataset's ``loader.cls_size`` (224 when the loader
-    sets none); None when the config has no cls dataset. ``build_model``
-    takes it as ``cls_hw`` to size an ``MlvlClsHead`` of scheme 5, 6 or
-    7."""
-    hw = None
-    for entry in cfg.get("data", {}).values():
-        if entry["task"] == "cls":
-            s = dict(entry.get("loader", {})).get("cls_size", 224)
-            hw = (s, s)
-    return hw
+    """The cls input size (H, W) of a composed config, as
+    ``derive_shapes`` takes it (the last cls dataset's
+    ``loader.cls_size``, 224 by default); None when the config has no cls
+    dataset. ``build_model`` takes it as ``cls_hw`` to size an
+    ``MlvlClsHead`` of scheme 5, 6 or 7."""
+    cls = derive_shapes(cfg).get("cls")
+    return None if cls is None else cls[1:3]
 
 
 def make_step_config(cfg: dict) -> TrainStepConfig:
@@ -122,11 +146,13 @@ def make_step_config(cfg: dict) -> TrainStepConfig:
 
 def make_eval_fn(cfg: dict, model, max_per_img: int = 300,
                  skip_det: bool = False, max_batches: int = 0):
-    """``eval_fn() -> {"{dataset}.{metric}": value}``: the val datasets of a
-    composed config (its test datasets when it has no val split; det left
-    out with ``skip_det``) through ``make_infer_steps`` and each dataset's
-    ``evaluate``, with the model in eval mode. One process (the mesh of
-    JAX's ``make_eval_fn`` waits for ROADMAP M7)."""
+    """``eval_fn(runner=None) -> {"{dataset}.{metric}": value}``: the val
+    datasets of a composed config (its test datasets when it has no val
+    split; det left out with ``skip_det``) through ``make_infer_steps`` and
+    each dataset's ``evaluate``, with the model in eval mode.
+    ``MultiDatasetsEvalHook`` calls it with the runner, whose model is this
+    one (the train step puts it back in train mode). One process (the mesh
+    of JAX's ``make_eval_fn`` waits for ROADMAP M7)."""
     from rscotr_tpu_torch.data.build import build_dataloaders, build_datasets
     from rscotr_tpu_torch.engine.infer import make_infer_steps
     from rscotr_tpu_torch.engine.test import (evaluate_results,
@@ -143,9 +169,265 @@ def make_eval_fn(cfg: dict, model, max_per_img: int = 300,
     eval_kwargs = {t: dict((cfg.get("evaluation") or {}).get(t, {}))
                    for t in ("cls", "det", "seg")}
 
-    def eval_fn() -> dict:
+    def eval_fn(runner=None) -> dict:
         model.eval()
         results = single_device_test(infer, loaders, max_batches=max_batches)
         return evaluate_results(val_datasets, results, eval_kwargs)
 
     return eval_fn
+
+
+def load_task_pretrain(model, pretrain_path: str, rule: str = "dino_mmdet"):
+    """Load a single-task checkpoint (``.pth``) into ``model`` by top-level
+    module: each of ``backbone``, ``neck``, ``bbox_head`` and
+    ``shared_encoder`` that both hold, with the same parameter names and
+    shapes, is copied (parameters only, as JAX copies the ``params``
+    collection); a module whose names or shapes differ is skipped with a
+    warning. Returns ``model``.
+
+    As in the JAX package (rscotr_tpu/apis.py:239-260), nothing is renamed:
+    a standalone ``DINO`` checkpoint names its encoder ``encoder``, so
+    ``shared_encoder`` keeps its init although the reference remaps it
+    (ROADMAP C10)."""
+    from rscotr_tpu_torch.engine.checkpoint import load_checkpoint
+    logger = get_root_logger()
+    src = load_checkpoint(pretrain_path)["state_dict"]
+    params = dict(model.named_parameters())
+    buffers = {n for n, _ in model.named_buffers()}
+    loaded = []
+    for top in ("backbone", "neck", "bbox_head", "shared_encoder"):
+        pre = top + "."
+        dst_names = {n for n in params if n.startswith(pre)}
+        src_names = {n for n in src if n.startswith(pre)} - buffers
+        if not dst_names or not src_names:
+            continue
+        if src_names != dst_names or any(
+                src[n].shape != params[n].shape for n in dst_names):
+            logger.warning("task_pretrain: skipping %s (structure "
+                           "mismatch)", top)
+            continue
+        with torch.no_grad():
+            for n in dst_names:
+                params[n].copy_(src[n])
+        loaded.append(top)
+    logger.info("task_pretrain(%s) loaded: %s", rule, loaded)
+    return model
+
+
+def resolve_schedule(cfg: dict, epoch_len: int,
+                     max_iters_override: Optional[int] = None) -> dict:
+    """The training schedule of either runner flavour.
+
+    ``runner=dict(type='IterBasedRunner', max_iters=N)`` passes through.
+    ``runner=dict(type='EpochBasedRunner', max_epochs=N)`` turns epochs
+    into iterations with the loader length ``epoch_len``: ``max_iters``,
+    by-epoch LR steps, and the checkpoint and eval intervals (each unless
+    its ``by_epoch`` is False) scale by ``epoch_len``; the loop stays
+    iteration-based. ``max_iters_override`` wins; ``lr_config.max_iters``
+    defaults to the result."""
+    runner_cfg = dict(cfg.get("runner") or {})
+    lr_cfg = dict(cfg.get("lr_config") or {})
+    ckpt_cfg = dict(cfg.get("checkpoint_config") or {})
+    eval_cfg = dict(cfg.get("evaluation") or {})
+    epoch_based = runner_cfg.get("type") == "EpochBasedRunner" or (
+        "max_epochs" in runner_cfg and "max_iters" not in runner_cfg)
+    if epoch_based:
+        epoch_len = max(int(epoch_len), 1)
+        max_iters = int(runner_cfg.get("max_epochs", 1)) * epoch_len
+        if lr_cfg.get("policy") == "step" and lr_cfg.get("by_epoch", True):
+            lr_cfg["step"] = [int(s) * epoch_len
+                              for s in lr_cfg.get("step", [])]
+        if ckpt_cfg.get("by_epoch", True) and "interval" in ckpt_cfg:
+            ckpt_cfg["interval"] = int(ckpt_cfg["interval"]) * epoch_len
+        if eval_cfg.get("by_epoch", True) and "interval" in eval_cfg:
+            eval_cfg["interval"] = int(eval_cfg["interval"]) * epoch_len
+    else:
+        max_iters = runner_cfg.get("max_iters", 300000)
+    if max_iters_override:
+        max_iters = max_iters_override
+    lr_cfg.setdefault("max_iters", max_iters)
+    return dict(max_iters=max_iters, lr_config=lr_cfg,
+                checkpoint_config=ckpt_cfg, evaluation=eval_cfg,
+                epoch_based=epoch_based)
+
+
+def resolve_init_checkpoint(cfg: dict, resume_from, auto_resume: bool,
+                            work_dir: str):
+    """mmcv's precedence for the first checkpoint: ``--resume-from``, then
+    ``cfg["resume_from"]``, then ``--auto-resume``'s latest checkpoint in
+    ``work_dir``. A resume (model, optimizer and step) wins over
+    ``cfg["load_from"]`` (weights only). Returns ``(resume_path,
+    load_path)``, at most one of them set."""
+    from rscotr_tpu_torch.engine.checkpoint import find_latest_checkpoint
+    if resume_from is None and cfg.get("resume_from"):
+        resume_from = cfg["resume_from"]
+    if auto_resume and resume_from is None:
+        resume_from = find_latest_checkpoint(work_dir)
+    if resume_from:
+        return resume_from, None
+    return None, cfg.get("load_from") or None
+
+
+def apply_fp16_cfg(cfg: dict) -> bool:
+    """The reference's ``fp16 = dict(loss_scale=...)`` as a bf16 compute
+    dtype on the model (params, losses and task outputs stay f32); bf16
+    has f32's exponent range, so the loss scale is not needed and is
+    ignored. Returns True when it applied (not when the model sets a
+    dtype already)."""
+    if cfg.get("fp16") is None or cfg["model"].get("compute_dtype"):
+        return False
+    cfg["model"]["compute_dtype"] = "bfloat16"
+    get_root_logger().info(
+        "fp16 config -> bfloat16 compute dtype (loss_scale ignored: bf16 "
+        "keeps the f32 exponent range)")
+    return True
+
+
+def train_model(cfg: dict, work_dir: str, seed: int = 0,
+                validate: bool = True, resume_from: Optional[str] = None,
+                auto_resume: bool = False, load_task_pretrain_path=None,
+                skip_det_eval: bool = False, max_iters_override=None,
+                num_devices: Optional[int] = None, device="cuda",
+                hooks: Sequence = ()):
+    """Train a composed config (``load_data_cfg`` applied) in ``work_dir``
+    on ``device`` (the card unless asked); returns the runner.
+
+    The model comes from ``build_model`` with a generator seeded ``seed``
+    (the port needs no ``init_model_params``: its modules initialise when
+    built). Then the task pretrain, the train datasets and the
+    ``MultiDataLoader``, the schedule, the paramwise AdamW (with
+    ``momentum_config`` and ``optimizer_config.cumulative_iters``), the
+    task masks (``cls_uses_encoder`` for an ``MlvlClsHead``; applied to
+    every model type, so a standalone model's ``encoder`` never trains,
+    ROADMAP C6), one train step per task, and the runner in the order of
+    ``runner.steps_per_dispatch``. A resume loads the model and the
+    optimizer state strictly and starts at the checkpoint's ``iter``; the
+    data stream starts again, as in JAX (ROADMAP C9). ``load_from`` loads
+    weights only. Hooks: log, checkpoint, the eval hook unless
+    ``validate`` is False, ``cfg["custom_hooks"]``, then ``hooks``. A
+    non-train ``workflow`` phase is logged and ignored. More than one
+    device (JAX's mesh and FSDP) waits for ROADMAP M7."""
+    from rscotr_tpu_torch.data.build import (build_datasets,
+                                             build_multidataloader)
+    from rscotr_tpu_torch.engine.checkpoint import load_checkpoint
+    from rscotr_tpu_torch.engine.hooks import (CheckpointHook, LogHook,
+                                               MultiDatasetsEvalHook,
+                                               build_custom_hooks)
+    from rscotr_tpu_torch.engine.optimizer import (build_optimizer,
+                                                   task_param_masks)
+    from rscotr_tpu_torch.engine.runner import IterBasedRunner
+    from rscotr_tpu_torch.engine.train_step import make_train_step
+    from rscotr_tpu_torch.models import build_model
+
+    logger = get_root_logger(os.path.join(work_dir, "train.log"))
+    if num_devices is not None and num_devices > 1:
+        raise NotImplementedError(
+            f"num_devices={num_devices}: data parallel and FSDP training "
+            "over torch.distributed are not ported yet (ROADMAP M7)")
+    apply_fp16_cfg(cfg)
+    model = build_model(cfg["model"], device=device,
+                        generator=torch.Generator().manual_seed(seed),
+                        cls_hw=derive_cls_hw(cfg))
+    n_params = sum(p.numel() for p in model.parameters())
+    logger.info("model built: %.2fM params on %s", n_params / 1e6,
+                next(model.parameters()).device)
+    if load_task_pretrain_path:
+        load_task_pretrain(model, load_task_pretrain_path)
+
+    datasets = build_datasets(cfg["data"], split="train")
+    multi_loader = build_multidataloader(cfg, datasets, seed=seed)
+    epoch_len = sum(len(dl) for dl in multi_loader.loaders.values())
+    sched = resolve_schedule(cfg, epoch_len, max_iters_override)
+    max_iters = sched["max_iters"]
+    if sched["epoch_based"]:
+        logger.info("EpochBasedRunner config: %d iters/epoch -> "
+                    "max_iters %d", epoch_len, max_iters)
+    wf = cfg.get("workflow") or []
+    if any(phase != "train" for phase, _ in wf):
+        logger.warning("workflow %s: non-train phases are ignored; "
+                       "validation runs via the eval hook "
+                       "(cfg.evaluation)", wf)
+    momentum_cfg = dict(cfg.get("momentum_config") or {}) or None
+    if momentum_cfg:
+        momentum_cfg.setdefault("max_iters", max_iters)
+        logger.info("momentum schedule on AdamW beta1: %s", momentum_cfg)
+    opt_hook_cfg = dict(cfg.get("optimizer_config") or {})
+    cumulative_iters = int(opt_hook_cfg.get("cumulative_iters", 1))
+    if cumulative_iters > 1:
+        logger.info("gradient accumulation: cumulative_iters=%d",
+                    cumulative_iters)
+    optimizer = build_optimizer(
+        cfg["optimizer"], model.named_parameters(),
+        lr_config=sched["lr_config"], grad_clip=opt_hook_cfg.get("grad_clip"),
+        momentum_config=momentum_cfg, cumulative_iters=cumulative_iters)
+
+    cls_head_cfg = cfg["model"].get("cls_head") or {}
+    masks = task_param_masks(
+        [n for n, _ in model.named_parameters()],
+        cls_uses_encoder=cls_head_cfg.get("type") == "MlvlClsHead")
+    step_cfg = make_step_config(cfg)
+    tasks_present = {e["task"] for e in cfg["data"].values()}
+    steps = {t: make_train_step(model, optimizer, t, step_cfg, masks.get(t))
+             for t in tasks_present}
+    steps_per_dispatch = int((cfg.get("runner") or {}).get(
+        "steps_per_dispatch", 1))
+    if steps_per_dispatch > 1:
+        logger.info("grouped order: up to %d same-task steps a group, as "
+                    "the JAX package dispatches them; one call a step",
+                    steps_per_dispatch)
+
+    start_step = 0
+    resume_from, load_from = resolve_init_checkpoint(
+        cfg, resume_from, auto_resume, work_dir)
+    if resume_from:
+        ck = load_checkpoint(resume_from, model=model)
+        if ck["optimizer"] is not None:
+            optimizer.load_state_dict(ck["optimizer"])
+        start_step = int(ck["meta"].get("iter", 0))
+        logger.info("resumed from %s @ iter %d", ck["path"], start_step)
+    elif load_from:
+        ck = load_checkpoint(load_from, model=model)
+        logger.info("loaded weights (load_from) %s", ck["path"])
+
+    profile_cfg = dict(cfg.get("profile_cfg") or {})
+    if profile_cfg:
+        profile_cfg.setdefault("logdir", os.path.join(work_dir, "profile"))
+    runner = IterBasedRunner(steps, model, optimizer, max_iters,
+                             rng_seed=seed, start_step=start_step,
+                             profile_cfg=profile_cfg,
+                             steps_per_dispatch=steps_per_dispatch)
+    runner.datasets = datasets
+    runner.model_cfg = cfg["model"]
+    log_cfg = cfg.get("log_config") or {}
+    runner.register_hook(LogHook(interval=log_cfg.get("interval", 300),
+                                 work_dir=work_dir))
+    ckpt_cfg = sched["checkpoint_config"]
+    runner.register_hook(CheckpointHook(
+        interval=ckpt_cfg.get("interval", 100000), work_dir=work_dir,
+        meta={"CLASSES": {n: list(ds.CLASSES)
+                          for n, ds in datasets.items()}},
+        max_keep_ckpts=ckpt_cfg.get("max_keep_ckpts", -1),
+        async_save=bool(ckpt_cfg.get("async_save", False))))
+    if validate:
+        ev = sched["evaluation"]
+        eval_fn = make_eval_fn(
+            cfg, model,
+            max_per_img=((cfg["model"].get("test_cfg") or {}).get("det")
+                         or {}).get("max_per_img", 300),
+            skip_det=skip_det_eval)
+        runner.register_hook(MultiDatasetsEvalHook(
+            eval_fn, interval=ev.get("interval", 15000),
+            save_best=ev.get("save_best"), work_dir=work_dir,
+            strict_save_best=not skip_det_eval))
+    for hook in [*build_custom_hooks(cfg.get("custom_hooks")), *hooks]:
+        runner.register_hook(hook)
+
+    runner.run(multi_loader)
+    return runner
+
+
+def train_model_without_det_eval(cfg: dict, work_dir: str, **kwargs):
+    """``train_model`` with the det datasets left out of the evaluation
+    (the reference's tools/train_without_det_eval.py)."""
+    kwargs["skip_det_eval"] = True
+    return train_model(cfg, work_dir, **kwargs)

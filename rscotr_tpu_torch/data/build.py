@@ -1,5 +1,6 @@
 """Data builders of the port (counterpart of rscotr_tpu/data/build.py):
-the two-level config composition, datasets, and per-dataset loaders.
+the two-level config composition, datasets, per-dataset loaders, and the
+multi-task loader of co-training.
 
 * ``load_data_cfg``: each ``cfg["data"][name]`` entry may carry ``config:
   <path>``, a per-dataset config file that is loaded and inlined, its
@@ -9,10 +10,13 @@ the two-level config composition, datasets, and per-dataset loaders.
 * ``build_dataloaders`` applies the per-task loader options: a static det
   bucket (``det_bucket_hw``), ``max_gt`` GT padding, the seg size and pad
   value, and ``device_preprocess`` (Normalize dropped from the host
-  pipeline, uint8 batches normalized on the card). ``num_replicas`` /
-  ``rank`` are arguments (one process unless given). The training side
-  (the iteration strategies, ``MultiDataLoader``, the device-augment
-  collates) waits for ROADMAP M5 / M6.
+  pipeline, uint8 batches normalized on the card), and on the training
+  side the det collate's DN-width ladder (``det_dn_ladder``).
+  ``num_replicas`` / ``rank`` are arguments (one process unless given).
+  The device-augment collates wait for ROADMAP M6.
+* ``build_iteration_strategy`` (default round_robin) logs a 300-draw
+  histogram, as the reference does; ``derive_dn_ladder``;
+  ``build_multidataloader`` assembles the ``MultiDataLoader``.
 """
 
 from __future__ import annotations
@@ -23,11 +27,14 @@ from typing import Dict, Optional
 import numpy as np
 
 from rscotr_tpu_torch.data import datasets  # noqa: F401 (registrations)
-from rscotr_tpu_torch.data.loader import (TaskDataLoader, collate_cls,
-                                          collate_det, collate_seg)
+from rscotr_tpu_torch.data.iteration_strategies import strategies_map
+from rscotr_tpu_torch.data.loader import (MultiDataLoader, TaskDataLoader,
+                                          collate_cls, collate_det,
+                                          collate_seg)
 from rscotr_tpu_torch.data.pipelines import (build_pipeline,
                                              split_normalize_cfg)
 from rscotr_tpu_torch.utils.config import deep_merge, load_cfg
+from rscotr_tpu_torch.utils.logging import get_root_logger
 from rscotr_tpu_torch.utils.registry import DATASETS
 
 _DEVICE_AUG = ("cls_device_augment", "det_device_augment",
@@ -88,7 +95,7 @@ _COLLATES = {
     "cls": lambda opts: collate_cls,
     "det": lambda opts: (lambda samples: collate_det(
         samples, bucket_hw=opts.get("det_bucket_hw", (800, 800)),
-        max_gt=opts.get("max_gt", 100))),
+        max_gt=opts.get("max_gt", 100), dn_ladder=opts.get("_dn_ladder"))),
     "seg": lambda opts: (lambda samples: collate_seg(
         samples, size=opts.get("seg_size", 512),
         seg_pad_val=opts.get("seg_pad_val", 255))),
@@ -107,18 +114,22 @@ def _uint8_collate(fn):
 def build_dataloaders(datasets: Dict[str, object], data_cfg: dict,
                       train: bool = True, seed: int = 0,
                       num_threads: int = 4, world_size: int = 1,
-                      num_replicas: int = 1, rank: int = 0
-                      ) -> Dict[str, TaskDataLoader]:
+                      num_replicas: int = 1, rank: int = 0,
+                      det_dn_ladder=None) -> Dict[str, TaskDataLoader]:
     """One ``TaskDataLoader`` per dataset. Training loaders shuffle, drop
     the last short batch and take this rank's share of a global batch of
-    ``samples_per_gpu * world_size``; eval loaders (``train=False``) run
-    every sample in order, ``test_samples_per_gpu`` at a time. Each loader
-    carries ``img_norm``: the Normalize stats moved to the card by
-    ``device_preprocess``, else None."""
+    ``samples_per_gpu * world_size``; a training det loader given
+    ``det_dn_ladder`` adds the zero-width ``dn_wide`` entry to its batches.
+    Eval loaders (``train=False``) run every sample in order,
+    ``test_samples_per_gpu`` at a time. Each loader carries ``img_norm``:
+    the Normalize stats moved to the card by ``device_preprocess``, else
+    None."""
     loaders = {}
     for name, ds in datasets.items():
         entry = data_cfg[name]
         opts = dict(entry.get("loader", {}))
+        if train and ds.task == "det" and det_dn_ladder:
+            opts["_dn_ladder"] = tuple(det_dn_ladder)
         if train:
             wanted = [k for k in _DEVICE_AUG if opts.get(k)]
             if wanted:
@@ -146,3 +157,66 @@ def build_dataloaders(datasets: Dict[str, object], data_cfg: dict,
             rank=rank if train else 0)
         loaders[name].img_norm = img_norm
     return loaders
+
+
+def build_iteration_strategy(cfg: dict, loaders, seed: int = 0):
+    """The strategy ``cfg["iteration_strategy"]`` names (round_robin when
+    it names none), seeded ``seed``; logs the empirical ratios of 300
+    draws of a twin, as the reference does."""
+    icfg = dict(cfg.get("iteration_strategy") or {"type": "round_robin"})
+    t = icfg.pop("type", "round_robin")
+    strategy = strategies_map[t](loaders, seed=seed, **icfg)
+    probe = strategies_map[t](loaders, seed=seed, **icfg)
+    hist = np.bincount([probe() for _ in range(300)],
+                       minlength=len(loaders))
+    get_root_logger().info(
+        "iteration strategy '%s' empirical ratios over 300 draws: %s",
+        t, dict(zip(loaders.keys(), (hist / 300).round(3).tolist())))
+    return strategy
+
+
+def derive_dn_ladder(cfg: dict):
+    """The DN group-width ladder of the det collate, or None (no det head
+    with ``dn_cfg``, or a det loader with ``dn_widen=False``).
+
+    The widths are ``dn_max_gt = min(group_cfg.dn_max_gt (20), max_gt)``,
+    ``max_gt``, and ``num_dn // g`` for every group count g that the
+    reference's ``num_groups = num_dn // n`` takes for a GT count n in
+    (dn_max_gt, max_gt]. A batch takes the smallest width >= its largest GT
+    count, so above ``dn_max_gt`` the group count is the reference's
+    (``N // (N // (N // n)) == N // n``). At or below ``dn_max_gt`` every
+    batch takes width ``dn_max_gt`` and ``num_dn // dn_max_gt`` groups,
+    where the reference would build ``num_dn // n`` (ROADMAP C1). Flagship
+    (N = 100, max_gt 100): (20, 25, 33, 50, 100)."""
+    bh = (cfg.get("model") or {}).get("bbox_head") or {}
+    if not bh or not bh.get("dn_cfg"):
+        return None
+    gc = (bh.get("dn_cfg") or {}).get("group_cfg") or {}
+    max_gt = 100
+    for entry in cfg["data"].values():
+        if entry["task"] == "det":
+            opts = dict(entry.get("loader", {}))
+            max_gt = opts.get("max_gt", 100)
+            if not opts.get("dn_widen", True):
+                return None
+    dn_max_gt = min(gc.get("dn_max_gt", 20), max_gt)
+    num_dn = gc.get("num_dn_queries", 100) or 100
+    rungs = {dn_max_gt, max_gt}
+    if dn_max_gt < max_gt:
+        for g in range(1, max(num_dn // (dn_max_gt + 1), 1) + 1):
+            r = num_dn // g
+            if dn_max_gt < r <= max_gt:
+                rungs.add(r)
+    return tuple(sorted(rungs))
+
+
+def build_multidataloader(cfg: dict, datasets: Dict[str, object],
+                          seed: int = 0, world_size: int = 1
+                          ) -> MultiDataLoader:
+    """The training loaders of ``datasets`` (with the DN ladder) under the
+    config's iteration strategy, both seeded ``seed``."""
+    loaders = build_dataloaders(datasets, cfg["data"], train=True, seed=seed,
+                                world_size=world_size,
+                                det_dn_ladder=derive_dn_ladder(cfg))
+    return MultiDataLoader(loaders,
+                           build_iteration_strategy(cfg, loaders, seed=seed))

@@ -1,22 +1,26 @@
-"""Data loaders of the port (counterpart of the collates and
-``TaskDataLoader`` of rscotr_tpu/data/loader.py): per-task batching into
-static shapes, one batch of numpy arrays at a time.
+"""Data loaders of the port (counterpart of rscotr_tpu/data/loader.py):
+per-task batching into static shapes, one batch of numpy arrays at a time,
+a background prefetch thread, and the multi-task loader of co-training.
 
 * cls: img (B, S, S, 3), gt_label (B,)
 * det: img (B, Hb, Wb, 3) zero-padded into the smallest fitting bucket,
   img_hw (B, 2), scale_factor (B, 4), gt_bboxes (B, max_gt, 4) xyxy,
-  gt_labels (B, max_gt), gt_valid (B, max_gt)
+  gt_labels (B, max_gt), gt_valid (B, max_gt), and with a DN ladder the
+  zero-width ``dn_wide`` (0, width)
 * seg: img (B, S, S, 3), gt_semantic_seg (B, S, S) padded with
   ``seg_pad_val``, img_hw (B, 2), ori_hw (B, 2)
 
 Samples are prepared on threads, each from its own seeded generator.
-``PrefetchIterator``, ``MultiDataLoader`` and the device-augment collates
-wait for ROADMAP M5 / M6.
+``MultiDataLoader`` interleaves the per-dataset loaders under an iteration
+strategy; ``PrefetchIterator`` runs an iterator (and a transfer to the card)
+on a worker thread. The device-augment collates wait for ROADMAP M6.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Iterator, List
+import queue
+import threading
+from typing import Callable, Dict, Iterator, List, Optional
 
 import numpy as np
 
@@ -45,8 +49,18 @@ def select_det_bucket(bucket_hw, h: int, w: int):
     return min(fits, key=lambda b: b[0] * b[1])
 
 
-def collate_det(samples: List[dict], bucket_hw, max_gt: int
-                ) -> Dict[str, np.ndarray]:
+def dn_wide_marker(n_gt_max: int, dn_ladder) -> np.ndarray:
+    """A zero-width array whose SHAPE carries the DN group width of a batch:
+    the smallest ladder entry >= the batch's largest valid-GT count (the
+    largest entry when none is). It costs nothing to move; the det step
+    reads its width (``engine.train_step.det_loss_fn``)."""
+    ladder = sorted(dn_ladder)
+    s = next((v for v in ladder if v >= n_gt_max), ladder[-1])
+    return np.zeros((0, s), np.float32)
+
+
+def collate_det(samples: List[dict], bucket_hw, max_gt: int,
+                dn_ladder=None) -> Dict[str, np.ndarray]:
     B = len(samples)
     hmax = max(s["img"].shape[0] for s in samples)
     wmax = max(s["img"].shape[1] for s in samples)
@@ -69,9 +83,13 @@ def collate_det(samples: List[dict], bucket_hw, max_gt: int
         gt_bboxes[i, :n] = boxes[:n]
         gt_labels[i, :n] = labels[:n]
         gt_valid[i, :n] = True
-    return {"img": img, "img_hw": img_hw, "scale_factor": scale_factor,
-            "gt_bboxes": gt_bboxes, "gt_labels": gt_labels,
-            "gt_valid": gt_valid}
+    out = {"img": img, "img_hw": img_hw, "scale_factor": scale_factor,
+           "gt_bboxes": gt_bboxes, "gt_labels": gt_labels,
+           "gt_valid": gt_valid}
+    if dn_ladder:
+        out["dn_wide"] = dn_wide_marker(
+            int(gt_valid.sum(axis=1).max(initial=0)), dn_ladder)
+    return out
 
 
 def collate_seg(samples: List[dict], size: int = 512,
@@ -178,3 +196,139 @@ class TaskDataLoader:
                 samples = [self._prepare(int(i), s)
                            for i, s in zip(chunk, seeds)]
             yield self.collate_fn(samples)
+
+
+class PrefetchIterator:
+    """Runs an iterator on a background thread, ``depth`` items ahead.
+
+    ``transfer_fn`` (optional) runs on each item in the worker thread: the
+    runner passes the copy of a batch to the card there, so the copy
+    overlaps the previous step. A worker failure (in the iterator or the
+    transfer) is re-raised by ``__next__`` as ``RuntimeError``, never turned
+    into ``StopIteration``, which the runner takes for an epoch end."""
+
+    def __init__(self, it: Iterator, depth: int = 2,
+                 transfer_fn: Optional[Callable] = None):
+        self._q: queue.Queue = queue.Queue(maxsize=depth)
+        self._it = it
+        self._transfer = transfer_fn
+        self._done = object()
+        self._error: Optional[BaseException] = None
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._worker, daemon=True)
+        self._thread.start()
+
+    def _worker(self):
+        try:
+            for x in self._it:
+                if self._stop.is_set():
+                    return
+                if self._transfer is not None:
+                    x = self._transfer(x)
+                self._q.put(x)
+        except BaseException as e:   # noqa: B036 -- re-raised in __next__
+            self._error = e
+        finally:
+            self._q.put(self._done)
+
+    def close(self) -> None:
+        """Stop the worker after the item it is preparing and drop what it
+        prepared; returns once the thread has ended."""
+        self._stop.set()
+        while self._thread.is_alive():
+            try:
+                self._q.get(timeout=0.05)
+            except queue.Empty:
+                pass
+        self._thread.join()
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        x = self._q.get()
+        if x is self._done:
+            # leave the marker for a later call, which ends the same way
+            self._q.put(x)
+            if self._error is not None:
+                raise RuntimeError(
+                    "prefetch worker failed") from self._error
+            raise StopIteration
+        return x
+
+
+class MultiDataLoader:
+    """Interleaves per-dataset loaders under an iteration strategy.
+
+    Each ``__next__`` asks the strategy for a dataset index, pulls one
+    batch of that loader and tags it with ``dataset_name`` and ``task``.
+    Under a strategy with ``should_exhaust_all_iterators`` the epoch ends
+    when every child is exhausted (a draw of a finished child is drawn
+    again); under the others an exhausted child is re-ignited with its
+    epoch bumped, so it reshuffles and re-seeds its samples."""
+
+    def __init__(self, loaders: Dict[str, TaskDataLoader], strategy):
+        if not loaders:
+            raise ValueError("MultiDataLoader needs at least one loader")
+        for n, dl in loaders.items():
+            # a 0-batch child (a dataset smaller than the batch, with
+            # drop_last) would starve its task: every draw re-ignites it
+            # and finds it exhausted again
+            if len(dl) == 0:
+                raise ValueError(
+                    f"loader '{n}' yields no batches (dataset of "
+                    f"{len(dl.dataset)} < batch size {dl.batch_size}?)")
+        self.loaders = loaders
+        self.names = list(loaders.keys())
+        self.strategy = strategy
+        self._iters: Dict[str, Iterator] = {}
+        self._finished: Dict[str, bool] = {}
+
+    @property
+    def dataset_names(self):
+        return self.names
+
+    def __iter__(self):
+        self._iters = {n: iter(dl) for n, dl in self.loaders.items()}
+        self._finished = {n: False for n in self.names}
+        return self
+
+    def __next__(self) -> Dict[str, object]:
+        exhaust_all = getattr(self.strategy,
+                              "should_exhaust_all_iterators", False)
+        attempts = 0
+        while True:
+            name = self.names[self.strategy()]
+            if exhaust_all and self._finished[name]:
+                if all(self._finished.values()):
+                    raise StopIteration
+                # draw again while the child is finished (the reference
+                # redraws without bound); after 1000 misses (a strategy
+                # that can never draw an unfinished child, e.g. constant)
+                # take the first unfinished child
+                attempts += 1
+                if attempts < 1000:
+                    continue
+                name = next(n for n in self.names if not self._finished[n])
+            try:
+                batch = next(self._iters[name])
+            except StopIteration:
+                if exhaust_all:
+                    self._finished[name] = True
+                    if all(self._finished.values()):
+                        raise
+                    continue
+                dl = self.loaders[name]
+                dl.set_epoch(dl._epoch + 1)
+                self._iters[name] = iter(dl)
+                batch = next(self._iters[name])
+            batch = dict(batch)
+            batch["dataset_name"] = name
+            batch["task"] = self.loaders[name].dataset.task
+            return batch
+
+    def seed_sampler(self, epoch: int):
+        """Set every child's epoch (the runner calls it with its step when
+        an exhaust-all epoch ends)."""
+        for dl in self.loaders.values():
+            dl.set_epoch(epoch)

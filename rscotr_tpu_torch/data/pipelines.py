@@ -9,8 +9,9 @@ meta keys ``ori_shape``, ``img_shape``, ``scale_factor``, ``flip``.
 Ported: ``LoadImageFromFile`` (PIL decode; the JAX package's native decoder,
 ``csrc/image_core.cpp``, is not ported), ``Resize``, ``RandomFlip``,
 ``Pad``, ``Normalize``, which is every op of the configs' val / test
-pipelines. The training transforms wait for ROADMAP M5:
-``build_pipeline`` raises ``NotImplementedError`` for them.
+pipelines. The training transforms wait for ROADMAP M8 and the
+device-augment planners for ROADMAP M6: ``build_pipeline`` raises
+``NotImplementedError`` for them.
 """
 
 from __future__ import annotations
@@ -25,11 +26,12 @@ from rscotr_tpu_torch.utils.registry import PIPELINES
 DEFAULT_MEAN = np.array([123.675, 116.28, 103.53], np.float32)
 DEFAULT_STD = np.array([58.395, 57.12, 57.375], np.float32)
 
-# the JAX package's training transforms, not ported yet (ROADMAP M5)
+# the JAX package's training transforms (ROADMAP M8) and device-augment
+# planners (ROADMAP M6), not ported yet
 TRAIN_ONLY = ("RandomResizedCrop", "RandomCrop", "PhotoMetricDistortion",
-              "RandomErasing", "RandAugment", "AutoAugment",
-              "DeviceAugmentPlanner", "SegDeviceAugmentPlanner",
-              "DetDeviceAugmentPlanner")
+              "RandomErasing", "RandAugment", "AutoAugment")
+PLANNERS = ("DeviceAugmentPlanner", "SegDeviceAugmentPlanner",
+            "DetDeviceAugmentPlanner")
 # torch-format bundling steps: the loaders batch numpy directly
 _SKIP = ("LoadAnnotations", "DefaultFormatBundle", "ImageToTensor",
          "ToTensor", "Collect", "MultiScaleFlipAug")
@@ -221,7 +223,11 @@ def build_pipeline(cfgs: Sequence[dict]) -> List:
         if t in TRAIN_ONLY:
             raise NotImplementedError(
                 f"pipeline op {t!r}: the training transforms are not ported "
-                "to rscotr_tpu_torch yet (ROADMAP M5)")
+                "to rscotr_tpu_torch yet (ROADMAP M8)")
+        if t in PLANNERS:
+            raise NotImplementedError(
+                f"pipeline op {t!r}: on-device augmentation is not ported "
+                "to rscotr_tpu_torch yet (ROADMAP M6)")
         out.append(PIPELINES.build({"type": t, **c}))
     return out
 

@@ -16,7 +16,8 @@ from __future__ import annotations
 import json
 import os
 import re
-from typing import Any, Dict, Optional
+import threading
+from typing import Any, Callable, Dict, Optional
 
 import torch
 
@@ -25,36 +26,84 @@ _CONVERT = ("python tools/convert_checkpoint.py CONFIG {path} OUT.pth "
             "--to-torch")
 
 
+class CheckpointWriter:
+    """At most one checkpoint write in flight, on a thread of its own. The
+    next ``submit`` and ``wait`` join it; ``wait`` re-raises its failure
+    (once), so a failed write surfaces in the training loop."""
+
+    def __init__(self):
+        self._thread: Optional[threading.Thread] = None
+        self._error: Optional[BaseException] = None
+
+    def submit(self, write) -> None:
+        self.wait()
+
+        def job():
+            try:
+                write()
+            except BaseException as e:  # noqa: B036 -- re-raised by wait
+                self._error = e
+
+        self._thread = threading.Thread(target=job, name="ckpt-writer")
+        self._thread.start()
+
+    def wait(self) -> None:
+        if self._thread is not None:
+            self._thread.join()
+            self._thread = None
+        if self._error is not None:
+            err, self._error = self._error, None
+            raise RuntimeError("async checkpoint save failed") from err
+
+
 def save_checkpoint(work_dir: str, step: int, model, optimizer=None,
                     meta: Optional[Dict[str, Any]] = None,
-                    name: Optional[str] = None) -> str:
+                    name: Optional[str] = None,
+                    writer: Optional[CheckpointWriter] = None,
+                    post_save: Optional[Callable[[], None]] = None) -> str:
     """Write ``work_dir/iter_{step}.pth`` (or ``work_dir/{name}[.pth]``)
     and return its path. A regular save then points
     ``work_dir/last_checkpoint`` at it; a named save (``best_checkpoint``)
     leaves the pointer alone. The file is written under a temporary name
     and renamed, and the pointer after that, so neither ever names an
-    incomplete file."""
+    incomplete file; ``post_save`` runs after both (the checkpoint hook
+    prunes there).
+
+    The state is copied to the host before this returns. With a
+    ``writer`` the file is written on its thread (the training loop waits
+    for the copy only); without one, here."""
     work_dir = os.path.abspath(work_dir)
-    os.makedirs(work_dir, exist_ok=True)
     if name is None:
         fname = f"iter_{int(step)}.pth"
     else:
         fname = name if name.endswith(".pth") else f"{name}.pth"
     path = os.path.join(work_dir, fname)
     m = json.loads(json.dumps(dict(meta or {}, iter=int(step)), default=str))
+    # a copy even for CPU tensors: the loop updates them in place while a
+    # writer thread serializes
     ckpt = {"meta": m,
-            "state_dict": {k: v.detach().cpu()
+            "state_dict": {k: v.detach().to("cpu", copy=True)
                            for k, v in model.state_dict().items()}}
     if optimizer is not None:
         ckpt["optimizer"] = optimizer.state_dict()
-    tmp = path + ".tmp"
-    torch.save(ckpt, tmp)
-    os.replace(tmp, path)
-    if name is None:
-        pointer = os.path.join(work_dir, "last_checkpoint")
-        with open(pointer + ".tmp", "w") as f:
-            f.write(path)
-        os.replace(pointer + ".tmp", pointer)
+
+    def write():
+        os.makedirs(work_dir, exist_ok=True)
+        tmp = path + ".tmp"
+        torch.save(ckpt, tmp)
+        os.replace(tmp, path)
+        if name is None:
+            pointer = os.path.join(work_dir, "last_checkpoint")
+            with open(pointer + ".tmp", "w") as f:
+                f.write(path)
+            os.replace(pointer + ".tmp", pointer)
+        if post_save is not None:
+            post_save()
+
+    if writer is not None:
+        writer.submit(write)
+    else:
+        write()
     return path
 
 

@@ -1,6 +1,6 @@
 """COCO-style mAP (counterpart of the numpy path of
 rscotr_tpu/evaluation/coco_map.py; the JAX package's native C++ AP,
-``csrc/coco_eval.cpp``, is not ported: ROADMAP M5).
+``csrc/coco_eval.cpp``, is not ported: ROADMAP M8).
 
 mmdet ``CocoDataset.evaluate(metric="bbox", iou_thrs=[0.5])`` semantics on
 crowd-free data: per class, detections in descending score order (a stable

@@ -1,8 +1,8 @@
 """String-keyed component registries of the port (PyTorch counterpart of
 rscotr_tpu/config/registry.py, written out again here because the port
-imports nothing of the JAX package): ``DATASETS`` and ``PIPELINES`` map the
-configs' ``type`` names to the port's classes. The model parts are built by
-``models.build`` without a registry.
+imports nothing of the JAX package): ``DATASETS``, ``PIPELINES``,
+``HOOKS`` and ``STRATEGIES`` map the configs' ``type`` names to the port's
+classes. The model parts are built by ``models.build`` without a registry.
 """
 
 from __future__ import annotations
@@ -15,6 +15,9 @@ class Registry:
     def __init__(self, name: str):
         self.name = name
         self._modules: Dict[str, Any] = {}
+
+    def __contains__(self, key: str) -> bool:
+        return key in self._modules
 
     def get(self, key: str) -> Any:
         if key not in self._modules:
@@ -46,3 +49,5 @@ class Registry:
 
 DATASETS = Registry("datasets")
 PIPELINES = Registry("pipelines")
+HOOKS = Registry("hooks")
+STRATEGIES = Registry("strategies")

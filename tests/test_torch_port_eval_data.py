@@ -134,7 +134,7 @@ def test_cfg_options_match_jax():
 def test_train_transforms_wait_for_m5():
     for name, key in (("cls/resisc_swin_224.py", "train_pipeline"),
                       ("seg/potsdam_IRRG_all.py", "train_pipeline")):
-        with pytest.raises(NotImplementedError, match="ROADMAP M5"):
+        with pytest.raises(NotImplementedError, match="ROADMAP M8"):
             build_pipeline(_base(name)[key])
     # dior's train pipeline (Resize, RandomFlip, Normalize) is all ported
     assert len(build_pipeline(_base("det/dior.py")["train_pipeline"])) == 4
