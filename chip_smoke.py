@@ -70,7 +70,20 @@ Phases, each of which raises on failure (exit code 1, no result line):
     launch on the vector body); median step time (CUDA events around the
     whole step, host matcher included), the host matcher's time and peak
     memory reported;
-11. the model zoo at full width and depth, bf16, random weights: the
+11. on-device augmentation (``augment_phase``): the stages of
+    ``ops/device_augment.py`` on the card against the same stages on the
+    CPU, on records the port's planners drew for
+    ``MTL_synthetic_flagship_devaug.py``'s synthetic sets: cls 16 x 256^2
+    -> 224^2 (RandomResizedCrop, flip, 2 RandAugment slots, erase), det 1
+    x 800^2 (the two-stage resample), seg 2 x 512^2 (the resize + crop +
+    flip matrices, PhotoMetricDistortion). Each part is fed the CPU's
+    output of the part before it and held to ``AUG_TOL`` (at most 1 uint8
+    level on at most 0.5% of the values); each whole stage end to end
+    (``run_stage``, as the step calls it) is held to ``AUG_TOL`` too, run
+    again with ``allow_tf32`` on (bit-equal: the resample products hold
+    full float32), timed (CUDA events, and the host's time to issue it)
+    and profiled (device time, kernels per call);
+12. the model zoo at full width and depth, bf16, random weights: the
     paper's MTL (``MlvlClsHead`` scheme 5, whose cls path runs the shared
     encoder) answers 3 cls 16x224^2 requests and takes 3 cls steps under
     the mask of ``cls_uses_encoder=True``; DINO-R50 (an MTL with a
@@ -78,15 +91,18 @@ Phases, each of which raises on failure (exit code 1, no result line):
     steps; RSCoTrSeg-R50 (the standalone segmentor, its own 3-level
     encoder) 3 seg 2x512^2 requests and 3 seg steps without a task mask.
     Each path's timed calls follow 2 untimed warm-up calls, checked and
-    counted as they are. Each config is a copy with its loaders' on-device augmentation off
-    (ROADMAP M6). Every request and step runs with the kernel counts at 0
-    and is checked
+    counted as they are. Each config runs as written, its on-device
+    augmentation on: the train batch comes from its train pipeline through
+    the port's planner and aug collate over a synthetic set (cls 16 x
+    256^2 sources, det 1 x 800^2 into DINO-R50's (800, 1344) bucket, seg 2
+    x 512^2), and each step runs the augment stage. Every request and step
+    runs with the kernel counts at 0 and is checked
     against the counts the code gives (all K1 / K1b launches on the vector
     body); outputs checked, median time and peak memory reported. K1 and
     K1b are held against their plain versions at these paths' new encoder
     shapes in phases 3 and 4 (B=16, Q=Nv=1,045, L=4; B=2, Q=Nv=5,376,
     L=3);
-12. evaluation (``eval_phase``): the flagship saved with the port's
+13. evaluation (``eval_phase``): the flagship saved with the port's
     ``save_checkpoint`` and loaded back through ``resolve_checkpoint(
     work_dir/latest.pth)`` into a model of another seed, its cls, det and
     seg outputs bit-equal to the saver's; then the port's
@@ -102,7 +118,7 @@ Phases, each of which raises on failure (exit code 1, no result line):
     the seg logits path (crop and resize on the host) timed once; the tiny
     config's ``make_val_step`` for cls, det and seg on the CPU and on the
     card, float32, TF32 off, every log var within SLICE_TOL;
-13. the co-training loop (``loop_phase``): the port's ``tools/train.py``
+14. the co-training loop (``loop_phase``): the port's ``tools/train.py``
     (``rscotr_tpu_torch.tools.train.main``) on the flagship config as
     written (round_robin, ``steps_per_dispatch=16``: JAX's grouped order)
     for 48 iterations in a temporary work dir: the task of every step
@@ -120,7 +136,21 @@ Phases, each of which raises on failure (exit code 1, no result line):
     call) and host wall after each group's first step, the median
     data_time, the peak memory; the loop's data-wait share, the
     checkpoint save and load times, the eval hook's time, the phase's;
-14. library yardsticks of K2 and K2b, last because cuDNN keeps workspace
+15. co-training with the paper's augmentation (``aug_loop_phase``): the
+    port's ``tools/train.py`` on ``MTL_synthetic_flagship_devaug.py`` (the
+    three augment tails in the steps, on the card) and on
+    ``MTL_synthetic_flagship_hostaug.py`` (the same tails on the host: PIL
+    RandAugment, resize, crop, photometric in the loader threads), each as
+    written for 48 iterations (16 cls, 16 det, 16 seg), in the order
+    devaug, hostaug, hostaug, devaug; all ``--no-validate``. Every
+    iteration's task and K1 / K1b / K2 / K2b launches (on the vector body)
+    checked as in the loop phase, every loss term finite, the totals, a
+    parameter of the backbone and of each head moved; reported as the loop
+    phase's, per run the data-wait share over all steps and after step 1
+    (the steady wait) beside each group's collection, the two configs' runs
+    side by side, and each augment stage's time as a share of its task's
+    devaug step;
+16. library yardsticks of K2 and K2b, last because cuDNN keeps workspace
     once it has run under graph capture: ``scaled_dot_product_attention``
     with the additive bias + mask, and its autograd backward, on the timed
     stages' own tensors (rebuilt from their seed), under every backend that
@@ -130,7 +160,7 @@ The line before the last is {"kernels": [...]}: eight kernels, each with
 ``launches`` (the main path's run: the flagship's training), K1, K1b, K2
 and K2b also ``launches_paths`` (each zoo path's, each flagship task's,
 the flagship eval's run, each loop step's per task and the loop's whole
-run, counted from 0), ``max_abs_err``, ``ms`` and ``plain_ms``
+run, the same for the first devaug and hostaug runs, counted from 0), ``max_abs_err``, ``ms`` and ``plain_ms``
 (kernel and plain version, same inputs), ``bound_ms`` / ``bound_by`` (the
 least time the card could take, computed from this run's tensors),
 ``library_ms`` / ``library`` (the one-call yardstick, null where there is
@@ -162,7 +192,6 @@ before printing any result.
 
 from __future__ import annotations
 
-import copy
 import json
 import os
 import subprocess
@@ -183,6 +212,22 @@ RSEG_R50_CFG = os.path.join(
     ROOT, "configs/seg/RSCoTrSeg_3scale_r50_512x512_80k_potsdam_IRRG_all.py")
 # untimed calls before each zoo path's timed ones
 ZOO_WARMUP = 2
+# on-device augmentation: the flagship with all three augment tails on the
+# card, and its twin with them on the host (PIL in the loader threads)
+DEVAUG_CFG = os.path.join(ROOT,
+                          "configs/multi/MTL_synthetic_flagship_devaug.py")
+HOSTAUG_CFG = os.path.join(ROOT,
+                           "configs/multi/MTL_synthetic_flagship_hostaug.py")
+# an augment part on the card against the CPU, on the same inputs: at most
+# this many uint8 levels, on at most this share of the values (the float32
+# resample products sum in another order on each; a sin or tan of the
+# rotation may differ in its last bit)
+AUG_TOL = (1.0, 0.005)
+# iterations of each devaug and hostaug run (steps_per_dispatch 16 as
+# written: 16 cls, 16 det, 16 seg)
+AUG_ITERS = 48
+# the quad-gather path's kernels, which no model path launches
+QUAD = ("K3'", "K4", "K5")
 
 # K1 / K2 against the plain version on the same inputs. float32: kernel and
 # plain differ only in summation order. bfloat16: the plain version runs in
@@ -1545,12 +1590,6 @@ def train_phase():
     from rscotr_tpu_torch.engine.train_step import make_train_step
     from rscotr_tpu_torch.models import build_model
     from rscotr_tpu_torch.models.heads import dino_loss as dl
-    from rscotr_tpu_torch.ops.ms_deform_attn import (ms_deform_attn,
-                                                     ms_deform_attn_bwd)
-    from rscotr_tpu_torch.ops.msda_ws import ws_bwd, ws_fwd
-    from rscotr_tpu_torch.ops.scatter_mm import scatter_add_mm
-    from rscotr_tpu_torch.ops.window_attention import (window_attention,
-                                                       window_attention_bwd)
     from rscotr_tpu_torch.utils.config import load_cfg
     log("training phase: flagship MTL (cls + det + seg), bf16 compute, f32 "
         "params, drop path 0.2, random weights (seed 0)")
@@ -1592,9 +1631,7 @@ def train_phase():
         return out
 
     dl.hungarian_batched = timed_solve
-    counters = {"K1": ms_deform_attn, "K1b": ms_deform_attn_bwd,
-                "K3'": scatter_add_mm, "K4": ws_fwd, "K5": ws_bwd,
-                "K2": window_attention, "K2b": window_attention_bwd}
+    counters = kernel_counters()
     # K3', K4 and K5 run on the quad-gather path only: K1 and K1b do their
     # work on this one
     quad = {"K3'": 0, "K4": 0, "K5": 0}
@@ -1604,10 +1641,7 @@ def train_phase():
             "seg": {"K1": 6, "K1b": 6, **quad, "K2": 12, "K2b": 12}}
     gen = torch.Generator().manual_seed(0)
     # -- the main path's run: 2 warm-up + 10 timed steps of each task ----
-    for fn in counters.values():
-        fn.launches = 0
-    ms_deform_attn.vec_launches = 0
-    ms_deform_attn_bwd.vec_launches = 0
+    zero_counts(counters)
     times = {t: [] for t in tasks}
     peak = {t: 0.0 for t in tasks}
     per_task = {t: {} for t in tasks}
@@ -1616,9 +1650,7 @@ def train_phase():
         for i, task in enumerate(schedule):
             snap = {n: p.detach().clone() for n, p in params.items()
                     if n.startswith(frozen[task])}
-            before = {k: fn.launches for k, fn in counters.items()}
-            vec = (ms_deform_attn.vec_launches,
-                   ms_deform_attn_bwd.vec_launches)
+            before = launch_counts(counters)
             torch.cuda.reset_peak_memory_stats()
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
@@ -1627,14 +1659,15 @@ def train_phase():
             end.record()
             torch.cuda.synchronize()
             ms = start.elapsed_time(end)
-            got = {k: fn.launches - before[k] for k, fn in counters.items()}
+            now = launch_counts(counters)
+            got = {k: now[k] - before[k] for k in counters}
             for k, v in got.items():
                 per_task[task][k] = per_task[task].get(k, 0) + v
             if got != want[task]:
                 fail(f"{task} step {i}: kernel launches {got} != "
                      f"{want[task]}")
-            if (ms_deform_attn.vec_launches - vec[0],
-                    ms_deform_attn_bwd.vec_launches - vec[1]) != \
+            if (now["K1 vec"] - before["K1 vec"],
+                    now["K1b vec"] - before["K1b vec"]) != \
                     (got["K1"], got["K1b"]):
                 fail(f"{task} step {i}: a K1 or K1b launch took the lane "
                      "body")
@@ -1657,9 +1690,7 @@ def train_phase():
                     f"{len(snap)} tensors bit-identical")
     finally:
         dl.hungarian_batched = solve
-    launches = {k: fn.launches for k, fn in counters.items()}
-    launches["K1 vec"] = ms_deform_attn.vec_launches
-    launches["K1b vec"] = ms_deform_attn_bwd.vec_launches
+    launches = launch_counts(counters)
     launches["per task"] = per_task
     log(f"  launches in the main path's run ({len(schedule)} steps): "
         f"{launches}")
@@ -1690,20 +1721,383 @@ def train_phase():
     return launches, res
 
 
-def without_device_augment(cfg):
-    """A copy of a composed config with its loaders' on-device augmentation
-    options off (ROADMAP M6: ``make_step_config`` refuses them), and the
-    options it turned off."""
-    cfg = copy.deepcopy(cfg)
-    off = []
-    for name, entry in cfg.get("data", {}).items():
-        loader = entry.get("loader", {})
-        for key in ("cls_device_augment", "det_device_augment",
-                    "seg_device_augment"):
-            if loader.get(key):
-                loader[key] = False
-                off.append(f"{name}.loader.{key}")
-    return cfg, off
+def kernel_counters():
+    """The wrappers whose ``launches`` count their kernels' launches."""
+    from rscotr_tpu_torch.ops.ms_deform_attn import (ms_deform_attn,
+                                                     ms_deform_attn_bwd)
+    from rscotr_tpu_torch.ops.msda_ws import ws_bwd, ws_fwd
+    from rscotr_tpu_torch.ops.scatter_mm import scatter_add_mm
+    from rscotr_tpu_torch.ops.window_attention import (window_attention,
+                                                       window_attention_bwd)
+    return {"K1": ms_deform_attn, "K1b": ms_deform_attn_bwd,
+            "K2": window_attention, "K2b": window_attention_bwd,
+            "K3'": scatter_add_mm, "K4": ws_fwd, "K5": ws_bwd}
+
+
+def launch_counts(counters):
+    """Each kernel's count, and K1's and K1b's launches on the vector
+    body."""
+    return dict({k: c.launches for k, c in counters.items()},
+                **{"K1 vec": counters["K1"].vec_launches,
+                   "K1b vec": counters["K1b"].vec_launches})
+
+
+def zero_counts(counters):
+    for c in counters.values():
+        c.launches = 0
+    counters["K1"].vec_launches = counters["K1b"].vec_launches = 0
+
+
+def aug_batch(cfg, name, seed=0):
+    """The first training batch of dataset ``name`` of a composed config,
+    its train pipeline and loader options as written, run over the
+    config's synthetic set (or, for a config of real data, a synthetic set
+    of the task at the loader's sizes): with a device-augment option the
+    port's planner draws the records and its aug collate batches them."""
+    from rscotr_tpu_torch.data import build_dataloaders
+    from rscotr_tpu_torch.data.build import derive_dn_ladder
+    from rscotr_tpu_torch.data.datasets import (SyntheticClsDataset,
+                                                SyntheticDetDataset,
+                                                SyntheticSegDataset)
+    entry = cfg["data"][name]
+    opts = entry.get("loader", {})
+    train = entry["data"]["train"]
+    if train["type"].startswith("Synthetic"):
+        from rscotr_tpu_torch.data import build_datasets
+        ds = build_datasets({name: entry})[name]
+    else:
+        n = 4 * entry["data"].get("samples_per_gpu", 1)
+        ds = {"cls": lambda: SyntheticClsDataset(
+                  length=n, img_size=opts.get("cls_src_size", 256),
+                  num_classes=45, seed=seed),
+              "det": lambda: SyntheticDetDataset(
+                  length=n, img_size=800, num_classes=20, max_boxes=18,
+                  seed=seed),
+              "seg": lambda: SyntheticSegDataset(
+                  length=n, img_size=opts.get("seg_size", 512),
+                  num_classes=6, seed=seed)}[entry["task"]]()
+        ds.pipeline_cfg = train["pipeline"]
+        ds.task, ds.dataset_name = entry["task"], name
+    loader = build_dataloaders({name: ds}, cfg["data"], train=True,
+                               seed=seed, num_threads=4,
+                               det_dn_ladder=derive_dn_ladder(cfg))[name]
+    return next(iter(loader))
+
+
+def augment_phase():
+    """The on-device augmentation stages on the card against the same
+    stages on the CPU (their plain reference there), on records the port's
+    planners drew for the devaug config's synthetic sets (seeded numpy):
+    cls 16 x 256^2 -> 224^2 with 2 RandAugment slots, det 1 x 800^2, seg 2
+    x 512^2. Each part is fed the CPU's output of the part before it, so a
+    difference is the part's own and is not carried through an op that
+    amplifies it (Equalize's and AutoContrast's LUTs, the HSV hue): at most
+    ``AUG_TOL[0]`` level, on at most ``AUG_TOL[1]`` of the values. Each
+    whole stage end to end, as the step runs it (``run_stage``), is held to
+    ``AUG_TOL`` too. The stages hold full float32 whatever the TF32 flag
+    says: run again with ``allow_tf32`` on, each output is bit-equal. Then each stage's time (CUDA events, 10 runs after 3), the
+    host's time to issue one, and a profile of 3 (device time, kernels and
+    aten ops per call)."""
+    from rscotr_tpu_torch.apis import make_step_config
+    from rscotr_tpu_torch.ops import device_augment as D
+    from rscotr_tpu_torch.tools.profile_quad_seg import profile_calls
+    cfg = as_written(DEVAUG_CFG)
+    step_cfg = make_step_config(cfg)
+    ccfg, dcfg, scfg = (step_cfg.device_aug, step_cfg.det_device_aug,
+                        step_cfg.seg_device_aug)
+    log(f"augment phase: {DEVAUG_CFG.split('configs/')[1]}'s planners on "
+        f"its synthetic sets; {ccfg}, {dcfg}, {scfg}")
+    res = {}
+
+    def on(dev, batch):
+        t = {k: torch.as_tensor(v).to(dev) for k, v in batch.items()
+             if isinstance(v, np.ndarray)}
+        return t, {k[len("aug_"):]: v for k, v in t.items()
+                   if k.startswith("aug_")}
+
+    def part(name, fn, *args):
+        """``fn`` on the CPU tensors ``args`` and on their copies on the
+        card; returns the CPU's output."""
+        want = fn(*args)
+        got = fn(*[{k: v.cuda() for k, v in a.items()} if isinstance(a, dict)
+                   else a.cuda() if isinstance(a, torch.Tensor) else a
+                   for a in args]).cpu()
+        d = (got - want).abs()
+        share = (d > 0).float().mean().item()
+        log(f"  {name:<34} card vs CPU: max {d.max().item():.0f} level(s),"
+            f" {100 * share:.4f}% of {d.numel()} values differ")
+        if d.max().item() > AUG_TOL[0] or share > AUG_TOL[1]:
+            fail(f"augment {name}: card vs CPU max {d.max().item()}, "
+                 f"{share:.2e} of values differ (tolerance {AUG_TOL})")
+        return want
+
+    # -- cls: RandomResizedCrop, flip, 2 slots, erase -------------------
+    batch = aug_batch(cfg, "resisc")
+    img, aug = on("cpu", batch)
+    x = part("cls random_resized_crop", lambda i, a: D.random_resized_crop(
+        i.float(), a["crop_y"], a["crop_x"], a["crop_h"], a["crop_w"],
+        ccfg.out_size), img["img"], aug)
+    x = torch.where(aug["flip"][:, None, None, None], x.flip(2), x)
+    for p in range(ccfg.num_policies):
+        x = part(f"cls RandAugment slot {p} "
+                 f"({len(set(aug['op_id'][:, p].tolist()))} ops)",
+                 lambda i, a, p=p: D.apply_rand_augment_slot(
+                     i, a["op_id"][:, p], a["op_m"][:, p], ccfg.fill),
+                 x, aug)
+    part("cls random_erase", lambda i, a: D.random_erase(
+        i, a["erase_on"], a["erase_y"], a["erase_x"], a["erase_h"],
+        a["erase_w"], ccfg.erase_fill, ccfg.erase_fill_std), x, aug)
+    stages = {"cls": (batch, "16x256^2 -> 224^2, 2 slots")}
+
+    # -- det: resize / crop / resize in the bucket -------------------------
+    batch = aug_batch(cfg, "dior")
+    out_hw = batch["out_template"].shape[1:3]
+    img, aug = on("cpu", batch)
+    part("det two-stage resample", lambda i, a: D.det_device_augment(
+        i, a, out_hw, dcfg), img["img"], aug)
+    stages["det"] = (batch, f"1x800^2 -> {out_hw[0]}x{out_hw[1]}")
+
+    # -- seg: ratio resize + crop + flip, then photometric ------------------
+    batch = aug_batch(cfg, "potsdam")
+    img, aug = on("cpu", batch)
+    # the photometric record made neutral: the stage is its resample alone
+    neutral = dict(aug, pm_bright=torch.zeros_like(aug["pm_bright"]),
+                   pm_c_pre=torch.ones_like(aug["pm_c_pre"]),
+                   pm_hsv_on=torch.zeros_like(aug["pm_hsv_on"]),
+                   pm_c_post=torch.ones_like(aug["pm_c_post"]))
+    x = part("seg resize + crop + flip", lambda i, a: D.seg_device_augment(
+        i, a, scfg), img["img"], neutral)
+    part("seg photometric_distortion", lambda i, a: D.photometric_distortion(
+        i, {k[3:]: v for k, v in a.items() if k.startswith("pm_")}), x, aug)
+    stages["seg"] = (batch, "2x512^2")
+
+    # -- whole stages: end to end, TF32 on, device time ---------------------
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    for task, (batch, what) in stages.items():
+        want = D.run_stage(task, on("cpu", batch)[0], step_cfg)
+        card = on("cuda", batch)[0]
+
+        def fn():
+            return D.run_stage(task, card, step_cfg)
+
+        got = fn()
+        torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            got_tf32 = fn()
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = tf32
+        if not torch.equal(got, got_tf32):
+            fail(f"augment {task}: the stage moved under allow_tf32")
+        d = (got.cpu() - want).abs()
+        ms = cuda_ms(fn, 10)
+        t0 = time.perf_counter()
+        fn()
+        host_ms = 1e3 * (time.perf_counter() - t0)
+        torch.cuda.synchronize()
+        res[task] = dict(ms=ms, host_ms=host_ms, what=what,
+                         max=d.max().item(),
+                         differ=(d > 0).float().mean().item())
+        log(f"  {task} stage {what}: {ms:.3f} ms (CUDA events), "
+            f"{host_ms:.3f} ms to issue on the host; end to end card vs "
+            f"CPU max {res[task]['max']:.0f} level(s), "
+            f"{100 * res[task]['differ']:.4f}% of {d.numel()} values "
+            f"differ; bit-equal with allow_tf32 on")
+        if res[task]["max"] > AUG_TOL[0] or res[task]["differ"] > AUG_TOL[1]:
+            fail(f"augment {task} stage end to end: card vs CPU max "
+                 f"{res[task]['max']}, {res[task]['differ']:.2e} of values "
+                 f"differ (tolerance {AUG_TOL})")
+        profile_calls(f"augment stage {task} {what}", fn, n=3, warmup=1)
+    return res
+
+
+def train_cli_run(argv, name, on_start=None):
+    """``rscotr_tpu_torch.tools.train.main(argv)`` with every count at 0
+    just before and read just after. Returns the run: per iteration
+    (``steps``) its task, step, launches (since the hooks of the iteration
+    before), log vars, CUDA-event span, host wall and peak memory; the
+    run's ``total`` launches and ``wall``; whether a parameter of the
+    backbone and of each task's head ``moved`` over the run; the runner's
+    ``end_step`` and ``end_opt_step``. ``on_start(runner)`` runs in the
+    first hook's ``before_run``."""
+    from rscotr_tpu_torch.engine import train_step as ts_mod
+    from rscotr_tpu_torch.engine.hooks import Hook
+    from rscotr_tpu_torch.tools import train as train_cli
+    counters = kernel_counters()
+    steps, moved = [], {}
+    watch = ("backbone.", "cls_head.", "bbox_head.", "seg_head.")
+
+    class Probe(Hook):
+        """First hook of an iteration (priority 0): the step's launches
+        since ``Tail`` (priority 100) closed the iteration before."""
+        priority = 0
+
+        def before_run(self, runner):
+            if on_start is not None:
+                on_start(runner)
+            self.first = {}
+            for n, p in runner.model.named_parameters():
+                top = next((w for w in watch if n.startswith(w)), None)
+                if top and top not in self.first and p.requires_grad:
+                    self.first[top] = (n, p.detach().clone())
+            self.last = launch_counts(counters)
+
+        def after_train_iter(self, runner):
+            now = launch_counts(counters)
+            steps[-1]["launches"] = {k: now[k] - self.last[k] for k in now}
+            steps[-1]["step"] = runner.step
+            steps[-1]["log_vars"] = dict(runner.log_vars)
+
+        def after_run(self, runner):
+            params = dict(runner.model.named_parameters())
+            for top, (n, before) in self.first.items():
+                moved[top] = not torch.equal(before, params[n])
+
+    class Tail(Hook):
+        priority = 100
+
+        def after_train_iter(self, runner):
+            probe.last = launch_counts(counters)
+
+    probe = Probe()
+    real_make = ts_mod.make_train_step
+
+    def timed_make(model, optimizer, task, step_cfg, mask=None):
+        step = real_make(model, optimizer, task, step_cfg, mask)
+
+        def call(batch, generator):
+            torch.cuda.reset_peak_memory_stats()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            t0 = time.perf_counter()
+            start.record()
+            lv = step(batch, generator)
+            end.record()
+            steps.append(dict(task=task, events=(start, end),
+                              host_ms=1e3 * (time.perf_counter() - t0),
+                              peak_mib=torch.cuda.max_memory_allocated()
+                              / 2 ** 20))
+            return lv
+        return call
+
+    log(f"  {name}: rscotr_tpu_torch.tools.train {' '.join(argv)}")
+    ts_mod.make_train_step = timed_make
+    try:
+        zero_counts(counters)
+        t0 = time.perf_counter()
+        runner = train_cli.main(argv, hooks=[probe, Tail()])
+        wall = time.perf_counter() - t0
+        total = launch_counts(counters)
+        torch.cuda.synchronize()
+        run = dict(steps=steps, total=total, moved=moved, wall=wall,
+                   end_step=runner.step, end_opt_step=runner.optimizer.step)
+        del runner
+    finally:
+        ts_mod.make_train_step = real_make
+        torch.cuda.empty_cache()
+    for s in steps:
+        start, end = s.pop("events")
+        s["ms"] = start.elapsed_time(end)
+    return run
+
+
+def check_loop_run(name, run, want_tasks, first_step=1, extra=None):
+    """A ``train_cli_run``: its steps in the derived task order, numbered
+    from ``first_step``; each iteration's launches ``LOOP_WANT`` (every K1
+    and K1b on the vector body, no quad-path kernel); every loss term and
+    grad_norm finite; the run's K1 / K1b / K2 / K2b totals the steps' sum
+    plus ``extra`` (the eval hook's launches)."""
+    steps = run["steps"]
+    if [s["task"] for s in steps] != want_tasks or \
+            [s["step"] for s in steps] != list(
+                range(first_step, first_step + len(want_tasks))):
+        fail(f"{name}: steps {[(s['step'], s['task']) for s in steps]}, "
+             f"not the derived order {want_tasks} from {first_step}")
+    for s in steps:
+        got = s["launches"]
+        want = dict(LOOP_WANT[s["task"]], **dict.fromkeys(QUAD, 0))
+        if {k: got[k] for k in want} != want or \
+                (got["K1 vec"], got["K1b vec"]) != (got["K1"], got["K1b"]):
+            fail(f"{name} step {s['step']} ({s['task']}): launches {got} "
+                 f"!= {want}, all K1 / K1b on the vector body")
+        # every loss term, their sum and grad_norm (read here, after the
+        # run: the loop itself syncs only in its log hook)
+        vals = {k: float(v) for k, v in s["log_vars"].items()}
+        if not all(np.isfinite(v) for v in vals.values()):
+            fail(f"{name} step {s['step']}: non-finite log vars {vals}")
+    extra = extra or {}
+    want_total = {k: sum(LOOP_WANT[t][k] for t in want_tasks)
+                  + extra.get(k, 0) for k in ("K1", "K1b", "K2", "K2b")}
+    total = run["total"]
+    if {k: total[k] for k in want_total} != want_total or \
+            any(total[k] for k in QUAD):
+        fail(f"{name}: launches {total} != {want_total} (the steps' and "
+             f"{extra}), no quad-path kernel")
+
+
+def loop_report(name, steps, smi):
+    """Per task: the median step (CUDA events around the step call, no
+    host sync added) and host wall over the steps after each group's
+    first, that first step, the median data_time, the peak memory. Per
+    run: each group's collection (the data_time of its first step; the
+    run's first also starts the loaders), the data-wait share of the
+    steps' time, and that share after step 1 (the steady wait)."""
+    res = {}
+    starts = [i for i, s in enumerate(steps)
+              if i == 0 or steps[i - 1]["task"] != s["task"]]
+    for task in ("cls", "det", "seg"):
+        every = [s for s in steps if s["task"] == task]
+        after = [s for i, s in enumerate(steps)
+                 if s["task"] == task and i not in starts]
+        r = res[task] = dict(
+            median_ms=float(np.median([s["ms"] for s in after])),
+            median_host_ms=float(np.median([s["host_ms"] for s in after])),
+            first_ms=every[0]["ms"], steps=len(after),
+            median_data_ms=1e3 * float(np.median(
+                [float(s["log_vars"]["data_time"]) for s in every])),
+            peak_mib=max(s["peak_mib"] for s in every))
+        log(f"  {name} {task} step: median {r['median_ms']:.2f} ms (CUDA "
+            f"events), host {r['median_host_ms']:.2f} ms, over "
+            f"{r['steps']} steps after each group's first "
+            f"({r['first_ms']:.2f} ms); median data_time "
+            f"{r['median_data_ms']:.3f} ms; peak memory "
+            f"{r['peak_mib']:.0f} MiB  [{smi}]")
+    data = [float(s["log_vars"]["data_time"]) for s in steps]
+    whole = [float(s["log_vars"]["time"]) for s in steps]
+    res["data_share"] = sum(data) / sum(whole)
+    res["steady_share"] = sum(data[1:]) / sum(whole[1:])
+    res["group_data_ms"] = [1e3 * data[i] for i in starts]
+    log(f"  {name} data wait: {100 * res['data_share']:.2f}% of the "
+        f"{len(steps)} steps' time, {100 * res['steady_share']:.2f}% after "
+        f"step 1; the groups' collections "
+        + ", ".join(f"{x:.1f}" for x in res["group_data_ms"])
+        + f" ms (the first starts the loaders)  [{smi}]")
+    return res
+
+
+def first_launches(name, run, n_steps, extra=""):
+    """The K1 / K1b / K2 / K2b launches of each task's first step and of
+    the whole run, for the kernels line's paths."""
+    out = {f"{name} {t} step": {
+        k: next(s for s in run["steps"] if s["task"] == t)["launches"][k]
+        for k in ("K1", "K1b", "K2", "K2b")} for t in ("cls", "det", "seg")}
+    out[f"{name} run ({n_steps} steps{extra})"] = {
+        k: run["total"][k] for k in ("K1", "K1b", "K2", "K2b")}
+    return out
+
+
+def as_written(path):
+    """A config file composed as the train CLI composes it."""
+    from rscotr_tpu_torch.data import load_data_cfg
+    from rscotr_tpu_torch.utils.config import load_cfg
+    return load_data_cfg(load_cfg(path), config_root=ROOT, filename=path)
+
+
+def augmented(cfg) -> str:
+    """The config's device-augment options that are on, or ''."""
+    on = [f"{n}.{k}" for n, e in cfg["data"].items()
+          for k in ("cls_device_augment", "det_device_augment",
+                    "seg_device_augment") if e.get("loader", {}).get(k)]
+    return "on-device augmentation " + ", ".join(on) if on else ""
 
 
 def zoo_phase():
@@ -1723,30 +2117,25 @@ def zoo_phase():
                                                    task_param_masks)
     from rscotr_tpu_torch.engine.train_step import make_train_step
     from rscotr_tpu_torch.models import build_model
-    from rscotr_tpu_torch.ops.ms_deform_attn import (ms_deform_attn,
-                                                     ms_deform_attn_bwd)
-    from rscotr_tpu_torch.ops.window_attention import (window_attention,
-                                                       window_attention_bwd)
-    from rscotr_tpu_torch.utils.config import load_cfg
-    counters = {"K1": ms_deform_attn, "K1b": ms_deform_attn_bwd,
-                "K2": window_attention, "K2b": window_attention_bwd}
+    counters = kernel_counters()
     rng = np.random.default_rng(1)
     launches, calls, res = {}, {}, {}
 
     def counted(name, want, fn):
         """Run ``fn`` with every count at 0, check the launches, and return
-        (fn's result, device ms by CUDA events)."""
-        for c in counters.values():
-            c.launches = 0
-        ms_deform_attn.vec_launches = ms_deform_attn_bwd.vec_launches = 0
+        (fn's result, device ms by CUDA events). No zoo path launches a
+        quad-path kernel."""
+        want = dict(want, **dict.fromkeys(QUAD, 0))
+        zero_counts(counters)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
         out = fn()
         end.record()
         torch.cuda.synchronize()
-        got = {k: c.launches for k, c in counters.items()}
-        vec = (ms_deform_attn.vec_launches, ms_deform_attn_bwd.vec_launches)
+        now = launch_counts(counters)
+        got = {k: now[k] for k in counters}
+        vec = (now["K1 vec"], now["K1b vec"])
         if got != want or vec != (got["K1"], got["K1b"]):
             fail(f"{name}: kernel launches {got} (vector body K1 {vec[0]}, "
                  f"K1b {vec[1]}) != {want}, all on the vector body")
@@ -1794,12 +2183,12 @@ def zoo_phase():
                f"{vals['grad_norm']:.3f}, {watch} moved")
 
     # -- the paper MTL: MlvlClsHead scheme 5, cls 16x224^2 ----------------
-    cfg, off = without_device_augment(load_cfg(PAPER_CFG))
+    cfg = as_written(PAPER_CFG)
     hw = derive_cls_hw(cfg)
     log(f"zoo phase: paper MTL (MlvlClsHead scheme "
         f"{cfg['model']['cls_head']['scheme']}, cls_hw {hw}), cls task, "
-        f"bf16, random weights (seed 0); a copy of the config with {off} "
-        "off (ROADMAP M6)")
+        f"bf16, random weights (seed 0); the config as written, "
+        f"{augmented(cfg)}; train batches from its planner")
     model = build_model(cfg["model"], tasks=("cls",), device="cuda",
                         generator=torch.Generator().manual_seed(0),
                         cls_hw=hw)
@@ -1826,7 +2215,9 @@ def zoo_phase():
     mask = task_param_masks(
         [k for k, _ in model.named_parameters()],
         cls_uses_encoder=head.get("type") == "MlvlClsHead")["cls"]
-    batch = dict(img=img, gt_label=rng.integers(0, 45, 16).astype(np.int32))
+    batch = aug_batch(cfg, "resisc")
+    if batch["img"].shape != (16, 256, 256, 3) or "aug_op_id" not in batch:
+        fail(f"paper MTL: cls batch {batch['img'].shape} without records")
     train("paper MTL cls 16x224^2 step", model,
           steps_for(cfg, model, "cls", mask), batch, 3,
           {"K1": 6, "K1b": 6, "K2": 12, "K2b": 12},
@@ -1835,10 +2226,10 @@ def zoo_phase():
     torch.cuda.empty_cache()
 
     # -- DINO-R50: det 1x800^2 --------------------------------------------
-    cfg, off = without_device_augment(load_cfg(DINO_R50_CFG))
+    cfg = as_written(DINO_R50_CFG)
     log(f"zoo phase: DINO-R50 det (MTL, ResNet-50, det head), bf16, random "
-        f"weights (seed 0); a copy of the config with {off} off "
-        "(ROADMAP M6)")
+        f"weights (seed 0); the config as written, {augmented(cfg)}; train "
+        "batches from its planner")
     model = build_model(cfg["model"], device="cuda",
                         generator=torch.Generator().manual_seed(0))
     infer = make_infer_steps(model, max_per_img=300)
@@ -1859,18 +2250,27 @@ def zoo_phase():
     report("DINO-R50 det 1x800^2 request", times,
            "; det (1, 300, 5) finite, labels in [0, 20)")
     mask = task_param_masks([k for k, _ in model.named_parameters()])["det"]
+    batch = aug_batch(cfg, "dior")
+    if "aug_s2_h" not in batch:
+        fail("DINO-R50: det batch without records")
+    log(f"  DINO-R50 det batch: 1x800^2 source, AutoAugment program s1 "
+        f"{batch['aug_s1_h'][0]}x{batch['aug_s1_w'][0]}, crop "
+        f"{batch['aug_crop_h'][0]}x{batch['aug_crop_w'][0]}, s2 "
+        f"{batch['aug_s2_h'][0]}x{batch['aug_s2_w'][0]} in the "
+        f"{batch['out_template'].shape[1:3]} bucket, flip "
+        f"{bool(batch['aug_flip_src'][0])}")
     train("DINO-R50 det 1x800^2 step", model,
-          steps_for(cfg, model, "det", mask), flagship_det_batch(rng), 3,
+          steps_for(cfg, model, "det", mask), batch, 3,
           {"K1": 12, "K1b": 12, "K2": 0, "K2b": 0},
           "shared_encoder.layers.0.ffns.0.layers.1.weight")
     del model, infer, det, labels
     torch.cuda.empty_cache()
 
     # -- RSCoTrSeg-R50: seg 2x512^2 ---------------------------------------
-    cfg, off = without_device_augment(load_cfg(RSEG_R50_CFG))
+    cfg = as_written(RSEG_R50_CFG)
     log(f"zoo phase: RSCoTrSeg-R50 seg (ResNet-50, own 3-level encoder), "
-        f"bf16, random weights (seed 0); a copy of the config with {off} "
-        "off (ROADMAP M6)")
+        f"bf16, random weights (seed 0); the config as written, "
+        f"{augmented(cfg)}; train batches from its planner")
     model = build_model(cfg["model"], device="cuda",
                         generator=torch.Generator().manual_seed(0))
     C = cfg["model"]["decode_head"]["num_queries"]
@@ -1892,8 +2292,11 @@ def zoo_phase():
            f"; labels (2, 512, 512) in [0, {C}), "
            f"{labels.unique().numel()} distinct")
     # no task mask: the standalone encoder trains (ROADMAP C6)
+    batch = aug_batch(cfg, "potsdam")
+    if "aug_pm_hsv_on" not in batch:
+        fail("RSCoTrSeg-R50: seg batch without records")
     train("RSCoTrSeg-R50 seg 2x512^2 step", model,
-          steps_for(cfg, model, "seg", None), seg_train_batch(rng, 2), 3,
+          steps_for(cfg, model, "seg", None), batch, 3,
           {"K1": 6, "K1b": 6, "K2": 0, "K2b": 0},
           "encoder.layers.0.ffns.0.layers.1.weight")
     del model, infer, labels
@@ -1938,21 +2341,12 @@ def eval_phase(smi):
                                          save_checkpoint)
     from rscotr_tpu_torch.engine.test import _seg_results
     from rscotr_tpu_torch.models import build_model
-    from rscotr_tpu_torch.ops.ms_deform_attn import (ms_deform_attn,
-                                                     ms_deform_attn_bwd)
-    from rscotr_tpu_torch.ops.msda_ws import ws_bwd, ws_fwd
-    from rscotr_tpu_torch.ops.scatter_mm import scatter_add_mm
-    from rscotr_tpu_torch.ops.window_attention import (window_attention,
-                                                       window_attention_bwd)
     from rscotr_tpu_torch.tools import test as test_cli
     from rscotr_tpu_torch.utils.config import load_cfg
-    counters = {"K1": ms_deform_attn, "K1b": ms_deform_attn_bwd,
-                "K2": window_attention, "K2b": window_attention_bwd,
-                "K3'": scatter_add_mm, "K4": ws_fwd, "K5": ws_bwd}
+    counters = kernel_counters()
 
     def counts():
-        return dict({k: c.launches for k, c in counters.items()},
-                    **{"K1 vec": ms_deform_attn.vec_launches})
+        return launch_counts(counters)
 
     cfg = load_cfg(FLAGSHIP_CFG)
     stc = cfg["model"]["test_cfg"]["seg"]
@@ -2024,9 +2418,7 @@ def eval_phase(smi):
         log(f"  rscotr_tpu_torch.tools.test {' '.join(argv)}")
         infer_mod.make_infer_steps = counted_steps
         try:
-            for c in counters.values():
-                c.launches = 0
-            ms_deform_attn.vec_launches = 0
+            zero_counts(counters)
             t0 = time.perf_counter()
             metrics = test_cli.main(argv, stats=stats)
             wall = time.perf_counter() - t0
@@ -2236,21 +2628,21 @@ def loop_phase(smi):
     written (round_robin, ``steps_per_dispatch=16``: JAX's grouped order),
     full width, bf16, random weights from seed 0, in a temporary work dir,
     ``--max-iters 48``; every count set to 0 just before and read just
-    after. Checked: the task of each step against ``loop_order`` (16 cls,
-    16 det, 16 seg), each iteration's K1 / K1b / K2 / K2b launches against
-    ``LOOP_WANT`` (every K1 and K1b on the vector body, no quad-path
-    kernel), every loss term and grad_norm finite, ``iter_48.pth``,
+    after (``train_cli_run``). Checked (``check_loop_run``): the task of
+    each step against ``loop_order`` (16 cls, 16 det, 16 seg), each
+    iteration's K1 / K1b / K2 / K2b launches against ``LOOP_WANT`` (every
+    K1 and K1b on the vector body, no quad-path kernel), every loss term
+    and grad_norm finite, the run's totals those of its steps and its eval;
+    the backbone and every head moved; ``iter_48.pth``,
     ``last_checkpoint``, ``best_checkpoint.pth`` and the ``metrics.jsonl``
     lines of the log interval (5) and the last step; the eval hook at step
     48 over the whole val sets with the eval phase's per-batch counts and
     the metric keys. Then ``--resume-from iter_48.pth --max-iters 52
     --no-validate``: the model and the optimizer state at the start equal
     the file bit for bit, the run starts at step 48 with the optimizer's
-    schedule clock at 48, and 4 cls steps follow, counted as above.
-    Reported per task: the median step time (CUDA events around the step
-    call, no host sync added) and host wall after each group's first step,
-    the median data_time, the peak memory; the loop's data-wait share; the
-    checkpoint save and load times, the eval hook's time, the phase's."""
+    schedule clock at 48, and 4 cls steps follow, checked as above.
+    Reported: ``loop_report``; the checkpoint save and load times, the
+    eval hook's time, the phase's."""
     import shutil
     import tempfile
 
@@ -2258,32 +2650,9 @@ def loop_phase(smi):
     from rscotr_tpu_torch.engine import checkpoint as ck_mod
     from rscotr_tpu_torch.engine import hooks as hooks_mod
     from rscotr_tpu_torch.engine import infer as infer_mod
-    from rscotr_tpu_torch.engine import train_step as ts_mod
-    from rscotr_tpu_torch.engine.hooks import Hook
-    from rscotr_tpu_torch.ops.ms_deform_attn import (ms_deform_attn,
-                                                     ms_deform_attn_bwd)
-    from rscotr_tpu_torch.ops.msda_ws import ws_bwd, ws_fwd
-    from rscotr_tpu_torch.ops.scatter_mm import scatter_add_mm
-    from rscotr_tpu_torch.ops.window_attention import (window_attention,
-                                                       window_attention_bwd)
-    from rscotr_tpu_torch.tools import train as train_cli
     from rscotr_tpu_torch.utils.config import load_cfg
     t_phase = time.perf_counter()
-    counters = {"K1": ms_deform_attn, "K1b": ms_deform_attn_bwd,
-                "K2": window_attention, "K2b": window_attention_bwd,
-                "K3'": scatter_add_mm, "K4": ws_fwd, "K5": ws_bwd}
-
-    def counts():
-        return dict({k: c.launches for k, c in counters.items()},
-                    **{"K1 vec": ms_deform_attn.vec_launches,
-                       "K1b vec": ms_deform_attn_bwd.vec_launches})
-
-    def zero():
-        for c in counters.values():
-            c.launches = 0
-        ms_deform_attn.vec_launches = 0
-        ms_deform_attn_bwd.vec_launches = 0
-
+    counters = kernel_counters()
     cfg = load_cfg(FLAGSHIP_CFG)
     K = cfg["runner"]["steps_per_dispatch"]
     want_tasks = loop_order(cfg, LOOP_ITERS, K)
@@ -2294,56 +2663,15 @@ def loop_phase(smi):
         f"(seed 0), {LOOP_ITERS} iterations, then a resume to "
         f"{LOOP_RESUME}; derived order: 16 cls, 16 det, 16 seg")
 
-    steps, evals, saves, loads, infer_calls = [], [], [], [], []
+    evals, saves, loads, infer_calls, start = [], [], [], [], {}
+    real_save, real_load = hooks_mod.save_checkpoint, ck_mod.load_checkpoint
+    real_eval, real_infer = apis.make_eval_fn, infer_mod.make_infer_steps
 
-    class Probe(Hook):
-        """First hook of an iteration (priority 0): the step's launches
-        (since the last hook of the iteration before) and its log vars;
-        ``Tail`` (priority 100) closes the iteration."""
-        priority = 0
-
-        def before_run(self, runner):
-            self.start = runner.step
-            self.opt_step = runner.optimizer.step
-            self.model = {k: v.detach().to("cpu", copy=True) for k, v in
-                          runner.model.state_dict().items()}
-            self.opt = runner.optimizer.state_dict()
-            self.last = counts()
-
-        def after_train_iter(self, runner):
-            now = counts()
-            steps[-1]["launches"] = {k: now[k] - self.last[k] for k in now}
-            steps[-1]["step"] = runner.step
-            steps[-1]["log_vars"] = dict(runner.log_vars)
-
-    class Tail(Hook):
-        priority = 100
-
-        def after_train_iter(self, runner):
-            probe.last = counts()
-
-    probe = Probe()
-    real_make, real_save = ts_mod.make_train_step, hooks_mod.save_checkpoint
-    real_load, real_eval = ck_mod.load_checkpoint, apis.make_eval_fn
-    real_infer = infer_mod.make_infer_steps
-
-    def timed_make(model, optimizer, task, step_cfg, mask=None):
-        step = real_make(model, optimizer, task, step_cfg, mask)
-
-        def call(batch, generator):
-            torch.cuda.reset_peak_memory_stats()
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            t0 = time.perf_counter()
-            start.record()
-            lv = step(batch, generator)
-            end.record()
-            steps.append(dict(task=task, events=(start, end),
-                              host_ms=1e3 * (time.perf_counter() - t0),
-                              peak_mib=torch.cuda.max_memory_allocated()
-                              / 2 ** 20))
-            return lv
-        return call
+    def snapshot(runner):
+        start.update(step=runner.step, opt_step=runner.optimizer.step,
+                     model={k: v.detach().to("cpu", copy=True) for k, v in
+                            runner.model.state_dict().items()},
+                     opt=runner.optimizer.state_dict())
 
     def timed(fn, out):
         def call(*a, **kw):
@@ -2359,9 +2687,9 @@ def loop_phase(smi):
     def counted_infer(*a, **kw):
         def wrap(task, fn):
             def call(*args):
-                before = counts()
+                before = launch_counts(counters)
                 out = fn(*args)
-                after = counts()
+                after = launch_counts(counters)
                 infer_calls.append((task, {k: after[k] - before[k]
                                            for k in after}))
                 return out
@@ -2369,24 +2697,14 @@ def loop_phase(smi):
         return {t: wrap(t, f) for t, f in real_infer(*a, **kw).items()}
 
     work_dir = tempfile.mkdtemp(prefix="rscotr_loop_")
-    ts_mod.make_train_step = timed_make
     hooks_mod.save_checkpoint = timed(real_save, saves)
     ck_mod.load_checkpoint = timed(real_load, loads)
     apis.make_eval_fn = timed_eval
     infer_mod.make_infer_steps = counted_infer
     try:
-        argv = [FLAGSHIP_CFG, "--work-dir", work_dir, "--max-iters",
-                str(LOOP_ITERS)]
-        log(f"  rscotr_tpu_torch.tools.train {' '.join(argv)}")
-        zero()
-        t0 = time.perf_counter()
-        runner = train_cli.main(argv, hooks=[probe, Tail()])
-        wall = time.perf_counter() - t0
-        total = counts()
-        torch.cuda.synchronize()
-        first = dict(steps=steps[:], infer=infer_calls[:], wall=wall,
-                     total=total, start=probe.start)
-        del runner
+        first = train_cli_run([FLAGSHIP_CFG, "--work-dir", work_dir,
+                               "--max-iters", str(LOOP_ITERS)], "loop")
+        first["infer"] = infer_calls[:]
         ckpt = os.path.join(work_dir, f"iter_{LOOP_ITERS}.pth")
         for f in (f"iter_{LOOP_ITERS}.pth", "last_checkpoint",
                   "best_checkpoint.pth", "metrics.jsonl", "train.log"):
@@ -2396,30 +2714,20 @@ def loop_phase(smi):
             lines = [json.loads(x) for x in f]
         saved = torch.load(ckpt, map_location="cpu", weights_only=True)
 
-        steps.clear()
         infer_calls.clear()
-        argv = [FLAGSHIP_CFG, "--work-dir", work_dir, "--max-iters",
-                str(LOOP_RESUME), "--resume-from", ckpt, "--no-validate"]
-        log(f"  rscotr_tpu_torch.tools.train {' '.join(argv)}")
-        zero()
-        t0 = time.perf_counter()
-        runner = train_cli.main(argv, hooks=[probe, Tail()])
-        resume_wall = time.perf_counter() - t0
-        resume_total = counts()
-        torch.cuda.synchronize()
-        resumed = dict(steps=steps[:], start=probe.start,
-                       opt_step=probe.opt_step, end_step=runner.step,
-                       end_opt_step=runner.optimizer.step)
-        model_equal = all(torch.equal(probe.model[k], v)
+        resumed = train_cli_run(
+            [FLAGSHIP_CFG, "--work-dir", work_dir, "--max-iters",
+             str(LOOP_RESUME), "--resume-from", ckpt, "--no-validate"],
+            "loop resume", on_start=snapshot)
+        model_equal = all(torch.equal(start["model"][k], v)
                           for k, v in saved["state_dict"].items()) and \
-            sorted(probe.model) == sorted(saved["state_dict"])
-        so, po = saved["optimizer"], probe.opt
+            sorted(start["model"]) == sorted(saved["state_dict"])
+        so, po = saved["optimizer"], start["opt"]
         opt_equal = so["step"] == po["step"] and so["count"] == po["count"] \
             and all(torch.equal(po[p][k], v) for p in ("mu", "nu")
                     for k, v in so[p].items())
-        del runner, saved, probe.model, probe.opt
+        del saved, start["model"], start["opt"]
     finally:
-        ts_mod.make_train_step = real_make
         hooks_mod.save_checkpoint = real_save
         ck_mod.load_checkpoint = real_load
         apis.make_eval_fn = real_eval
@@ -2428,48 +2736,20 @@ def loop_phase(smi):
         torch.cuda.empty_cache()
 
     # -- the first run ----------------------------------------------------
-    got_tasks = [s["task"] for s in first["steps"]]
-    if got_tasks != want_tasks:
-        fail(f"loop: tasks {got_tasks} != the derived order {want_tasks}")
-    quad = ("K3'", "K4", "K5")
-    for run in (first, resumed):
-        for s in run["steps"]:
-            got = s["launches"]
-            want = dict(LOOP_WANT[s["task"]], **dict.fromkeys(quad, 0))
-            if {k: got[k] for k in want} != want or \
-                    (got["K1 vec"], got["K1b vec"]) != (got["K1"],
-                                                        got["K1b"]):
-                fail(f"loop step {s['step']} ({s['task']}): launches {got}"
-                     f" != {want}, all K1 / K1b on the vector body")
-            # every loss term, their sum and grad_norm (read here, after
-            # the run: the loop itself syncs only in its log hook)
-            vals = {k: float(v) for k, v in s["log_vars"].items()}
-            if not all(np.isfinite(v) for v in vals.values()):
-                fail(f"loop step {s['step']}: non-finite log vars {vals}")
-            s["loss"] = next(v for k, v in vals.items()
-                             if k.endswith(".loss"))
-            s["grad_norm"] = vals["grad_norm"]
-            s["n_terms"] = len(vals) - 2
-    if [s["step"] for s in first["steps"]] != list(range(1, LOOP_ITERS + 1)):
-        fail("loop: the first run's steps are not 1..48")
-    for i in (0, 16, 32, 47):
-        s = first["steps"][i]
-        log(f"  loop step {s['step']} {s['task']}: {s['n_terms']} log vars, "
-            f"loss {s['loss']:.4f}, grad_norm {s['grad_norm']:.3f}, "
-            f"launches {s['launches']}")
-    want_total = {k: sum(LOOP_WANT[t].get(k, 0) for t in got_tasks)
-                  for k in ("K1", "K1b", "K2", "K2b")}
     infer_total = {k: sum(c[k] for _, c in first["infer"])
                    for k in ("K1", "K2")}
+    check_loop_run("loop", first, want_tasks, extra=infer_total)
+    if not first["moved"] or not all(first["moved"].values()):
+        fail(f"loop: parameters moved {first['moved']}")
+    for i in (0, 16, 32, 47):
+        s = first["steps"][i]
+        vals = {k: float(v) for k, v in s["log_vars"].items()}
+        loss = next(v for k, v in vals.items() if k.endswith(".loss"))
+        log(f"  loop step {s['step']} {s['task']}: {len(vals) - 2} log vars,"
+            f" loss {loss:.4f}, grad_norm {vals['grad_norm']:.3f}, "
+            f"launches {s['launches']}")
     log(f"  launches in the loop run (48 steps and the eval at 48): "
-        f"{first['total']}; steps {want_total}, eval {infer_total}")
-    for k, v in want_total.items():
-        extra = infer_total.get(k, 0)
-        if first["total"][k] != v + extra:
-            fail(f"loop: {k} launched {first['total'][k]} times, not "
-                 f"{v} + the eval's {extra}")
-    if any(first["total"][k] for k in quad):
-        fail(f"loop: a quad-path kernel launched: {first['total']}")
+        f"{first['total']}; eval {infer_total}")
 
     # -- logs, checkpoints, eval ------------------------------------------
     want_lines = list(range(5, LOOP_ITERS, 5)) + [LOOP_ITERS]
@@ -2503,72 +2783,120 @@ def loop_phase(smi):
         + ", ".join(f"{k} {lines[-1][k]:.4f}" for k in sorted(want_keys)))
 
     # -- the resume ---------------------------------------------------------
-    r_tasks = [s["task"] for s in resumed["steps"]]
     if not (model_equal and opt_equal):
         fail(f"loop resume: model bit-equal {model_equal}, optimizer state "
              f"bit-equal {opt_equal}")
-    if (resumed["start"], resumed["opt_step"], resumed["end_step"],
-            resumed["end_opt_step"], r_tasks) != (
-            LOOP_ITERS, LOOP_ITERS, LOOP_RESUME, LOOP_RESUME, ["cls"] * 4):
-        fail(f"loop resume: start {resumed['start']} (optimizer step "
-             f"{resumed['opt_step']}), end {resumed['end_step']} "
-             f"({resumed['end_opt_step']}), tasks {r_tasks}")
+    if (start["step"], start["opt_step"], resumed["end_step"],
+            resumed["end_opt_step"]) != (LOOP_ITERS, LOOP_ITERS,
+                                         LOOP_RESUME, LOOP_RESUME):
+        fail(f"loop resume: start {start['step']} (optimizer step "
+             f"{start['opt_step']}), end {resumed['end_step']} "
+             f"({resumed['end_opt_step']})")
+    check_loop_run("loop resume", resumed, ["cls"] * (LOOP_RESUME -
+                                                      LOOP_ITERS),
+                   first_step=LOOP_ITERS + 1)
     log(f"  resume from iter_{LOOP_ITERS}.pth: model and optimizer state "
-        f"bit-equal to the file, start at step {resumed['start']} (the "
-        f"optimizer's schedule clock {resumed['opt_step']}), then {r_tasks}"
-        f" with launches {resumed['steps'][0]['launches']} each; "
-        f"{resume_total}")
+        f"bit-equal to the file, start at step {start['step']} (the "
+        f"optimizer's schedule clock {start['opt_step']}), then "
+        f"{[s['task'] for s in resumed['steps']]} with launches "
+        f"{resumed['steps'][0]['launches']} each; {resumed['total']}")
 
     # -- times ---------------------------------------------------------------
-    res = {}
-    groups = {}
-    for i, s in enumerate(first["steps"]):
-        s["ms"] = s["events"][0].elapsed_time(s["events"][1])
-        first_of_group = i == 0 or first["steps"][i - 1]["task"] != s["task"]
-        if not first_of_group:
-            groups.setdefault(s["task"], []).append(s)
-    for s in first["steps"]:
-        s.pop("events")
-    data = [float(s["log_vars"]["data_time"]) for s in first["steps"]]
-    whole = [float(s["log_vars"]["time"]) for s in first["steps"]]
-    for task in ("cls", "det", "seg"):
-        ss = groups[task]
-        all_task = [s for s in first["steps"] if s["task"] == task]
-        res[task] = dict(
-            median_ms=float(np.median([s["ms"] for s in ss])),
-            median_host_ms=float(np.median([s["host_ms"] for s in ss])),
-            first_ms=all_task[0]["ms"],
-            median_data_ms=1e3 * float(np.median(
-                [float(s["log_vars"]["data_time"]) for s in all_task])),
-            peak_mib=max(s["peak_mib"] for s in all_task), steps=len(ss))
-        r = res[task]
-        log(f"  loop {task} step: median {r['median_ms']:.2f} ms (CUDA "
-            f"events), host {r['median_host_ms']:.2f} ms, over {r['steps']}"
-            f" steps after the group's first ({r['first_ms']:.2f} ms); "
-            f"median data_time {r['median_data_ms']:.3f} ms; peak memory "
-            f"{r['peak_mib']:.0f} MiB  [{smi}]")
-    res["data_share"] = sum(data) / sum(whole)
-    res["group_data_ms"] = [1e3 * data[i] for i in (0, 16, 32)]
+    res = loop_report("loop", first["steps"], smi)
     res["save_s"] = list(saves)
     res["load_s"] = list(loads)
     res["eval_s"] = evals[0]
-    res["run_s"], res["resume_s"] = first["wall"], resume_wall
+    res["run_s"], res["resume_s"] = first["wall"], resumed["wall"]
     res["phase_s"] = time.perf_counter() - t_phase
-    log(f"  loop data wait: {100 * res['data_share']:.2f}% of the "
-        f"{LOOP_ITERS} steps' time (the three groups' collections "
-        + ", ".join(f"{x:.1f}" for x in res["group_data_ms"])
-        + " ms); checkpoint saves "
+    log(f"  loop checkpoint saves "
         + ", ".join(f"{x:.2f}" for x in saves) + " s (best_checkpoint, "
         f"iter_48, iter_52: the eval hook fires first), resume load "
         + ", ".join(f"{x:.2f}" for x in loads) + f" s; eval hook "
         f"{evals[0]:.2f} s; run {first['wall']:.1f} s, resume "
-        f"{resume_wall:.1f} s, phase {res['phase_s']:.1f} s  [{smi}]")
-    # each task's first step, measured (every step was held to LOOP_WANT)
-    launches = {f"flagship loop {t} step": {
-        k: next(s for s in first["steps"] if s["task"] == t)["launches"][k]
-        for k in ("K1", "K1b", "K2", "K2b")} for t in ("cls", "det", "seg")}
-    launches[f"flagship loop run ({LOOP_ITERS} steps + eval)"] = \
-        {k: first["total"][k] for k in ("K1", "K1b", "K2", "K2b")}
+        f"{resumed['wall']:.1f} s, phase {res['phase_s']:.1f} s  [{smi}]")
+    return first_launches("flagship loop", first, LOOP_ITERS,
+                          " + eval"), res
+
+
+def aug_loop_phase(smi, stages):
+    """Co-training with the paper's augmentation through the port's
+    ``tools/train.py``: ``MTL_synthetic_flagship_devaug.py`` (the three
+    augment tails in the steps, on the card) and
+    ``MTL_synthetic_flagship_hostaug.py`` (the same tails on the host, PIL
+    in the loader threads), each as written (``steps_per_dispatch`` 16)
+    for 48 iterations in the grouped order (16 cls, 16 det, 16 seg), in
+    the order devaug, hostaug, hostaug, devaug so that each holds each
+    place; ``--no-validate`` in a temporary work dir, full width, bf16,
+    random weights from seed 0. Each run is checked by ``check_loop_run``
+    and its backbone and every head must move; reported by
+    ``loop_report``, then per config the two runs side by side: each
+    task's median step and the steady data wait (after step 1, whose
+    collection also starts the loaders). Last, each augment stage's time
+    (``augment_phase``) as a share of its task's devaug step."""
+    import shutil
+    import tempfile
+
+    launches, res = {}, {"devaug": [], "hostaug": []}
+    paths = {"devaug": DEVAUG_CFG, "hostaug": HOSTAUG_CFG}
+    for name in ("devaug", "hostaug", "hostaug", "devaug"):
+        path = paths[name]
+        cfg = as_written(path)
+        k = cfg["runner"]["steps_per_dispatch"]
+        want_tasks = loop_order(cfg, AUG_ITERS, k)
+        n = AUG_ITERS // 3
+        if want_tasks != ["cls"] * n + ["det"] * n + ["seg"] * n:
+            fail(f"{name} loop: the grouped order derives {want_tasks}")
+        log(f"{name} loop phase (run {len(res[name]) + 1}): "
+            f"{os.path.relpath(path, ROOT)} as written "
+            f"({augmented(cfg) or 'augmentation on the host'}), "
+            f"steps_per_dispatch {k}, bf16, random weights (seed 0), "
+            f"{AUG_ITERS} iterations: {n} cls, {n} det, {n} seg")
+        work_dir = tempfile.mkdtemp(prefix=f"rscotr_{name}_")
+        try:
+            run = train_cli_run([path, "--work-dir", work_dir, "--max-iters",
+                                 str(AUG_ITERS), "--no-validate"],
+                                f"{name} loop")
+        finally:
+            shutil.rmtree(work_dir, ignore_errors=True)
+        check_loop_run(f"{name} loop", run, want_tasks)
+        if not run["moved"] or not all(run["moved"].values()):
+            fail(f"{name} loop: parameters moved {run['moved']}")
+        for i in (0, n, 2 * n):
+            s = run["steps"][i]
+            log(f"  {name} loop step {s['step']} {s['task']}: loss "
+                + ", ".join(f"{k} {float(v):.4f}" for k, v in
+                            s["log_vars"].items() if k.endswith(".loss"))
+                + f", grad_norm {float(s['log_vars']['grad_norm']):.3f}, "
+                f"launches {s['launches']}")
+        r = loop_report(f"{name} loop", run["steps"], smi)
+        r["wall_s"] = run["wall"]
+        log(f"  {name} loop run {run['wall']:.1f} s; {run['total']}; moved "
+            f"{run['moved']}")
+        res[name].append(r)
+        if len(res[name]) == 1:
+            launches.update(first_launches(f"{name} loop", run, AUG_ITERS))
+    for t in ("cls", "det", "seg"):
+        log(f"  {t} step, devaug against hostaug (runs 1, 4 against 2, 3): "
+            + " / ".join(f"{r[t]['median_ms']:.2f}" for r in res["devaug"])
+            + " ms against "
+            + " / ".join(f"{r[t]['median_ms']:.2f}" for r in res["hostaug"])
+            + f" ms  [{smi}]")
+    log("  steady data wait (after step 1), devaug against hostaug: "
+        + " / ".join(f"{100 * r['steady_share']:.2f}%"
+                     for r in res["devaug"]) + " against "
+        + " / ".join(f"{100 * r['steady_share']:.2f}%"
+                     for r in res["hostaug"])
+        + "; first collections "
+        + " / ".join(f"{r['group_data_ms'][0]:.1f}" for r in res["devaug"])
+        + " against "
+        + " / ".join(f"{r['group_data_ms'][0]:.1f}" for r in res["hostaug"])
+        + f" ms  [{smi}]")
+    for t, st in stages.items():
+        st["step_share"] = st["ms"] / res["devaug"][0][t]["median_ms"]
+        log(f"  {t} augment stage {st['what']}: {st['ms']:.3f} ms, "
+            f"{100 * st['step_share']:.1f}% of the first devaug {t} "
+            f"step's {res['devaug'][0][t]['median_ms']:.2f} ms  [{smi}]")
+    res["stages"] = stages
     return launches, res
 
 
@@ -2672,6 +3000,7 @@ def kernels_line(times, btimes, qtimes, err, berr, qerr, k6err, k6levels,
 
 
 def main(argv) -> int:
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
               "False)", file=sys.stderr)
@@ -2707,9 +3036,11 @@ def main(argv) -> int:
     train_parity_phase()
     slaunches, lat = serving_phase()
     launches, train = train_phase()
+    stages = augment_phase()
     zlaunches, zoo = zoo_phase()
     elaunches, evals = eval_phase(smi)
     llaunches, loop = loop_phase(smi)
+    alaunches, aug = aug_loop_phase(smi, stages)
     library_phase(times, btimes)
     # K3' is launched by the quad-gather path; the training run launches it
     # 0 times (train_phase checks every step), K1b doing its work there
@@ -2722,10 +3053,12 @@ def main(argv) -> int:
                       for t, n in launches.pop("per task").items()})
     zlaunches["flagship eval (cls 4, det 2, seg 2 batches)"] = elaunches
     zlaunches.update(llaunches)
+    zlaunches.update(alaunches)
     launches["paths"] = {k: {path: n[k] for path, n in zlaunches.items()}
                          for k in ("K1", "K1b", "K2", "K2b")}
 
-    log(f"summary ({smi}): " + "; ".join(
+    log(f"summary ({smi}; {time.perf_counter() - t_start:.1f} s since the "
+        f"start): " + "; ".join(
         f"serve {n} {ms:.3f} ms, peak {mb:.0f} MiB"
         for n, (ms, mb) in lat.items()) + "; " + "; ".join(
         f"train {t} {r['median_ms']:.2f} ms, peak {r['peak_mib']:.0f} MiB"
@@ -2739,6 +3072,17 @@ def main(argv) -> int:
         f"loop {t} step {loop[t]['median_ms']:.2f} ms, peak "
         f"{loop[t]['peak_mib']:.0f} MiB" for t in ("cls", "det", "seg"))
         + f"; loop data wait {100 * loop['data_share']:.2f}%; " + "; ".join(
+        f"{run} loop {t} step " + " / ".join(
+            f"{r[t]['median_ms']:.2f}" for r in aug[run]) + " ms, peak "
+        f"{aug[run][0][t]['peak_mib']:.0f} MiB"
+        for run in ("devaug", "hostaug") for t in ("cls", "det", "seg"))
+        + "; " + "; ".join(
+        f"{run} steady data wait " + " / ".join(
+            f"{100 * r['steady_share']:.2f}%" for r in aug[run])
+        for run in ("devaug", "hostaug")) + "; " + "; ".join(
+        f"{t} augment stage {st['ms']:.3f} ms "
+        f"({100 * st['step_share']:.1f}% of its step)"
+        for t, st in aug["stages"].items()) + "; " + "; ".join(
         f"MSDA impl={i} fwd+bwd {qtimes[f'MSDA {i}'][1]:.4f} ms"
         for i in ("quad", "kernel")))
     log(smi)

@@ -8,7 +8,10 @@ and hooks together from a composed config.
 config (``utils.config.load_cfg``): task weights, the CDN setup with the
 static DN group width ``dn_max_gt = min(20, max_gt)`` (5 groups, pad 200 for
 the flagship), the DINO loss and matcher weights, the cls label smoothing
-and batch augments, and the device-side normalization stats.
+and batch augments, the device-side normalization stats, and the configs of
+the on-device augmentation stages that the loaders ask for
+(``derive_device_aug``, ``derive_det_device_aug``,
+``derive_seg_device_aug``).
 """
 
 from __future__ import annotations
@@ -18,24 +21,32 @@ from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
+from rscotr_tpu_torch.data.build import det_src_hw, seg_src_size
+from rscotr_tpu_torch.data.pipelines import (split_device_augment_cfg,
+                                             split_seg_device_augment_cfg)
 from rscotr_tpu_torch.engine.train_step import TrainStepConfig
 from rscotr_tpu_torch.models.heads.cdn import CdnConfig
 from rscotr_tpu_torch.models.heads.dino_loss import DetLossConfig
+from rscotr_tpu_torch.ops.device_augment import (DetDeviceAugmentConfig,
+                                                 DeviceAugmentConfig,
+                                                 SegDeviceAugmentConfig)
 from rscotr_tpu_torch.utils.logging import get_root_logger
 
 _IMAGENET = ((123.675, 116.28, 103.53), (58.395, 57.12, 57.375))
-_DEVICE_AUG = ("cls_device_augment", "seg_device_augment",
-               "det_device_augment")
+# loader options that move Normalize onto the card
+_ON_CARD = ("device_preprocess", "cls_device_augment", "seg_device_augment",
+            "det_device_augment")
 
 
 def derive_img_norm(cfg: dict) -> Optional[Tuple[tuple, tuple]]:
-    """(mean, std) for device-side preprocessing, from the Normalize op of
-    any dataset whose loader sets device_preprocess; ImageNet stats when
-    such a loader's pipelines carry none; None when no loader asks."""
+    """(mean, std) for device-side normalization, from the Normalize op
+    of any dataset whose loader sets device_preprocess or a device-augment
+    option; ImageNet stats when such a loader's pipelines carry none; None
+    when no loader asks."""
     found, asked = None, False
     for entry in cfg.get("data", {}).values():
         opts = dict(entry.get("loader", {}))
-        if not opts.get("device_preprocess"):
+        if not any(opts.get(k) for k in _ON_CARD):
             continue
         asked = True
         for split in ("train", "val", "test"):
@@ -84,15 +95,54 @@ def derive_cls_hw(cfg: dict) -> Optional[Tuple[int, int]]:
     return None if cls is None else cls[1:3]
 
 
-def make_step_config(cfg: dict) -> TrainStepConfig:
-    model_cfg = cfg["model"]
+def _aug_loader(cfg: dict, task: str):
+    """(entry, loader options) of the first ``task`` dataset whose loader
+    sets ``{task}_device_augment``, else None."""
     for entry in cfg.get("data", {}).values():
         opts = dict(entry.get("loader", {}))
-        wanted = [k for k in _DEVICE_AUG if opts.get(k)]
-        if wanted:
-            raise NotImplementedError(
-                f"loader options {wanted}: on-device augmentation is not "
-                "ported to rscotr_tpu_torch yet (ROADMAP M6)")
+        if entry["task"] == task and opts.get(f"{task}_device_augment"):
+            return entry, opts
+    return None
+
+
+def _train_pipeline(entry: dict) -> list:
+    return list((entry["data"].get("train") or {}).get("pipeline") or [])
+
+
+def derive_device_aug(cfg: dict) -> Optional[DeviceAugmentConfig]:
+    """The cls stage's config when a cls loader sets
+    ``cls_device_augment`` (the pipeline rewrite is data/build.py's)."""
+    found = _aug_loader(cfg, "cls")
+    if found is None:
+        return None
+    entry, opts = found
+    _, _, kw = split_device_augment_cfg(
+        _train_pipeline(entry), src_size=opts.get("cls_src_size", 256))
+    return DeviceAugmentConfig(**kw)
+
+
+def derive_det_device_aug(cfg: dict) -> Optional[DetDeviceAugmentConfig]:
+    """The det stage's config when a det loader sets
+    ``det_device_augment``."""
+    found = _aug_loader(cfg, "det")
+    return None if found is None else \
+        DetDeviceAugmentConfig(src_hw=det_src_hw(found[1]))
+
+
+def derive_seg_device_aug(cfg: dict) -> Optional[SegDeviceAugmentConfig]:
+    """The seg stage's config when a seg loader sets
+    ``seg_device_augment``."""
+    found = _aug_loader(cfg, "seg")
+    if found is None:
+        return None
+    entry, opts = found
+    _, _, kw = split_seg_device_augment_cfg(
+        _train_pipeline(entry), src_size=seg_src_size(opts))
+    return SegDeviceAugmentConfig(**kw)
+
+
+def make_step_config(cfg: dict) -> TrainStepConfig:
+    model_cfg = cfg["model"]
     tw = dict(model_cfg.get("task_weight", {"cls": 1, "det": 1, "seg": 1}))
     cdn_cfg = det_cfg = None
     if model_cfg.get("bbox_head"):
@@ -141,7 +191,10 @@ def make_step_config(cfg: dict) -> TrainStepConfig:
         cls_use_augments=bool(train_cls.get("augments")),
         seg_ignore_index=255,
         cdn=cdn_cfg, det=det_cfg,
-        img_norm=derive_img_norm(cfg))
+        img_norm=derive_img_norm(cfg),
+        device_aug=derive_device_aug(cfg),
+        seg_device_aug=derive_seg_device_aug(cfg),
+        det_device_aug=derive_det_device_aug(cfg))
 
 
 def make_eval_fn(cfg: dict, model, max_per_img: int = 300,

@@ -11,9 +11,11 @@ multi-task loader of co-training.
   bucket (``det_bucket_hw``), ``max_gt`` GT padding, the seg size and pad
   value, and ``device_preprocess`` (Normalize dropped from the host
   pipeline, uint8 batches normalized on the card), and on the training
-  side the det collate's DN-width ladder (``det_dn_ladder``).
+  side the det collate's DN-width ladder (``det_dn_ladder``) and on-device
+  augmentation (``cls_device_augment``, ``det_device_augment``,
+  ``seg_device_augment``: the pipeline's augment tail becomes its planner,
+  the collate its aug collate, and Normalize moves to the card).
   ``num_replicas`` / ``rank`` are arguments (one process unless given).
-  The device-augment collates wait for ROADMAP M6.
 * ``build_iteration_strategy`` (default round_robin) logs a 300-draw
   histogram, as the reference does; ``derive_dn_ladder``;
   ``build_multidataloader`` assembles the ``MultiDataLoader``.
@@ -29,17 +31,17 @@ import numpy as np
 from rscotr_tpu_torch.data import datasets  # noqa: F401 (registrations)
 from rscotr_tpu_torch.data.iteration_strategies import strategies_map
 from rscotr_tpu_torch.data.loader import (MultiDataLoader, TaskDataLoader,
-                                          collate_cls, collate_det,
-                                          collate_seg)
+                                          collate_cls, collate_cls_aug,
+                                          collate_det, collate_det_aug,
+                                          collate_seg, collate_seg_aug)
 from rscotr_tpu_torch.data.pipelines import (build_pipeline,
-                                             split_normalize_cfg)
+                                             split_det_device_augment_cfg,
+                                             split_device_augment_cfg,
+                                             split_normalize_cfg,
+                                             split_seg_device_augment_cfg)
 from rscotr_tpu_torch.utils.config import deep_merge, load_cfg
 from rscotr_tpu_torch.utils.logging import get_root_logger
 from rscotr_tpu_torch.utils.registry import DATASETS
-
-_DEVICE_AUG = ("cls_device_augment", "det_device_augment",
-               "seg_device_augment")
-
 
 def load_data_cfg(cfg: dict, config_root: Optional[str] = None,
                   filename: Optional[str] = None) -> dict:
@@ -102,6 +104,42 @@ _COLLATES = {
 }
 
 
+def det_src_hw(opts: dict):
+    """The static source bucket of det device augmentation:
+    ``loader.det_src_hw``, else the largest of ``det_bucket_hw``."""
+    src_hw = opts.get("det_src_hw")
+    if src_hw is None:
+        bh = opts.get("det_bucket_hw", (800, 800))
+        src_hw = max(bh, key=lambda b: b[0] * b[1]) if \
+            isinstance(bh[0], (tuple, list)) else bh
+    return tuple(src_hw)
+
+
+def seg_src_size(opts: dict) -> int:
+    return opts.get("seg_src_size", opts.get("seg_size", 512))
+
+
+def _device_augment(task: str, opts: dict, pcfg):
+    """(pipeline config, collate, img_norm) of a training loader whose
+    task asks for on-device augmentation, else None."""
+    if task == "cls" and opts.get("cls_device_augment"):
+        pcfg, norm, _ = split_device_augment_cfg(
+            pcfg, src_size=opts.get("cls_src_size", 256))
+        return pcfg, collate_cls_aug, norm
+    if task == "det" and opts.get("det_device_augment"):
+        pcfg, norm, _ = split_det_device_augment_cfg(
+            pcfg, src_hw=det_src_hw(opts))
+        return pcfg, (lambda samples: collate_det_aug(
+            samples, bucket_hw=opts.get("det_bucket_hw", (800, 800)),
+            max_gt=opts.get("max_gt", 100),
+            dn_ladder=opts.get("_dn_ladder"))), norm
+    if task == "seg" and opts.get("seg_device_augment"):
+        pcfg, norm, _ = split_seg_device_augment_cfg(
+            pcfg, src_size=seg_src_size(opts))
+        return pcfg, collate_seg_aug, norm
+    return None
+
+
 def _uint8_collate(fn):
     def wrapped(samples):
         batch = fn(samples)
@@ -121,9 +159,11 @@ def build_dataloaders(datasets: Dict[str, object], data_cfg: dict,
     ``samples_per_gpu * world_size``; a training det loader given
     ``det_dn_ladder`` adds the zero-width ``dn_wide`` entry to its batches.
     Eval loaders (``train=False``) run every sample in order,
-    ``test_samples_per_gpu`` at a time. Each loader carries ``img_norm``:
-    the Normalize stats moved to the card by ``device_preprocess``, else
-    None."""
+    ``test_samples_per_gpu`` at a time. A training loader whose task asks
+    for on-device augmentation runs its planner and aug collate (raw uint8
+    images and ``aug_*`` records). Each loader carries ``img_norm``: the
+    Normalize stats moved to the card by device augmentation or
+    ``device_preprocess``, else None."""
     loaders = {}
     for name, ds in datasets.items():
         entry = data_cfg[name]
@@ -131,11 +171,6 @@ def build_dataloaders(datasets: Dict[str, object], data_cfg: dict,
         if train and ds.task == "det" and det_dn_ladder:
             opts["_dn_ladder"] = tuple(det_dn_ladder)
         if train:
-            wanted = [k for k in _DEVICE_AUG if opts.get(k)]
-            if wanted:
-                raise NotImplementedError(
-                    f"loader options {wanted}: on-device augmentation is "
-                    "not ported to rscotr_tpu_torch yet (ROADMAP M6)")
             bs = entry["data"].get("samples_per_gpu", 1) * max(1, world_size)
             if bs % num_replicas:
                 raise ValueError(f"global batch {bs} not divisible by "
@@ -146,7 +181,10 @@ def build_dataloaders(datasets: Dict[str, object], data_cfg: dict,
         pcfg = list(ds.pipeline_cfg or [])
         collate = _COLLATES[ds.task](opts)
         img_norm = None
-        if opts.get("device_preprocess", False):
+        aug = _device_augment(ds.task, opts, pcfg) if train else None
+        if aug is not None:
+            pcfg, collate, img_norm = aug
+        elif opts.get("device_preprocess", False):
             pcfg, img_norm = split_normalize_cfg(pcfg)
             collate = _uint8_collate(collate)
         loaders[name] = TaskDataLoader(

@@ -10,10 +10,15 @@ a background prefetch thread, and the multi-task loader of co-training.
 * seg: img (B, S, S, 3), gt_semantic_seg (B, S, S) padded with
   ``seg_pad_val``, img_hw (B, 2), ori_hw (B, 2)
 
+In device-augment mode (``collate_{cls,seg,det}_aug``) img is the raw uint8
+source at its static size, and the planners' ``aug_*`` records ride along,
+one entry per record; det adds the zero-width ``out_template`` (B, H, W, 0)
+whose shape is the output bucket.
+
 Samples are prepared on threads, each from its own seeded generator.
 ``MultiDataLoader`` interleaves the per-dataset loaders under an iteration
 strategy; ``PrefetchIterator`` runs an iterator (and a transfer to the card)
-on a worker thread. The device-augment collates wait for ROADMAP M6.
+on a worker thread.
 """
 
 from __future__ import annotations
@@ -32,6 +37,51 @@ def collate_cls(samples: List[dict]) -> Dict[str, np.ndarray]:
         "img": np.stack([s["img"] for s in samples]).astype(np.float32),
         "gt_label": np.asarray([s["gt_label"] for s in samples], np.int32),
     }
+
+
+_CLS_AUG_KEYS = ("aug_crop_y", "aug_crop_x", "aug_crop_h", "aug_crop_w",
+                 "aug_flip", "aug_op_id", "aug_op_m", "aug_erase_on",
+                 "aug_erase_y", "aug_erase_x", "aug_erase_h", "aug_erase_w")
+_SEG_AUG_KEYS = ("aug_resize_h", "aug_resize_w", "aug_crop_y",
+                 "aug_crop_x", "aug_crop_h", "aug_crop_w", "aug_flip",
+                 "aug_pm_bright", "aug_pm_c_pre", "aug_pm_hsv_on",
+                 "aug_pm_sat", "aug_pm_hue", "aug_pm_c_post")
+_DET_AUG_KEYS = ("aug_src_h", "aug_src_w", "aug_flip_src",
+                 "aug_flip_out", "aug_s1_h", "aug_s1_w", "aug_crop_y",
+                 "aug_crop_x", "aug_crop_h", "aug_crop_w", "aug_s2_h",
+                 "aug_s2_w")
+
+
+def _stack_aug(batch: dict, samples: List[dict], keys) -> dict:
+    for k in keys:
+        batch[k] = np.stack([np.asarray(s[k]) for s in samples])
+    return batch
+
+
+def collate_cls_aug(samples: List[dict]) -> Dict[str, np.ndarray]:
+    """Device-augment mode: the raw uint8 images and the ``aug_*`` records
+    of ``DeviceAugmentPlanner``."""
+    return _stack_aug({
+        "img": np.stack([s["img"] for s in samples]).astype(np.uint8),
+        "gt_label": np.asarray([s["gt_label"] for s in samples], np.int32),
+    }, samples, _CLS_AUG_KEYS)
+
+
+def collate_seg_aug(samples: List[dict]) -> Dict[str, np.ndarray]:
+    """Device-augment mode: the raw uint8 source tiles, the labels as the
+    planner made them, the ``aug_*`` records of ``SegDeviceAugmentPlanner``;
+    ``img_hw`` is the crop's valid region (the step's pad mask)."""
+    return _stack_aug({
+        "img": np.stack([s["img"] for s in samples]).astype(np.uint8),
+        "gt_semantic_seg": np.stack(
+            [s["gt_semantic_seg"] for s in samples]).astype(np.int32),
+        "img_hw": np.stack(
+            [np.asarray([s["aug_crop_h"], s["aug_crop_w"]], np.int32)
+             for s in samples]),
+        "ori_hw": np.stack(
+            [np.asarray(s.get("ori_shape", s["img"].shape)[:2], np.int32)
+             for s in samples]),
+    }, samples, _SEG_AUG_KEYS)
 
 
 def select_det_bucket(bucket_hw, h: int, w: int):
@@ -59,37 +109,57 @@ def dn_wide_marker(n_gt_max: int, dn_ladder) -> np.ndarray:
     return np.zeros((0, s), np.float32)
 
 
-def collate_det(samples: List[dict], bucket_hw, max_gt: int,
-                dn_ladder=None) -> Dict[str, np.ndarray]:
+def _det_targets(samples: List[dict], hws, max_gt: int, dn_ladder):
+    """img_hw, scale_factor and the GT padded to ``max_gt``, with the
+    ``dn_wide`` marker when a DN ladder is given."""
     B = len(samples)
-    hmax = max(s["img"].shape[0] for s in samples)
-    wmax = max(s["img"].shape[1] for s in samples)
-    H, W = select_det_bucket(bucket_hw, hmax, wmax)
-    img = np.zeros((B, H, W, 3), np.float32)
-    img_hw = np.zeros((B, 2), np.int32)
-    scale_factor = np.ones((B, 4), np.float32)
-    gt_bboxes = np.zeros((B, max_gt, 4), np.float32)
-    gt_labels = np.zeros((B, max_gt), np.int32)
-    gt_valid = np.zeros((B, max_gt), bool)
+    out = {"img_hw": np.asarray(hws, np.int32).reshape(B, 2),
+           "scale_factor": np.ones((B, 4), np.float32),
+           "gt_bboxes": np.zeros((B, max_gt, 4), np.float32),
+           "gt_labels": np.zeros((B, max_gt), np.int32),
+           "gt_valid": np.zeros((B, max_gt), bool)}
     for i, s in enumerate(samples):
-        im = s["img"]
-        h, w = im.shape[:2]
-        img[i, :h, :w] = im
-        img_hw[i] = (h, w)
-        scale_factor[i] = s.get("scale_factor", np.ones(4, np.float32))
+        out["scale_factor"][i] = s.get("scale_factor",
+                                       np.ones(4, np.float32))
         boxes = s.get("gt_bboxes", np.zeros((0, 4), np.float32))
         labels = s.get("gt_labels", np.zeros((0,), np.int32))
         n = min(len(boxes), max_gt)
-        gt_bboxes[i, :n] = boxes[:n]
-        gt_labels[i, :n] = labels[:n]
-        gt_valid[i, :n] = True
-    out = {"img": img, "img_hw": img_hw, "scale_factor": scale_factor,
-           "gt_bboxes": gt_bboxes, "gt_labels": gt_labels,
-           "gt_valid": gt_valid}
+        out["gt_bboxes"][i, :n] = boxes[:n]
+        out["gt_labels"][i, :n] = labels[:n]
+        out["gt_valid"][i, :n] = True
     if dn_ladder:
         out["dn_wide"] = dn_wide_marker(
-            int(gt_valid.sum(axis=1).max(initial=0)), dn_ladder)
+            int(out["gt_valid"].sum(axis=1).max(initial=0)), dn_ladder)
     return out
+
+
+def collate_det(samples: List[dict], bucket_hw, max_gt: int,
+                dn_ladder=None) -> Dict[str, np.ndarray]:
+    hws = [s["img"].shape[:2] for s in samples]
+    H, W = select_det_bucket(bucket_hw, max(h for h, _ in hws),
+                             max(w for _, w in hws))
+    img = np.zeros((len(samples), H, W, 3), np.float32)
+    for i, s in enumerate(samples):
+        h, w = hws[i]
+        img[i, :h, :w] = s["img"]
+    return dict(img=img, **_det_targets(samples, hws, max_gt, dn_ladder))
+
+
+def collate_det_aug(samples: List[dict], bucket_hw, max_gt: int,
+                    dn_ladder=None) -> Dict[str, np.ndarray]:
+    """Device-augment mode: the raw uint8 sources (in the static source
+    bucket, as ``DetDeviceAugmentPlanner`` padded them) and the ``aug_*``
+    programs. The output bucket, which the stage-2 sizes select, rides as
+    the zero-width ``out_template`` (B, H, W, 0): a shape the det step
+    reads, nothing to copy."""
+    hws = [(int(s["aug_s2_h"]), int(s["aug_s2_w"])) for s in samples]
+    H, W = select_det_bucket(bucket_hw, max(h for h, _ in hws),
+                             max(w for _, w in hws))
+    batch = dict(
+        img=np.stack([s["img"] for s in samples]).astype(np.uint8),
+        out_template=np.zeros((len(samples), H, W, 0), np.float32),
+        **_det_targets(samples, hws, max_gt, dn_ladder))
+    return _stack_aug(batch, samples, _DET_AUG_KEYS)
 
 
 def collate_seg(samples: List[dict], size: int = 512,

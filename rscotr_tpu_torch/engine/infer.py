@@ -26,6 +26,14 @@ def device_normalize(img: torch.Tensor, img_norm=None,
     (the reference pads after normalizing). Float inputs pass unchanged."""
     if img.dtype != torch.uint8:
         return img
+    return normalize(img, img_norm, img_hw)
+
+
+def normalize(img: torch.Tensor, img_norm=None,
+              img_hw: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """(img - mean) / std in float32 (ImageNet stats unless ``img_norm``
+    gives them), the region past ``img_hw`` zeroed after. The train step
+    calls it on the float 0..255 output of an augment stage."""
     mean, std = img_norm if img_norm is not None else _DEFAULT_NORM
     mean = torch.tensor(mean, dtype=torch.float32, device=img.device)
     std = torch.tensor(std, dtype=torch.float32, device=img.device)

@@ -11,9 +11,11 @@ takes an explicit ``torch.Generator`` for everything random in the step
 keeps those draws off the device's critical path. ``log_vars`` holds every
 weighted loss term, their sum ``loss`` and ``grad_norm``, as device scalars.
 
-Ported: the cls, det and seg steps, and ``make_val_step`` (their losses
-with the model in eval mode). The on-device augment branches (ROADMAP M6)
-and the K-step scanned dispatch (not carried over) are not.
+Ported: the cls, det and seg steps with their on-device augment branches
+(a batch with ``aug_*`` records runs ``ops/device_augment.py``'s stage on
+the batch's device, then the explicit normalize, then for seg and det the
+``img_hw`` pad mask), and ``make_val_step`` (their losses with the model in
+eval mode). JAX's K-step scanned dispatch is not carried over.
 """
 
 from __future__ import annotations
@@ -25,12 +27,17 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from rscotr_tpu_torch.engine.infer import device_normalize, resize_linear
+from rscotr_tpu_torch.engine.infer import (device_normalize, normalize,
+                                           resize_linear)
 from rscotr_tpu_torch.models.heads.cdn import (CdnConfig, cdn_self_attn_mask,
                                                draw_cdn_noise,
                                                generate_cdn_queries)
 from rscotr_tpu_torch.models.heads.dino_loss import DetLossConfig, dino_loss
 from rscotr_tpu_torch.ops.box_ops import bbox_xyxy_to_cxcywh
+from rscotr_tpu_torch.ops.device_augment import (DetDeviceAugmentConfig,
+                                                 DeviceAugmentConfig,
+                                                 SegDeviceAugmentConfig,
+                                                 run_stage)
 from rscotr_tpu_torch.ops.losses import (label_smooth_loss,
                                         softmax_cross_entropy)
 
@@ -49,6 +56,11 @@ class TrainStepConfig:
     det: Optional[DetLossConfig] = None
     # (mean, std) in 0-255 range for uint8 batches; None = ImageNet stats
     img_norm: Optional[Tuple[Tuple[float, ...], Tuple[float, ...]]] = None
+    # on-device augmentation stages, set when the task's loader asks
+    # (loader.{cls,seg,det}_device_augment; the batch carries aug_* records)
+    device_aug: Optional[DeviceAugmentConfig] = None
+    seg_device_aug: Optional[SegDeviceAugmentConfig] = None
+    det_device_aug: Optional[DetDeviceAugmentConfig] = None
 
 
 # ---------------------------------------------------------------------------
@@ -100,12 +112,25 @@ def cls_batch_augment(img: torch.Tensor, labels: torch.Tensor,
 # per-task loss functions
 # ---------------------------------------------------------------------------
 
+def _input(task, batch, generator, cfg: TrainStepConfig, train: bool):
+    """The step's normalized input. With ``train`` and a stage for the
+    batch (``run_stage``): the stage, then normalize, then for seg and det
+    the ``img_hw`` pad mask, in JAX's order (the seg stage's pad region
+    picks up the photometric adds, zeroed after the normalize). Else the
+    batch's own pixels, normalized and masked."""
+    img_hw = None if task == "cls" else batch.get("img_hw")
+    out = run_stage(task, batch, cfg, generator) if train else None
+    if out is not None:
+        return normalize(out, cfg.img_norm, img_hw)
+    return device_normalize(batch["img"], cfg.img_norm, img_hw)
+
+
 def cls_loss_fn(model, batch, generator, cfg: TrainStepConfig,
                 train: bool = True):
     """``train=False`` (the val step, on a model in eval mode) skips the
-    batch augments and draws nothing in the forward, as JAX's
+    device and batch augments and draws nothing in the forward, as JAX's
     ``deterministic=True`` does; the same holds for the seg and det loss."""
-    img = device_normalize(batch["img"], cfg.img_norm)
+    img = _input("cls", batch, generator, cfg, train)
     target = batch["gt_label"]
     if train and cfg.cls_use_augments:
         draws = draw_cls_augment(generator, *img.shape[:3],
@@ -123,7 +148,7 @@ def seg_loss_fn(model, batch, generator, cfg: TrainStepConfig,
     ``jax.image.resize(method="linear")`` does (``resize_linear``, which
     averages when it shrinks), softmax CE over every channel (scheme 2's
     one per query too, ROADMAP C4) with ``seg_ignore_index``."""
-    img = device_normalize(batch["img"], cfg.img_norm, batch.get("img_hw"))
+    img = _input("seg", batch, generator, cfg, train)
     gt = batch["gt_semantic_seg"]
     logits = resize_linear(
         model.forward_seg(img, generator if train else None), gt.shape[1:3])
@@ -137,7 +162,7 @@ def det_loss_fn(model, batch, generator, cfg: TrainStepConfig,
     """With ``train=False`` the CDN noise is still drawn from ``generator``
     (JAX's val step draws it from its key too)."""
     img_hw = batch["img_hw"]
-    img = device_normalize(batch["img"], cfg.img_norm, img_hw)
+    img = _input("det", batch, generator, cfg, train)
     gt_bboxes, gt_labels = batch["gt_bboxes"], batch["gt_labels"]
     gt_valid = batch["gt_valid"].bool()
     h, w = img_hw[:, 0].float(), img_hw[:, 1].float()

@@ -132,12 +132,29 @@ def test_cfg_options_match_jax():
 # ---------------------------------------------------------------------------
 
 def test_train_transforms_wait_for_m5():
-    for name, key in (("cls/resisc_swin_224.py", "train_pipeline"),
-                      ("seg/potsdam_IRRG_all.py", "train_pipeline")):
-        with pytest.raises(NotImplementedError, match="ROADMAP M8"):
-            build_pipeline(_base(name)[key])
-    # dior's train pipeline (Resize, RandomFlip, Normalize) is all ported
-    assert len(build_pipeline(_base("det/dior.py")["train_pipeline"])) == 4
+    """The base files' train pipelines build (ROADMAP M8's transforms,
+    ported) and, on one image, label and set of boxes each, make
+    what JAX's make from the same seed (RandomResizedCrop, RandAugment with
+    the reference's policies, RandomErasing; the ratio resize, RandomCrop
+    with cat_max_ratio, PhotoMetricDistortion, Pad; dior's keep-ratio
+    resize and flip)."""
+    rng = np.random.default_rng(0)
+    img = rng.uniform(0, 255, (96, 128, 3)).astype(np.float32)
+    seg = (np.arange(128)[None, :] // 24 + np.zeros((96, 1), int)) % 5
+    sample = {"img": img, "gt_semantic_seg": seg.astype(np.uint8),
+              "gt_bboxes": np.array([[4, 6, 60, 50]], np.float32),
+              "gt_labels": np.array([3], np.int32)}
+    for name in ("cls/resisc_swin_224.py", "seg/potsdam_IRRG_all.py",
+                 "det/dior.py"):
+        cfg = _base(name)["train_pipeline"]
+        got, want = build_pipeline(cfg), jax_build_pipeline(cfg)
+        assert [type(t).__name__ for t in got] == \
+            [type(t).__name__ for t in want]
+        for seed in range(3):
+            same_sample(
+                run_pipeline(got, dict(sample), np.random.default_rng(seed)),
+                jax_run_pipeline(want, dict(sample),
+                                 np.random.default_rng(seed)))
 
 
 @pytest.mark.parametrize("seed", [0, 1, 2])
@@ -263,9 +280,23 @@ def test_train_loader_matches_jax(replicas, rank):
         loader.set_epoch(epoch)
         jloader.set_epoch(epoch)
         same_batches(loader, jloader)
+    # on-device augmentation (ROADMAP M6, ported): the planner's uint8
+    # tiles, labels and aug_* records, as JAX's loader makes them
     data["potsdam"]["loader"]["seg_device_augment"] = True
-    with pytest.raises(NotImplementedError, match="ROADMAP M6"):
-        build_dataloaders(ds, data, **kw)
+    ds["potsdam"].pipeline_cfg = jds["potsdam"].pipeline_cfg = [
+        dict(type="Resize", img_scale=(32, 32), ratio_range=(0.5, 2.0)),
+        dict(type="RandomCrop", crop_size=(32, 32), cat_max_ratio=0.75),
+        dict(type="RandomFlip", prob=0.5), dict(type="PhotoMetricDistortion"),
+        dict(type="Normalize"),
+        dict(type="Pad", size=(32, 32), pad_val=0, seg_pad_val=5)]
+    loader = build_dataloaders(ds, data, **kw)["potsdam"]
+    jloader = jax_build_dataloaders(jds, data, **kw)["potsdam"]
+    assert loader.img_norm == jloader.img_norm is not None
+    for epoch in (0, 1):
+        loader.set_epoch(epoch)
+        jloader.set_epoch(epoch)
+        same_batches(loader, jloader)
+    assert next(iter(loader))["img"].dtype == np.uint8
 
 
 # ---------------------------------------------------------------------------

@@ -10,6 +10,7 @@ absolute for values and 1e-4 / 1e-4 x max|ref| for gradients, unless a test
 says otherwise: the two stacks sum in other orders in float32.
 """
 
+import dataclasses
 import importlib
 import os
 
@@ -673,11 +674,24 @@ def test_step_config_names_roadmap_for_unported():
     from rscotr_tpu_torch.apis import make_step_config
     from rscotr_tpu_torch.engine.train_step import make_train_step
     from rscotr_tpu_torch.utils.config import load_cfg
+    from rscotr_tpu.apis import derive_device_aug as jax_derive_device_aug
+    from rscotr_tpu.config import Config
     cfg = load_cfg(TINY)
     step_cfg = make_step_config(cfg)
+    assert step_cfg.device_aug is None
+    # on-device augmentation (ROADMAP M6, ported): the cls stage's
+    # config, as JAX derives it, from a cls train pipeline
     cfg["data"]["resisc"]["loader"]["cls_device_augment"] = True
-    with pytest.raises(NotImplementedError, match="ROADMAP M6"):
-        make_step_config(cfg)
+    cfg["data"]["resisc"]["data"]["train"]["pipeline"] = [
+        dict(type="RandomResizedCrop", size=128),
+        dict(type="RandAugment", num_policies=3),
+        dict(type="RandomErasing", fill_color=[1, 2, 3]),
+        dict(type="Normalize", mean=[1, 2, 3], std=[4, 5, 6])]
+    got = make_step_config(cfg).device_aug
+    want = jax_derive_device_aug(Config.fromdict(cfg))
+    assert got is not None and got.num_policies == 3
+    assert make_step_config(cfg).img_norm == ((1, 2, 3), (4, 5, 6))
+    assert dataclasses.asdict(got) == dataclasses.asdict(want)
     # seg training is ported: the step builds; an unknown task is refused
     model = torch.nn.Linear(1, 1)
     assert callable(make_train_step(model, None, "seg", step_cfg))
