@@ -107,7 +107,8 @@ Phases, each of which raises on failure (exit code 1, no result line):
     work_dir/latest.pth)`` into a model of another seed, its cls, det and
     seg outputs bit-equal to the saver's; then the port's
     ``tools/test.py`` (``rscotr_tpu_torch.tools.test.main``) on that
-    checkpoint over the whole synthetic val sets (cls 4 x 8 x 224^2, det 2
+    checkpoint (its raw results kept with ``--out`` for phase 14) over the
+    whole synthetic val sets (cls 4 x 8 x 224^2, det 2
     x 4 x 800^2, seg 2 x 4 x 512^2), launches counted per batch (K1 / K2:
     cls 0 / 12, det 12 / 12, seg 6 / 12, every K1 on the vector body, no
     backward or quad-path kernel), the metric keys (``resisc.accuracy_top-1``,
@@ -118,7 +119,25 @@ Phases, each of which raises on failure (exit code 1, no result line):
     the seg logits path (crop and resize on the host) timed once; the tiny
     config's ``make_val_step`` for cls, det and seg on the CPU and on the
     card, float32, TF32 off, every log var within SLICE_TOL;
-14. the co-training loop (``loop_phase``): the port's ``tools/train.py``
+14. export and serve (``export_phase``): the host C++ libraries built
+    on the machine (the COCO AP core must build; the JPEG / PNG decoder may
+    lack libjpeg / libpng, which alone is printed and passed over), the
+    native AP on the eval phase's det results equal to the numpy AP within
+    1e-6; the seed-0 flagship saved as a ``.pth`` and exported by the
+    port's ``tools/export_model.py --device cuda --input-dtype uint8
+    --check`` (``torch.export`` programs calling K1 and K2 as
+    ``rscotr_torch::msda_fwd`` / ``window_attn_fwd``) at the buckets cls
+    16x224^2, det 4x800^2, seg 4x512^2, trace seconds and bytes reported;
+    ``tools/serve.py`` in a process of its own on 8 PNGs of mixed sizes,
+    importing no model module, its results.json and seg PNGs against the
+    live steps on the same preprocessed batches (labels and seg maps equal,
+    scores and boxes within a bf16 bound); ``tools/test.py --show-dir``
+    (one batch per val set, 16 PNGs) and ``tools/inference_one_img.py``;
+    per artifact request of each task the K1 / K2 launches (cls 0 / 12,
+    det 12 / 12, seg 6 / 12, every K1 on the vector body, nothing else),
+    then artifact and live requests timed in turns (CUDA events, median of
+    20 warm calls) with the peak memory above the resident weights;
+15. the co-training loop (``loop_phase``): the port's ``tools/train.py``
     (``rscotr_tpu_torch.tools.train.main``) on the flagship config as
     written (round_robin, ``steps_per_dispatch=16``: JAX's grouped order)
     for 48 iterations in a temporary work dir: the task of every step
@@ -136,7 +155,7 @@ Phases, each of which raises on failure (exit code 1, no result line):
     call) and host wall after each group's first step, the median
     data_time, the peak memory; the loop's data-wait share, the
     checkpoint save and load times, the eval hook's time, the phase's;
-15. co-training with the paper's augmentation (``aug_loop_phase``): the
+16. co-training with the paper's augmentation (``aug_loop_phase``): the
     port's ``tools/train.py`` on ``MTL_synthetic_flagship_devaug.py`` (the
     three augment tails in the steps, on the card) and on
     ``MTL_synthetic_flagship_hostaug.py`` (the same tails on the host: PIL
@@ -150,7 +169,7 @@ Phases, each of which raises on failure (exit code 1, no result line):
     (the steady wait) beside each group's collection, the two configs' runs
     side by side, and each augment stage's time as a share of its task's
     devaug step;
-16. library yardsticks of K2 and K2b, last because cuDNN keeps workspace
+17. library yardsticks of K2 and K2b, last because cuDNN keeps workspace
     once it has run under graph capture: ``scaled_dot_product_attention``
     with the additive bias + mask, and its autograd backward, on the timed
     stages' own tensors (rebuilt from their seed), under every backend that
@@ -159,8 +178,9 @@ Phases, each of which raises on failure (exit code 1, no result line):
 The line before the last is {"kernels": [...]}: eight kernels, each with
 ``launches`` (the main path's run: the flagship's training), K1, K1b, K2
 and K2b also ``launches_paths`` (each zoo path's, each flagship task's,
-the flagship eval's run, each loop step's per task and the loop's whole
-run, the same for the first devaug and hostaug runs, counted from 0), ``max_abs_err``, ``ms`` and ``plain_ms``
+the flagship eval's run, each artifact request's, each loop step's per
+task and the loop's whole run, the same for the first devaug and hostaug
+runs, counted from 0), ``max_abs_err``, ``ms`` and ``plain_ms``
 (kernel and plain version, same inputs), ``bound_ms`` / ``bound_by`` (the
 least time the card could take, computed from this run's tensors),
 ``library_ms`` / ``library`` (the one-call yardstick, null where there is
@@ -194,6 +214,8 @@ from __future__ import annotations
 
 import json
 import os
+import pickle
+import re
 import subprocess
 import sys
 import time
@@ -2413,8 +2435,9 @@ def eval_phase(smi):
 
         stats = {}
         out = os.path.join(work_dir, "eval_metrics.json")
+        raw = os.path.join(work_dir, "raw_results.pkl")
         argv = [FLAGSHIP_CFG, os.path.join(work_dir, "latest.pth"),
-                "--eval-out", out, "--work-dir", work_dir]
+                "--eval-out", out, "--work-dir", work_dir, "--out", raw]
         log(f"  rscotr_tpu_torch.tools.test {' '.join(argv)}")
         infer_mod.make_infer_steps = counted_steps
         try:
@@ -2428,6 +2451,8 @@ def eval_phase(smi):
         if json.dumps(json.load(open(out)), sort_keys=True) != \
                 json.dumps(metrics, sort_keys=True):
             fail("eval: --eval-out holds other metrics than main returned")
+        with open(raw, "rb") as f:
+            det_results = pickle.load(f)["dior"]
         per_task = {}
         for task, got in calls:
             per_task[task] = per_task.get(task, 0) + 1
@@ -2568,6 +2593,387 @@ def eval_phase(smi):
             fail(f"val step {task}: CPU and CUDA log vars differ")
     (torch.backends.cuda.matmul.allow_tf32,
      torch.backends.cudnn.allow_tf32) = tf32
+    return launches, res, det_results
+
+
+# the serving buckets of the export phase: task -> (batch, size)
+EXPORT_BUCKETS = {"cls": (16, 224), "det": (4, 800), "seg": (4, 512)}
+# native AP against the numpy AP (JAX's own bound, tests/test_native.py)
+NATIVE_AP_TOL = 1e-6
+# served results against the live steps on the same preprocessed batches:
+# the same aten ops and kernels on the same card, so labels and seg maps
+# must be equal. Scores and boxes may round once more in bf16 where the
+# program runs an op another way (one bf16 ulp of a logit moves a sigmoid
+# score by at most 2^-8 / 4; of a normalized box coordinate, by 2^-8 of
+# the image side, here at most 1000 px)
+SERVE_SCORE_TOL = 2.0 ** -10
+SERVE_BOX_TOL = 2.0 ** -8 * 1000
+# the eval batch of each val set, painted once by --show-dir
+SHOW_WANT = {"resisc": 8, "dior": 4, "potsdam": 4}
+# what the serve process must not import: the model code and what builds it
+MODEL_MODULES = ("rscotr_tpu_torch.models", "rscotr_tpu_torch.engine",
+                 "rscotr_tpu_torch.apis", "rscotr_tpu_torch.data",
+                 "rscotr_tpu_torch.utils")
+# the lines of a build that failed only for want of libjpeg / libpng
+MISSING_IMAGE_LIBS = re.compile(r"jpeglib\.h|png\.h|-ljpeg|-lpng")
+
+
+def native_checks(det_results):
+    """The host libraries built on this machine; the native AP on the eval
+    phase's det results against the numpy AP. Returns the two times."""
+    from rscotr_tpu_torch.data import build_datasets, native_image
+    from rscotr_tpu_torch.evaluation import eval_map, native
+    from rscotr_tpu_torch.utils.config import load_cfg
+
+    st = native.available()
+    if not st:
+        fail(f"coco_eval.cpp did not build: {st.reason}")
+    log(f"  coco_eval: {'compiled' if st.build.compiled else 'cached'} "
+        f"{st.build.path.name} in {st.build.seconds:.2f} s")
+    st = native_image.available()
+    if st:
+        from PIL import Image
+        import io
+        img = np.random.default_rng(5).integers(0, 256, (37, 53, 3),
+                                                dtype=np.uint8)
+        buf = io.BytesIO()
+        Image.fromarray(img).save(buf, format="PNG")
+        if not np.array_equal(native_image.imdecode(buf.getvalue()), img):
+            fail("native_image: a PNG decodes to other pixels than PIL's")
+        log(f"  native_image: {'compiled' if st.build.compiled else 'cached'}"
+            f" {st.build.path.name} in {st.build.seconds:.2f} s, a PNG "
+            "decodes to PIL's pixels")
+    else:
+        # the reason's first line is the command, its flags -ljpeg -lpng
+        line = next((ln for ln in st.reason.splitlines()[1:]
+                     if MISSING_IMAGE_LIBS.search(ln)), None)
+        if line is None:
+            fail(f"image_core.cpp did not build: {st.reason}")
+        log(f"  native_image: unavailable ({line.strip()})")
+
+    dior = build_datasets(load_cfg(FLAGSHIP_CFG)["data"], split="val")["dior"]
+    anns = dior.get_annotations()
+    kw = dict(iou_thrs=[0.5, 0.75], class_names=dior.CLASSES)
+    t0 = time.perf_counter()
+    got = eval_map(det_results, anns, len(dior.CLASSES), use_native=True,
+                   **kw)
+    t_native = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    want = eval_map(det_results, anns, len(dior.CLASSES), use_native=False,
+                    **kw)
+    t_numpy = time.perf_counter() - t0
+    if sorted(got) != sorted(want):
+        fail("native AP: other keys than the numpy AP's")
+    errs = [abs(got[k] - want[k]) for k in want
+            if not (np.isnan(got[k]) and np.isnan(want[k]))]
+    if not max(errs) <= NATIVE_AP_TOL:
+        fail(f"native AP differs from numpy's by {max(errs):.2e}")
+    log(f"  native AP on the eval phase's det results ({len(det_results)} "
+        f"images, {len(dior.CLASSES)} classes, IoU 0.5 and 0.75): "
+        f"{len(want)} keys, max |native - numpy| {max(errs):.1e} (tol "
+        f"{NATIVE_AP_TOL:g}), bbox_mAP {got['bbox_mAP']:.4f}; host "
+        f"{1e3 * t_native:.1f} ms against {1e3 * t_numpy:.1f} ms")
+    return t_native, t_numpy
+
+
+def served_vs_live(results, files, raws, steps, meta):
+    """The serve CLI's results.json and PNGs against the live steps on the
+    same preprocessed batches (the tool's own ``_prep``)."""
+    from PIL import Image
+
+    from rscotr_tpu_torch.tools import serve
+    worst = {"score": 0.0, "box": 0.0}
+    for task, tm in meta["tasks"].items():
+        bs, size = tm["bs"], tm["size"]
+        prepped = [serve._prep(task, r, size, meta["img_norm"], True)
+                   for r in raws]
+        for b0 in range(0, len(files), bs):
+            chunk = prepped[b0:b0 + bs]
+            valid = len(chunk)
+            chunk += [chunk[-1]] * (bs - valid)
+            args = [np.stack([c[i] for c in chunk]) for i in range(3)]
+            out = steps[task](*(args if task == "det" else args[:1]))
+            for i in range(valid):
+                name = os.path.basename(files[b0 + i])
+                r = results[name][task]
+                if task == "cls":
+                    p = out[i].float().cpu().numpy()
+                    worst["score"] = max(worst["score"],
+                                         abs(r["prob"] - p.max()))
+                    if r["top1"] != int(p.argmax()):
+                        fail(f"served {name} cls: top-1 {r['top1']} != "
+                             f"{int(p.argmax())}")
+                elif task == "det":
+                    det = out[0][i].cpu().numpy()
+                    got = np.asarray(r["boxes_xyxy_score"], np.float32)
+                    if got.shape != det.shape or \
+                            r["labels"] != out[1][i].cpu().tolist():
+                        fail(f"served {name} det: {got.shape} boxes, labels "
+                             "differ from the live step's")
+                    worst["score"] = max(worst["score"], float(
+                        np.abs(got[:, 4] - det[:, 4]).max()))
+                    worst["box"] = max(worst["box"], float(
+                        np.abs(got[:, :4] - det[:, :4]).max()))
+                else:
+                    H, W = raws[b0 + i].shape[:2]
+                    lab = serve._resize_labels_nearest(
+                        out[i].cpu().numpy(), H, W).astype(np.uint8)
+                    if not np.array_equal(np.asarray(Image.open(r["png"])),
+                                          lab):
+                        fail(f"served {name} seg: the label PNG differs "
+                             "from the live step's")
+    if worst["score"] > SERVE_SCORE_TOL or worst["box"] > SERVE_BOX_TOL:
+        fail(f"served results differ from the live steps: {worst}")
+    return worst
+
+
+def time_requests(fn, inputs, n=20, warmup=3):
+    """Median CUDA-event ms of ``n`` warm calls and the peak memory they
+    allocate above what was allocated before them (MiB)."""
+    for _ in range(warmup):
+        fn(*inputs)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for _ in range(n):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn(*inputs)
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 20
+    return float(np.median(times)), peak
+
+
+def export_phase(smi, det_results):
+    """Export and serve on the card. (1) The host libraries build here
+    (``coco_eval`` must; ``image_core`` may lack libjpeg / libpng, and only
+    that is passed over, printed); the native AP on the eval phase's det
+    results equals the numpy AP within NATIVE_AP_TOL. (2) The serving
+    phase's seeded flagship saved as a ``.pth`` and exported by the port's
+    ``tools/export_model.py`` (``--device cuda --input-dtype uint8
+    --check``) at the buckets cls 16 x 224^2, det 4 x 800^2, seg 4 x 512^2;
+    export seconds and the artifact's bytes. (3) ``tools/serve.py`` on 8
+    PNGs of mixed sizes in a process of its own that imports no model
+    module, started at once; meanwhile (4) ``tools/test.py --show-dir
+    --max-batches 1`` paints one batch per val set and
+    ``tools/inference_one_img.py`` prints the cls class and writes its two
+    PNGs. Then the served results.json and PNGs against the live steps on
+    the same preprocessed batches. (5) The artifact ``--check`` loaded, in
+    process: its K1 / K2 launches per request of each task (every count at
+    0 just before, read just after), equal to the live requests'
+    (``EVAL_WANT``, every K1 on the vector body, nothing else); artifact and
+    live requests timed in turns, CUDA events, median of 20 warm calls,
+    with peak memory."""
+    import contextlib
+    import io
+    import shutil
+    import tempfile
+
+    from PIL import Image
+
+    from rscotr_tpu_torch import export as export_mod
+    from rscotr_tpu_torch.apis import derive_img_norm
+    from rscotr_tpu_torch.data import build_datasets, load_data_cfg
+    from rscotr_tpu_torch.engine import make_infer_steps, save_checkpoint
+    from rscotr_tpu_torch.models import build_model
+    from rscotr_tpu_torch.tools import export_model, inference_one_img
+    from rscotr_tpu_torch.tools import test as test_cli
+    from rscotr_tpu_torch.utils.config import load_cfg
+    from rscotr_tpu_torch.utils.visualize import _raw_image
+    counters = kernel_counters()
+    t_phase = time.perf_counter()
+    res, launches = {}, {}
+
+    log("export phase: native host code (g++ -O3 -fPIC -std=c++17 -shared, "
+        "built at first use)")
+    res["native_ap_s"], res["numpy_ap_s"] = native_checks(det_results)
+
+    cfg = load_data_cfg(load_cfg(FLAGSHIP_CFG), config_root=ROOT,
+                        filename=FLAGSHIP_CFG)
+    stc = cfg["model"]["test_cfg"]["seg"]
+    datasets = build_datasets(cfg["data"], split="val")
+    classes = {n: list(d.CLASSES) for n, d in datasets.items()}
+    work = tempfile.mkdtemp(prefix="rscotr_export_")
+    serve_proc = None
+    try:
+        # -- export ------------------------------------------------------
+        model = build_model(cfg["model"], device="cuda",
+                            generator=torch.Generator().manual_seed(0))
+        ckpt = save_checkpoint(work, 0, model, meta={"CLASSES": classes})
+        art = os.path.join(work, "artifact")
+        argv = [FLAGSHIP_CFG, ckpt, "--out", art, "--device", "cuda",
+                "--input-dtype", "uint8", "--check"]
+        for t, (bs, size) in EXPORT_BUCKETS.items():
+            argv += [f"--{t}-bs", str(bs), f"--{t}-size", str(size)]
+        log(f"export phase: rscotr_tpu_torch.tools.export_model "
+            f"{' '.join(argv[1:])}")
+        # the artifact --check loads is the one timed below
+        loaded, real_load = [], export_mod.load_artifact
+
+        def keep(*a, **kw):
+            loaded.append(real_load(*a, **kw))
+            return loaded[-1]
+
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        export_mod.load_artifact = keep
+        try:
+            with contextlib.redirect_stdout(out):
+                rc = export_model.main(argv)
+        finally:
+            export_mod.load_artifact = real_load
+        res["export_s"] = time.perf_counter() - t0
+        for line in out.getvalue().splitlines():
+            log(f"  | {line}")
+        if rc != 0 or out.getvalue().count(": OK") != len(EXPORT_BUCKETS):
+            fail(f"export_model --check failed (exit {rc})")
+        res["trace_s"] = {t: float(m) for t, m in re.findall(
+            r"(\w+): traced in ([\d.]+) s", out.getvalue())}
+        res["bytes"] = {f: os.path.getsize(os.path.join(art, f))
+                        for f in sorted(os.listdir(art))}
+        log(f"  export {res['export_s']:.1f} s in all (model load, trace, "
+            f"save, --check); traced " + ", ".join(
+                f"{t} {s:.2f} s" for t, s in res["trace_s"].items())
+            + "; bytes " + ", ".join(f"{f} {n}" for f, n in
+                                     res["bytes"].items()))
+
+        # -- serve, in a process of its own started now -------------------
+        imgs = os.path.join(work, "imgs")
+        os.makedirs(imgs)
+        rng = np.random.default_rng(13)
+        hws = [(800, 800), (600, 800), (512, 384), (224, 224), (1000, 700),
+               (333, 517), (256, 256), (768, 1024)]
+        files = [os.path.join(imgs, f"img{i}.png") for i in range(len(hws))]
+        for f, hw in zip(files, hws):
+            Image.fromarray(rng.integers(0, 256, hw + (3,), dtype=np.uint8)
+                            ).save(f)
+        served = os.path.join(work, "served")
+        sargv = [art, imgs, "--out-dir", served, "--score-thr", "0.0"]
+        code = ("import json, runpy, sys\n"
+                f"sys.argv = ['serve'] + {json.dumps(sargv)}\n"
+                "runpy.run_module('rscotr_tpu_torch.tools.serve', "
+                "run_name='__main__')\n"
+                "print('PORT_MODULES', json.dumps(sorted(m for m in "
+                "sys.modules if m.startswith('rscotr_tpu_torch'))))\n")
+        log(f"export phase: rscotr_tpu_torch.tools.serve {' '.join(sargv)} "
+            "(a process of its own, beside the painting)")
+        t_serve = time.perf_counter()
+        serve_proc = subprocess.Popen(
+            [sys.executable, "-c", code], cwd=ROOT, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True)
+
+        # -- painting -------------------------------------------------------
+        show = os.path.join(work, "painted")
+        targv = [FLAGSHIP_CFG, ckpt, "--max-batches", "1", "--show-dir",
+                 show, "--eval-out", os.path.join(work, "m.json")]
+        log(f"export phase: rscotr_tpu_torch.tools.test {' '.join(targv)}")
+        test_cli.main(targv)
+        painted = {n: sorted(os.listdir(os.path.join(show, n)))
+                   for n in sorted(os.listdir(show))}
+        if {n: len(f) for n, f in painted.items()} != SHOW_WANT:
+            fail(f"--show-dir painted {painted}")
+        for n, names in painted.items():
+            for f in names:
+                raw = _raw_image(datasets[n], int(f.split(".")[0]))
+                if Image.open(os.path.join(show, n, f)).size != \
+                        (raw.shape[1], raw.shape[0]):
+                    fail(f"--show-dir {n}/{f}: not the raw image's size")
+        log(f"  painted {sum(SHOW_WANT.values())} images, each the raw "
+            f"image's size: " + ", ".join(f"{n} {len(f)}"
+                                          for n, f in painted.items()))
+        one = os.path.join(work, "one")
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            inference_one_img.main([FLAGSHIP_CFG, ckpt, files[1],
+                                    "--out-dir", one])
+        lines = out.getvalue().splitlines()
+        for line in lines:
+            log(f"  | {line}")
+        if sorted(os.listdir(one)) != ["det_output.png", "seg_output.png"] \
+                or not any(ln.startswith("[cls/resisc] class = ")
+                           for ln in lines):
+            fail(f"inference_one_img: wrote {os.listdir(one)}, printed "
+                 f"{lines}")
+        log(f"  inference_one_img on {os.path.basename(files[1])}: the cls "
+            "line, det_output.png and seg_output.png")
+
+        # -- the served results -------------------------------------------
+        stdout, stderr = serve_proc.communicate(timeout=600)
+        res["serve_s"] = time.perf_counter() - t_serve
+        for line in stdout.splitlines():
+            log(f"  | {line}")
+        if serve_proc.returncode != 0:
+            fail(f"serve failed ({serve_proc.returncode}):\n{stderr}")
+        mods = json.loads(stdout.split("PORT_MODULES", 1)[1])
+        bad = [m for m in mods if m.startswith(MODEL_MODULES)]
+        if bad:
+            fail(f"serve imported model code: {bad}")
+        results = json.load(open(os.path.join(served, "results.json")))
+        raws = [np.asarray(Image.open(f).convert("RGB"), np.uint8)
+                for f in files]
+        steps = make_infer_steps(
+            model, max_per_img=cfg["model"]["test_cfg"]["det"]["max_per_img"],
+            img_norm=derive_img_norm(cfg), seg_test_cfg=stc)
+        (fns, meta), = loaded
+        worst = served_vs_live(results, files, raws, steps, meta)
+        log(f"  served {len(files)} PNGs of {len(set(hws))} sizes in "
+            f"{res['serve_s']:.1f} s (process start, load, 3 tasks); its "
+            f"port modules {mods}; results.json and the seg PNGs against "
+            f"the live steps: labels and seg maps equal, max |score| "
+            f"{worst['score']:.2e} (tol {SERVE_SCORE_TOL:.2e}), max |box| "
+            f"{worst['box']:.2e} px (tol {SERVE_BOX_TOL:g})")
+        res["served_worst"] = worst
+
+        # -- launches and time, artifact against live ---------------------
+        rng = np.random.default_rng(0)
+        res["requests"] = {}
+        for t, (bs, size) in EXPORT_BUCKETS.items():
+            img = rng.integers(0, 256, (bs, size, size, 3), dtype=np.uint8)
+            reqs = (img,) if t != "det" else (
+                img, np.full((bs, 2), size, np.int32),
+                np.ones((bs, 4), np.float32))
+            dev_in = tuple(torch.as_tensor(x).cuda() for x in reqs)
+            zero_counts(counters)
+            fns[t](*dev_in)
+            torch.cuda.synchronize()
+            got = launch_counts(counters)
+            want = dict.fromkeys(got, 0)
+            want.update(zip(("K1", "K2"), EVAL_WANT[t]))
+            want["K1 vec"] = want["K1"]
+            log(f"  launches in one artifact {t} {bs}x{size}^2 request: "
+                f"K1 {got['K1']} ({got['K1 vec']} vector body), K2 "
+                f"{got['K2']} (want {EVAL_WANT[t][0]}, all vector body, "
+                f"{EVAL_WANT[t][1]}; nothing else)")
+            if got != want:
+                fail(f"artifact {t} request: launches {got} != {want}")
+            launches[f"artifact {t} {bs}x{size}^2 request"] = got
+            r = {}
+            for kind, fn in (("artifact", fns[t]), ("live", steps[t]),
+                             ("live", steps[t]), ("artifact", fns[t])):
+                ms, peak = time_requests(fn, dev_in)
+                r.setdefault(kind, []).append((ms, peak))
+            res["requests"][t] = r
+            log(f"  latency {t} {bs}x{size}^2, median of 20 warm calls "
+                "(artifact, live, live, artifact): artifact "
+                + " / ".join(f"{m:.3f}" for m, _ in r["artifact"])
+                + " ms against live "
+                + " / ".join(f"{m:.3f}" for m, _ in r["live"])
+                + f" ms; peak above the resident weights artifact "
+                f"{r['artifact'][0][1]:.0f} MiB, live "
+                f"{r['live'][0][1]:.0f} MiB  [{smi}]")
+        del fns, steps, loaded, model
+        torch.cuda.empty_cache()
+    finally:
+        if serve_proc is not None and serve_proc.poll() is None:
+            serve_proc.kill()
+            serve_proc.communicate()
+        shutil.rmtree(work, ignore_errors=True)
+    res["phase_s"] = time.perf_counter() - t_phase
+    log(f"  export phase {res['phase_s']:.1f} s")
     return launches, res
 
 
@@ -3038,7 +3444,8 @@ def main(argv) -> int:
     launches, train = train_phase()
     stages = augment_phase()
     zlaunches, zoo = zoo_phase()
-    elaunches, evals = eval_phase(smi)
+    elaunches, evals, det_results = eval_phase(smi)
+    xlaunches, export = export_phase(smi, det_results)
     llaunches, loop = loop_phase(smi)
     alaunches, aug = aug_loop_phase(smi, stages)
     library_phase(times, btimes)
@@ -3052,6 +3459,7 @@ def main(argv) -> int:
     zlaunches.update({f"flagship {t} steps (12)": n
                       for t, n in launches.pop("per task").items()})
     zlaunches["flagship eval (cls 4, det 2, seg 2 batches)"] = elaunches
+    zlaunches.update(xlaunches)
     zlaunches.update(llaunches)
     zlaunches.update(alaunches)
     launches["paths"] = {k: {path: n[k] for path, n in zlaunches.items()}
@@ -3069,6 +3477,13 @@ def main(argv) -> int:
         f"{r['images_per_s']:.1f} img/s, loader "
         f"{100 * r['load_share']:.0f}%, peak {r['peak_mib']:.0f} MiB"
         for n, r in evals.items() if n in EVAL_SETS) + "; " + "; ".join(
+        f"export {t} traced {export['trace_s'][t]:.2f} s, {t}.pt2 "
+        f"{export['bytes'][t + '.pt2']} B, artifact request "
+        + " / ".join(f"{m:.3f}" for m, _ in r["artifact"]) + " ms against "
+        "live " + " / ".join(f"{m:.3f}" for m, _ in r["live"]) + " ms"
+        for t, r in export["requests"].items())
+        + f"; params.npz {export['bytes']['params.npz']} B; export phase "
+        f"{export['phase_s']:.1f} s; " + "; ".join(
         f"loop {t} step {loop[t]['median_ms']:.2f} ms, peak "
         f"{loop[t]['peak_mib']:.0f} MiB" for t in ("cls", "det", "seg"))
         + f"; loop data wait {100 * loop['data_share']:.2f}%; " + "; ".join(

@@ -7,8 +7,8 @@ Each transform is ``__call__(results: dict, rng: np.random.Generator)``.
 meta keys ``ori_shape``, ``img_shape``, ``scale_factor``, ``flip``.
 
 Every transform of the JAX module is here: the test-time ones
-(``LoadImageFromFile`` by PIL, since the JAX package's native decoder
-``csrc/image_core.cpp`` waits for ROADMAP M10; ``Resize``, ``RandomFlip``,
+(``LoadImageFromFile``, native first: ``data/native_image.py``, PIL where
+it returns None; ``Resize``, ``RandomFlip``,
 ``Pad``, ``Normalize``), the training ones (``RandomResizedCrop``,
 ``RandomCrop``, ``PhotoMetricDistortion``, ``RandomErasing``,
 ``RandAugment`` with its 15 ops, ``AutoAugment``) and the device-augment
@@ -30,6 +30,7 @@ from typing import List, Sequence
 import numpy as np
 from PIL import Image, ImageEnhance, ImageOps
 
+from rscotr_tpu_torch.data.native_image import imread
 from rscotr_tpu_torch.ops.device_augment import RAND_AUG_OP_NAMES
 from rscotr_tpu_torch.utils.registry import PIPELINES
 
@@ -559,8 +560,12 @@ class RandAugment:
 
 @PIPELINES.register_module(name="LoadImageFromFile")
 class LoadImageFromFile:
-    """Decodes ``img_path`` with PIL to float32 RGB. Passes a sample through
-    when it carries a decoded ``img`` and no ``img_path``."""
+    """Decodes ``img_path`` to float32 RGB through the native C++ core
+    (``data/native_image.py``: libjpeg / libpng, GIL released, so loader
+    threads decode in parallel), with PIL where that returns None (the
+    library did not build here, ``RSCOTR_NO_NATIVE_IMDECODE=1``, or a format
+    it does not read). Passes a sample through when it carries a decoded
+    ``img`` and no ``img_path``."""
 
     def __call__(self, results, rng=None):
         path = results.get("img_path")
@@ -569,8 +574,11 @@ class LoadImageFromFile:
                 raise KeyError("LoadImageFromFile: sample has neither "
                                "'img_path' nor a decoded 'img'")
             return results
-        with Image.open(path) as im:
-            results["img"] = np.asarray(im.convert("RGB"), np.float32)
+        arr = imread(path)
+        if arr is None:
+            with Image.open(path) as im:
+                arr = np.asarray(im.convert("RGB"))
+        results["img"] = arr.astype(np.float32)
         results["ori_shape"] = results["img"].shape
         results["img_shape"] = results["img"].shape
         return results

@@ -1,6 +1,6 @@
-"""COCO-style mAP (counterpart of the numpy path of
-rscotr_tpu/evaluation/coco_map.py; the JAX package's native C++ AP,
-``csrc/coco_eval.cpp``, is not ported: ROADMAP M10).
+"""COCO-style mAP (counterpart of rscotr_tpu/evaluation/coco_map.py: each
+class's AP from the native C++ core, ``evaluation/native.py``, where it
+built, else from the numpy path here, its oracle).
 
 mmdet ``CocoDataset.evaluate(metric="bbox", iou_thrs=[0.5])`` semantics on
 crowd-free data: per class, detections in descending score order (a stable
@@ -47,15 +47,35 @@ def _ap_101(recall: np.ndarray, precision: np.ndarray) -> float:
     return float(q.mean())
 
 
+def _native_aps(aps, c, boxes, scores, img, img_gts, iou_thrs) -> bool:
+    """Fill ``aps[:, c]`` from the native core; False when it is
+    unavailable."""
+    from rscotr_tpu_torch.evaluation.native import class_ap_native
+    gt_start = np.zeros(len(img_gts) + 1, np.int64)
+    gt_start[1:] = np.cumsum([len(g) for g in img_gts])
+    gt_flat = np.concatenate(img_gts)
+    for ti, thr in enumerate(iou_thrs):
+        ap = class_ap_native(boxes, scores, img, gt_flat, gt_start,
+                             len(img_gts), thr)
+        if ap is None:
+            return False
+        aps[ti, c] = ap
+    return True
+
+
 def eval_map(det_results: List[List[np.ndarray]],
              annotations: List[Dict[str, np.ndarray]],
              num_classes: int,
              iou_thrs: Sequence[float] = (0.5,),
              max_dets: int = 100,
-             class_names: Optional[Sequence[str]] = None
+             class_names: Optional[Sequence[str]] = None,
+             use_native: bool = True
              ) -> Dict[str, float]:
     """det_results: per image, per class, (n, 5) [x1, y1, x2, y2, score];
     annotations: per image ``bboxes`` (m, 4) xyxy and ``labels`` (m,).
+    ``use_native``: a class with GT takes ``class_ap_native`` where the
+    library is available (the numpy path otherwise, and always with
+    False).
     Returns ``bbox_mAP`` (over thresholds and classes with a GT),
     ``bbox_mAP_{100 * thr}`` per threshold and, given ``class_names``,
     ``bbox_AP_{name}``, each rounded to 4 places."""
@@ -81,6 +101,10 @@ def eval_map(det_results: List[List[np.ndarray]],
         all_boxes = np.concatenate(
             [d[:, :4] for d in img_dets]) if img_dets else np.zeros((0, 4))
         order = np.argsort(-all_scores, kind="mergesort")
+
+        if use_native and num_gt > 0 and _native_aps(
+                aps, c, all_boxes, all_scores, all_img, img_gts, iou_thrs):
+            continue
 
         for ti, thr in enumerate(iou_thrs):
             matched = [np.zeros(len(g), bool) for g in img_gts]

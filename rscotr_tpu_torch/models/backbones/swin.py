@@ -146,14 +146,19 @@ class SwinBlock(nn.Module):
 
     def _mask(self, Hp, Wp, shift, device):
         key = (Hp, Wp, shift, device)
-        if key not in self._masks:
+        mask = self._masks.get(key)
+        if mask is None:
             # a normal tensor even when first made under inference_mode, so
             # that a training step after a request can save it for backward
             with torch.inference_mode(False):
-                self._masks[key] = torch.as_tensor(
+                mask = torch.as_tensor(
                     _shift_attn_mask(Hp, Wp, self.window_size, shift),
                     device=device)
-        return self._masks[key]
+            # one made while torch.export traces belongs to that trace (a
+            # fake tensor): eager calls must not find it
+            if not torch.compiler.is_exporting():
+                self._masks[key] = mask
+        return mask
 
     def forward(self, x, generator=None):
         """x: (B, H, W, C)."""

@@ -3,4 +3,11 @@ hand-written CUDA kernels (``ms_deform_attn.ms_deform_attn`` = K1 forward,
 K1b the whole MSDA backward via ``ms_deform_attn.ms_deform_attn_bwd``;
 ``scatter_mm.scatter_add_mm`` = K3', the value-gradient scatter of the
 quad-gather path; ``window_attention.window_attention``
-= K2 forward, K2b backward via ``window_attention.window_attention_bwd``)."""
+= K2 forward, K2b backward via ``window_attention.window_attention_bwd``).
+
+Importing the package registers K1's and K2's forwards as the operators
+``torch.ops.rscotr_torch.msda_fwd`` and ``window_attn_fwd``, which
+``torch.export.load`` needs to find before it loads an artifact of
+``rscotr_tpu_torch.export``."""
+
+from rscotr_tpu_torch.ops import ms_deform_attn, window_attention  # noqa: F401

@@ -7,9 +7,11 @@ Counterpart of rscotr_tpu/ops/ms_deform_attn.py. Sampling semantics match
 ``x_pix = loc_x * W - 0.5``; bilinear corners outside the map contribute
 zero.
 
-``ms_deform_attn`` is a ``torch.autograd.Function``. For CUDA tensors the
-forward launches the hand-written kernel ``csrc/msda_fwd.cu`` (K1; its body
-picked by ``msda_fwd_body`` from the head width and the tensors' alignment)
+``ms_deform_attn`` is a ``torch.autograd.Function`` around the operator
+``torch.ops.rscotr_torch.msda_fwd`` (``msda_fwd``, registered when
+``rscotr_tpu_torch.ops`` is imported). For CUDA tensors the forward
+launches the hand-written kernel ``csrc/msda_fwd.cu`` (K1; its body picked
+by ``msda_fwd_body`` from the head width and the tensors' alignment)
 and the backward is one launch of ``csrc/msda_bwd.cu`` (K1b,
 ``ms_deform_attn_bwd``):
 it writes the attention-weight and location gradients and adds every valid
@@ -42,7 +44,7 @@ primal dtypes.
 from __future__ import annotations
 
 import ctypes
-from typing import Sequence, Tuple
+from typing import List, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -58,14 +60,52 @@ def _shapes(spatial_shapes) -> Tuple[Tuple[int, int], ...]:
     return tuple((int(h), int(w)) for h, w in spatial_shapes)
 
 
+def _flat_shapes(shapes) -> List[int]:
+    return [n for s in shapes for n in s]
+
+
+def _pairs(flat: Sequence[int]) -> Tuple[Tuple[int, int], ...]:
+    return tuple((int(flat[i]), int(flat[i + 1]))
+                 for i in range(0, len(flat), 2))
+
+
+@torch.library.custom_op("rscotr_torch::msda_fwd", mutates_args=(),
+                         device_types="cpu")
+def msda_fwd(value: torch.Tensor, spatial_shapes: List[int],
+             sampling_locations: torch.Tensor,
+             attention_weights: torch.Tensor) -> torch.Tensor:
+    """K1 as an operator (``torch.ops.rscotr_torch.msda_fwd``), so that a
+    ``torch.export`` program holds the kernel and not the plain version:
+    the plain version on the CPU, K1 on CUDA (``_ms_deform_attn_cuda``, its
+    body picked from the tensors' alignment at run time), the output's shape
+    from the fake implementation while tracing. ``spatial_shapes`` is the
+    flat [H0, W0, H1, W1, ...]."""
+    return ms_deform_attn_torch(value, _pairs(spatial_shapes),
+                                sampling_locations,
+                                attention_weights).contiguous()
+
+
+@msda_fwd.register_kernel("cuda")
+def _msda_fwd_cuda(value, spatial_shapes, sampling_locations,
+                   attention_weights):
+    return _ms_deform_attn_cuda(value, _pairs(spatial_shapes),
+                                sampling_locations, attention_weights)
+
+
+@msda_fwd.register_fake
+def _msda_fwd_fake(value, spatial_shapes, sampling_locations,
+                   attention_weights):
+    B, Q = sampling_locations.shape[:2]
+    return value.new_empty((B, Q, value.shape[2] * value.shape[3]))
+
+
 class _MsDeformAttn(torch.autograd.Function):
     @staticmethod
     def forward(ctx, value, loc, attn, shapes):
         ctx.shapes = shapes
         ctx.save_for_backward(value, loc, attn)
-        if value.device.type == "cpu":
-            return ms_deform_attn_torch(value, shapes, loc, attn)
-        return _ms_deform_attn_cuda(value, shapes, loc, attn)
+        return torch.ops.rscotr_torch.msda_fwd(value, _flat_shapes(shapes),
+                                               loc, attn)
 
     @staticmethod
     def backward(ctx, d_out):

@@ -5,7 +5,9 @@ Counterpart of rscotr_tpu/ops/pallas/window_attention.py
 einsum path in rscotr_tpu/models/backbones/swin.py, which is what JAX trains
 through. ``window_attention`` is a ``torch.autograd.Function`` with
 gradients for q, k, v and rel_bias (summed over images and windows, in
-float32); the shift mask is a constant. For CUDA tensors the forward
+float32); the shift mask is a constant. Its forward is the operator
+``torch.ops.rscotr_torch.window_attn_fwd`` (``window_attn_fwd``, registered
+when ``rscotr_tpu_torch.ops`` is imported). For CUDA tensors the forward
 launches the hand-written kernel ``csrc/window_attn.cu`` (K2) and the
 backward ``csrc/window_attn_bwd.cu`` (K2b); for CPU tensors they are the
 plain versions ``window_attention_torch`` and ``window_attention_bwd_torch``;
@@ -38,15 +40,38 @@ import torch
 from rscotr_tpu_torch.ops import kernel_lib
 
 
+@torch.library.custom_op("rscotr_torch::window_attn_fwd", mutates_args=(),
+                         device_types="cpu")
+def window_attn_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    rel_bias: torch.Tensor, shift_mask: Optional[torch.Tensor],
+                    scale: float) -> torch.Tensor:
+    """K2 as an operator (``torch.ops.rscotr_torch.window_attn_fwd``), so
+    that a ``torch.export`` program holds the kernel and not the plain
+    version: the plain version on the CPU, K2 on CUDA
+    (``_window_attention_cuda``, its instantiation planned from the
+    tensors' strides and alignment at run time), a contiguous (B, nW, H, n,
+    hd) output in q's dtype from the fake implementation while tracing."""
+    return window_attention_torch(q, k, v, rel_bias, shift_mask,
+                                  scale).contiguous()
+
+
+@window_attn_fwd.register_kernel("cuda")
+def _window_attn_fwd_cuda(q, k, v, rel_bias, shift_mask, scale):
+    return _window_attention_cuda(q, k, v, rel_bias, shift_mask, scale)
+
+
+@window_attn_fwd.register_fake
+def _window_attn_fwd_fake(q, k, v, rel_bias, shift_mask, scale):
+    return q.new_empty(q.shape)
+
+
 class _WindowAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, rel_bias, shift_mask, scale):
         ctx.scale = scale
         ctx.save_for_backward(q, k, v, rel_bias, shift_mask)
-        if q.device.type == "cpu":
-            return window_attention_torch(q, k, v, rel_bias, shift_mask,
-                                          scale)
-        return _window_attention_cuda(q, k, v, rel_bias, shift_mask, scale)
+        return torch.ops.rscotr_torch.window_attn_fwd(q, k, v, rel_bias,
+                                                      shift_mask, scale)
 
     @staticmethod
     def backward(ctx, d_out):

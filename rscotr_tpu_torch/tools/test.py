@@ -14,8 +14,11 @@ each dataset's metrics, keyed ``{dataset}.{metric}``, as JSON to
 ``--eval-out`` (default ``WORK_DIR/eval_metrics.json``, else
 ``eval_metrics.json``). An orbax checkpoint of the JAX package is refused
 with the command that converts it (``tools/convert_checkpoint.py
---to-torch``). ``--show`` / ``--show-dir`` and a ``--launcher`` other than
-``none`` wait for ROADMAP M7.
+--to-torch``). ``--show`` / ``--show-dir`` paint every evaluated image into
+``SHOW_DIR/<dataset>/<index>.png`` (``utils/visualize.py``; ``--show``
+alone paints into ``WORK_DIR/painted``), det boxes at or above
+``--show-score-thr``. A ``--launcher`` other than ``none`` waits for
+ROADMAP M7.
 """
 
 from __future__ import annotations
@@ -47,9 +50,9 @@ def parse_args(argv=None):
     p.add_argument("--test_outputs", help="reuse cached raw outputs pickle")
     p.add_argument("--eval-out", help="metrics json path")
     p.add_argument("--show", action="store_true",
-                   help="paint results (not ported: ROADMAP M7)")
-    p.add_argument("--show-dir", help="painted images directory (not "
-                   "ported: ROADMAP M7)")
+                   help="paint results (into WORK_DIR/painted unless "
+                        "--show-dir)")
+    p.add_argument("--show-dir", help="painted images directory")
     p.add_argument("--show-score-thr", type=float, default=0.3)
     p.add_argument("--max-batches", type=int, default=0)
     p.add_argument("--cfg-options", nargs="+", action=DictAction)
@@ -106,10 +109,6 @@ def main(argv=None, stats: Optional[Dict[str, dict]] = None):
         raise NotImplementedError(
             f"--launcher {args.launcher}: multi-process evaluation over "
             "torch.distributed is not ported yet (ROADMAP M7)")
-    if args.show or args.show_dir:
-        raise NotImplementedError(
-            "--show / --show-dir: utils/visualize.py is not ported yet "
-            "(ROADMAP M7)")
 
     from rscotr_tpu_torch.apis import derive_cls_hw, derive_img_norm
     from rscotr_tpu_torch.data.build import (build_dataloaders,
@@ -159,6 +158,14 @@ def main(argv=None, stats: Optional[Dict[str, dict]] = None):
         if args.out:
             with open(args.out, "wb") as f:
                 pickle.dump(results, f)
+
+    if args.show or args.show_dir:
+        from rscotr_tpu_torch.utils.visualize import save_eval_visualizations
+        show_dir = args.show_dir or os.path.join(args.work_dir or ".",
+                                                 "painted")
+        n = save_eval_visualizations(datasets, results, show_dir,
+                                     score_thr=args.show_score_thr)
+        logger.info("painted %d result images into %s", n, show_dir)
 
     if args.format_only:
         out_dir = args.work_dir or "formatted"

@@ -349,9 +349,19 @@ def test_cli_runs_on_the_card_unless_asked(port_ckpt):
 
 @pytest.mark.parametrize("flag", [["--launcher", "pytorch"], ["--show"],
                                   ["--show-dir", "painted"]])
-def test_cli_refuses_what_waits_for_m7(port_ckpt, flag):
-    with pytest.raises(NotImplementedError, match="ROADMAP M7"):
-        _cli([TINY, port_ckpt, "--device", "cpu"] + flag)
+def test_cli_refuses_what_waits_for_m7(port_ckpt, flag, tmp_path):
+    """``--launcher`` waits for M7's scale-out; ``--show`` (into
+    WORK_DIR/painted) and ``--show-dir`` paint each evaluated image."""
+    if flag[0] == "--launcher":
+        with pytest.raises(NotImplementedError, match="ROADMAP M7"):
+            _cli([TINY, port_ckpt, "--device", "cpu"] + flag)
+        return
+    painted = tmp_path / "painted"
+    _cli([TINY, port_ckpt, "--device", "cpu", "--tasks", "cls",
+          "--max-batches", "1", "--work-dir", str(tmp_path)]
+         + [str(painted) if f == "painted" else f for f in flag])
+    files = set(os.listdir(painted / "resisc"))
+    assert files and files == {f"{i}.png" for i in range(len(files))}
 
 
 def test_cli_tasks_eval_and_cached_outputs(port_ckpt, tmp_path):
