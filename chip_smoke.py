@@ -169,7 +169,34 @@ Phases, each of which raises on failure (exit code 1, no result line):
     (the steady wait) beside each group's collection, the two configs' runs
     side by side, and each augment stage's time as a share of its task's
     devaug step;
-17. library yardsticks of K2 and K2b, last because cuDNN keeps workspace
+17. scale-out (``scaleout_phase``) through ``--launcher pytorch``, each
+    run 12 round-robin iterations of the flagship
+    (``--steps-per-dispatch 1``): (a) ``tools/train.py`` on two ranks
+    sharing the card under ``torch.distributed.run --nproc_per_node 2
+    --standalone`` over gloo (NCCL refuses two ranks on one device; cls
+    2x16x224^2, det 2x1x800^2, seg 2x2x512^2; the eval hook at 12 on both
+    ranks) against a one-process twin on the same global batch
+    (``samples_per_gpu`` doubled): per step the loss terms and grad_norm
+    of ``metrics.jsonl`` (the ranks' shares summed by the log hook); each
+    task's first step from the seed's weights (a one-step run per task)
+    within the training-parity tolerances, and its gradients leaf by leaf
+    (the first moment its ``iter_1.pth`` holds, ``(1 - b1)`` times the
+    clipped gradient) within ``MU_RTOL`` / ``MU_ATOL``; the later steps
+    printed beside the spread of the plain run against a second plain
+    run, the noise floor; the two-rank
+    ``iter_12.pth`` loaded into one process bit-equal to rank 0's
+    gathered state; (b) one rank over NCCL, DP then FSDP
+    (``parallel.fsdp=True``), against the plain one-process run; (c)
+    two-rank FSDP over gloo (gloo carries FSDP2's all-gather and
+    reduce-scatter of CUDA tensors: NVIDIA H100, torch 2.11) against the
+    twin; (d) ``tools/test.py --launcher pytorch``
+    on two ranks over (a)'s checkpoint against the one-process tool: the
+    metrics and the seg label maps equal; (e) per rank and iteration the
+    K1 / K1b / K2 / K2b launches (the one-process loop's, on the vector
+    body), per-rank step and gradient-sum ms (CUDA events) and peak
+    memory, labelled as two ranks sharing one card over gloo. Each rank
+    runs this script's ``--scaleout-rank`` mode;
+18. library yardsticks of K2 and K2b, last because cuDNN keeps workspace
     once it has run under graph capture: ``scaled_dot_product_attention``
     with the additive bias + mask, and its autograd backward, on the timed
     stages' own tensors (rebuilt from their seed), under every backend that
@@ -1932,7 +1959,7 @@ def augment_phase():
     return res
 
 
-def train_cli_run(argv, name, on_start=None):
+def train_cli_run(argv, name, on_start=None, on_end=None):
     """``rscotr_tpu_torch.tools.train.main(argv)`` with every count at 0
     just before and read just after. Returns the run: per iteration
     (``steps``) its task, step, launches (since the hooks of the iteration
@@ -1940,7 +1967,8 @@ def train_cli_run(argv, name, on_start=None):
     run's ``total`` launches and ``wall``; whether a parameter of the
     backbone and of each task's head ``moved`` over the run; the runner's
     ``end_step`` and ``end_opt_step``. ``on_start(runner)`` runs in the
-    first hook's ``before_run``."""
+    first hook's ``before_run``, ``on_end(runner)`` after the tool
+    returns."""
     from rscotr_tpu_torch.engine import train_step as ts_mod
     from rscotr_tpu_torch.engine.hooks import Hook
     from rscotr_tpu_torch.tools import train as train_cli
@@ -1983,8 +2011,8 @@ def train_cli_run(argv, name, on_start=None):
     probe = Probe()
     real_make = ts_mod.make_train_step
 
-    def timed_make(model, optimizer, task, step_cfg, mask=None):
-        step = real_make(model, optimizer, task, step_cfg, mask)
+    def timed_make(model, optimizer, task, step_cfg, mask=None, **kw):
+        step = real_make(model, optimizer, task, step_cfg, mask, **kw)
 
         def call(batch, generator):
             torch.cuda.reset_peak_memory_stats()
@@ -2009,6 +2037,8 @@ def train_cli_run(argv, name, on_start=None):
         runner = train_cli.main(argv, hooks=[probe, Tail()])
         wall = time.perf_counter() - t0
         total = launch_counts(counters)
+        if on_end is not None:
+            on_end(runner)
         torch.cuda.synchronize()
         run = dict(steps=steps, total=total, moved=moved, wall=wall,
                    end_step=runner.step, end_opt_step=runner.optimizer.step)
@@ -3306,6 +3336,514 @@ def aug_loop_phase(smi, stages):
     return launches, res
 
 
+# the scale-out phase: 12 round-robin iterations of the flagship a run,
+# and for each task a one-step run that starts with it
+# (``iteration_strategy.start_idx``), so that every task's first step runs
+# from the seed's weights in every configuration. Those first steps are
+# held to the training-parity tolerances (the same weights and global
+# batch: only the per-rank batch's kernel tilings and K1b's atomic order
+# differ), and so are their gradients, leaf by leaf: the first moment
+# after one step is (1 - b1) times the clipped gradient, which Adam's
+# sign-like first update does not amplify. A leaf passes when
+# |mu - mu_ref| <= MU_RTOL * |mu_ref| + MU_ATOL * |all of mu_ref| (L2
+# norms). One rank against the plain run, the same arithmetic, parts by
+# up to 1.5e-2 in a leaf that holds 1e-3 of the norm or more, and by up to
+# 7.3% in a smaller one (the atomic adds of the backward, K1b's and the
+# bilinear resize's, under bf16 rounding; NVIDIA H100 80GB HBM3, 700 W),
+# two ranks against the twin by as much; a leaf whose gradient one rank
+# alone holds (not summed) is off by about half its norm, caught while it
+# holds more than MU_ATOL / 0.4 of the norm. The later steps
+# of the 12-step runs are not held to a bound: the plain run against a
+# second plain run (the same code and arithmetic) parts by up to 145%
+# within 12 steps (K1b's atomics move a gradient's last bits, Adam turns a
+# flipped near-zero gradient into a +-lr step, det's top-k and matching
+# are discrete), so they are reported beside that floor
+SCALE_ITERS = 12
+FIRST = {"cls": 0, "det": 1, "seg": 2}
+MU_RTOL, MU_ATOL = 0.1, 2e-5
+
+
+def _float_logs(lv):
+    return {k: float(v) for k, v in lv.items()}
+
+
+def scaleout_rank(argv) -> int:
+    """One rank of the scale-out phase, started by ``torch.distributed.run
+    ... chip_smoke.py --scaleout-rank SPEC``: each run of SPEC's ``runs``
+    through the port's tool with ``--launcher pytorch`` (train: through
+    ``train_cli_run``, the gradient sums timed with CUDA events, the
+    gathered final state written by rank 0 where asked; test: each infer
+    call's launches counted), then this rank's record as JSON."""
+    from rscotr_tpu_torch.engine import infer as infer_mod
+    from rscotr_tpu_torch.engine.checkpoint import full_state_dict
+    from rscotr_tpu_torch.parallel import ddp, mesh
+    from rscotr_tpu_torch.tools import test as test_cli
+    with open(argv[0]) as f:
+        spec = json.load(f)
+    counters = kernel_counters()
+    syncs = []
+    real_sync = ddp.GradSync.__call__
+
+    def timed_sync(self, *a, **kw):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        real_sync(self, *a, **kw)
+        end.record()
+        syncs.append(((start, end), time.perf_counter() - t0))
+
+    ddp.GradSync.__call__ = timed_sync
+    out = {"runs": []}
+    for run in spec["runs"]:
+        rec = {"name": run["name"]}
+        if run["tool"] == "train":
+            syncs.clear()
+
+            def keep_state(runner):
+                state = full_state_dict(runner.model)
+                if mesh.rank() == 0:
+                    torch.save(state, run["state_out"])
+            res = train_cli_run(run["argv"], run["name"], on_end=keep_state
+                                if run.get("state_out") else None)
+            torch.cuda.synchronize()
+            for s in res["steps"]:
+                s["log_vars"] = _float_logs(s["log_vars"])
+            rec.update(steps=res["steps"], total=res["total"],
+                       wall=res["wall"], end_step=res["end_step"],
+                       sync_ms=[a.elapsed_time(b) for (a, b), _ in syncs],
+                       sync_host_ms=[1e3 * h for _, h in syncs])
+        else:
+            calls = []
+            real_infer = infer_mod.make_infer_steps
+
+            def counted(*a, **kw):
+                def wrap(task, fn):
+                    def call(*args):
+                        before = launch_counts(counters)
+                        r = fn(*args)
+                        after = launch_counts(counters)
+                        calls.append((task, {k: after[k] - before[k]
+                                             for k in after}))
+                        return r
+                    return call
+                return {t: wrap(t, f) for t, f in real_infer(*a, **kw)
+                        .items()}
+            infer_mod.make_infer_steps = counted
+            try:
+                zero_counts(counters)
+                t0 = time.perf_counter()
+                rec["metrics"] = test_cli.main(run["argv"])
+                rec["wall"] = time.perf_counter() - t0
+            finally:
+                infer_mod.make_infer_steps = real_infer
+            rec["calls"] = calls
+        rec["peak_mib"] = torch.cuda.max_memory_allocated() / 2 ** 20
+        out["runs"].append(rec)
+        torch.cuda.empty_cache()
+    out.update(rank=mesh.rank(), world=mesh.world_size(),
+               backend=torch.distributed.get_backend(),
+               device=str(torch.cuda.current_device()))
+    with open(spec["out"].format(rank=mesh.rank()), "w") as f:
+        json.dump(out, f)
+    mesh.destroy_distributed()
+    return 0
+
+
+def launch_ranks(n, runs, work, name, timeout=600):
+    """``torch.distributed.run --standalone --nproc_per_node n`` of this
+    script's rank mode over ``runs``; the ranks' records, rank 0 first.
+    A rank that fails, or a launch past ``timeout`` seconds, fails the
+    phase."""
+    spec = os.path.join(work, f"{name}.json")
+    with open(spec, "w") as f:
+        json.dump({"runs": runs,
+                   "out": os.path.join(work, name + ".rank{rank}.out.json")},
+                  f)
+    log(f"  {name}: torch.distributed.run --standalone --nproc_per_node "
+        f"{n} chip_smoke.py --scaleout-rank: "
+        + ", ".join(r["name"] for r in runs))
+    t0 = time.perf_counter()
+    p = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc_per_node", str(n), os.path.abspath(__file__),
+         "--scaleout-rank", spec], cwd=ROOT, capture_output=True, text=True,
+        timeout=timeout)
+    wall = time.perf_counter() - t0
+    if p.returncode:
+        print(p.stdout[-6000:], file=sys.stderr)
+        print(p.stderr[-12000:], file=sys.stderr)
+        fail(f"{name}: torch.distributed.run exited {p.returncode}")
+    recs = []
+    for r in range(n):
+        with open(os.path.join(work, f"{name}.rank{r}.out.json")) as f:
+            recs.append(json.load(f))
+    log(f"  {name}: {n} rank(s) on {[x['device'] for x in recs]} over "
+        f"{recs[0]['backend']}, {wall:.1f} s")
+    return recs
+
+
+def same_metrics(a: dict, b: dict) -> bool:
+    """Equal keys and values (NaN equal to NaN)."""
+    return sorted(a) == sorted(b) and all(
+        a[k] == b[k] or (np.isnan(a[k]) and np.isnan(b[k])) for k in b)
+
+
+def metrics_rows(work_dir):
+    with open(os.path.join(work_dir, "metrics.jsonl")) as f:
+        return [json.loads(x) for x in f]
+
+
+def compare_runs(name, got, want, bound_first=True):
+    """Two runs' ``metrics.jsonl`` rows, step by step: the task's summed
+    loss and grad_norm, with the worst loss term beside them. The first
+    row (both runs start from the seed's weights) is held to TRAIN_RTOL /
+    TRAIN_ATOL when ``bound_first``. Returns the worst relative
+    difference of loss and grad_norm over the rows after the first."""
+    if [r["step"] for r in got] != [r["step"] for r in want]:
+        fail(f"{name}: steps {[r['step'] for r in got]} vs "
+             f"{[r['step'] for r in want]}")
+    worst = 0.0
+    skip = ("step", "time", "data_time")
+    for i, (g, w) in enumerate(zip(got, want)):
+        terms = [k for k in w if k not in skip and not k.startswith("val/")]
+        if sorted(k for k in g if k not in skip and not k.startswith(
+                "val/")) != sorted(terms):
+            fail(f"{name} step {w['step']}: keys differ")
+        loss = next(k for k in terms if k.endswith(".loss"))
+        rel = {k: abs(g[k] - w[k]) / max(abs(w[k]), 1e-12) for k in terms}
+        term = max((k for k in terms if k not in (loss, "grad_norm")),
+                   key=rel.get, default=loss)
+        log(f"    {name} step {w['step']} {loss.split('.')[0]}: loss "
+            f"{g[loss]:.6f} vs {w[loss]:.6f}, grad_norm "
+            f"{g['grad_norm']:.5f} vs {w['grad_norm']:.5f}; worst term "
+            f"{term} {rel[term]:.1e}")
+        for k in (loss, "grad_norm"):
+            if i:
+                worst = max(worst, rel[k])
+            elif bound_first and \
+                    abs(g[k] - w[k]) > TRAIN_ATOL + TRAIN_RTOL * abs(w[k]):
+                fail(f"{name} step {w['step']} (from the same weights): "
+                     f"{k} {g[k]:.6g} vs {w[k]:.6g} (tol {TRAIN_ATOL:g} + "
+                     f"{TRAIN_RTOL:g}*|w|)")
+    return worst
+
+
+def first_moments(work_dir):
+    """The first moment of every leaf in ``work_dir/iter_1.pth`` (the
+    file memory-mapped: the weights and the second moment stay unread)."""
+    ck = torch.load(os.path.join(work_dir, "iter_1.pth"), map_location="cpu",
+                    weights_only=True, mmap=True)
+    return {k: v.double() for k, v in ck["optimizer"]["mu"].items()}
+
+
+def compare_moments(name, got, want):
+    """Leaf by leaf ``got`` against ``want`` (``first_moments``'s) within
+    MU_RTOL / MU_ATOL; logs the worst leaves. Returns the worst relative
+    error of a leaf that holds at least 1e-3 of the whole norm."""
+    if sorted(got) != sorted(want):
+        fail(f"{name}: the first moments name other leaves")
+    total = float(torch.sqrt(sum((v * v).sum() for v in want.values())))
+    rows, bad = [], []
+    for k, w in want.items():
+        if got[k].shape != w.shape:
+            fail(f"{name}: {k} shape {tuple(got[k].shape)} vs "
+                 f"{tuple(w.shape)}")
+        err = float(torch.linalg.vector_norm(got[k] - w))
+        ref = float(torch.linalg.vector_norm(w))
+        tol = MU_RTOL * ref + MU_ATOL * total
+        rows.append((err / tol if tol else float(err > 0), err, ref, k))
+        if err > tol:
+            bad.append(k)
+    rows.sort(reverse=True)
+    worst_rel = max((e / r for _, e, r, _ in rows if r >= 1e-3 * total),
+                    default=0.0)
+    worst = "; ".join(f"{k} {e:.2e} of {r:.2e} ({x:.2f} of the bound)"
+                      for x, e, r, k in rows[:3])
+    log(f"    {name}: {len(rows)} leaves, {sum(r > 0 for *_, r, _ in rows)} "
+        f"moved, |mu| {total:.4e}; worst relative error of a leaf holding "
+        f">= 1e-3 of it {worst_rel:.2e}; worst against the bound: {worst}")
+    if bad:
+        fail(f"{name}: {len(bad)} leaves outside {MU_RTOL:g} * |ref| + "
+             f"{MU_ATOL:g} * |all|, first {bad[:5]}")
+    return worst_rel
+
+
+def check_rank_steps(name, rec, tasks):
+    """A rank's train run: its tasks in order and every iteration's K1 /
+    K1b / K2 / K2b launches ``LOOP_WANT`` (K1 / K1b on the vector body, no
+    quad-path kernel)."""
+    steps = rec["steps"]
+    if [s["task"] for s in steps] != tasks:
+        fail(f"{name}: tasks {[s['task'] for s in steps]} != {tasks}")
+    for s in steps:
+        got = s["launches"]
+        want = dict(LOOP_WANT[s["task"]], **dict.fromkeys(QUAD, 0))
+        if {k: got[k] for k in want} != want or \
+                (got["K1 vec"], got["K1b vec"]) != (got["K1"], got["K1b"]):
+            fail(f"{name} step {s['step']} ({s['task']}): launches {got} "
+                 f"!= {want}, all K1 / K1b on the vector body")
+        if not all(np.isfinite(v) for v in s["log_vars"].values()):
+            fail(f"{name} step {s['step']}: non-finite log vars")
+
+
+def rank_report(name, recs, smi, label):
+    """Per rank and task: the median step ms (CUDA events), its gradient
+    sum's ms (CUDA events; host ms), the peak memory."""
+    res = {}
+    for rec in recs:
+        r = rec["run"]
+        n = len(r["sync_ms"])
+        for task in ("cls", "det", "seg"):
+            idx = [i for i, s in enumerate(r["steps"]) if s["task"] == task]
+            later = idx[1:] or idx
+            ms = float(np.median([r["steps"][i]["ms"] for i in later]))
+            sync = float(np.median([r["sync_ms"][i] for i in later])) \
+                if n == len(r["steps"]) else float("nan")
+            sync_h = float(np.median([r["sync_host_ms"][i] for i in later])) \
+                if n == len(r["steps"]) else float("nan")
+            peak = max(r["steps"][i]["peak_mib"] for i in idx)
+            res[(rec["rank"], task)] = dict(ms=ms, sync_ms=sync, peak=peak)
+            log(f"  {name} rank {rec['rank']} {task} step: median {ms:.2f} "
+                f"ms, gradient sum {sync:.2f} ms (host {sync_h:.2f} ms), "
+                f"peak {peak:.0f} MiB, over {len(later)} steps; {label} "
+                f"[{smi}]")
+    return res
+
+
+def scaleout_phase(smi):
+    """Scale-out through the port's ``--launcher pytorch`` on one card.
+
+    (a) two ranks share the card under ``torch.distributed.run
+    --nproc_per_node 2 --standalone`` over gloo (``--cfg-options
+    dist_params.backend=gloo``: NCCL refuses two ranks on one device):
+    ``tools/train.py`` on the flagship, 12 round-robin iterations
+    (``--steps-per-dispatch 1``; cls 2x16x224^2, det 2x1x800^2, seg
+    2x2x512^2), the eval hook at 12 on both ranks; a one-process twin of
+    the same global batch (``samples_per_gpu`` doubled) on the same card;
+    each task's first step from the seed's weights (``FIRST``) held to the
+    training-parity tolerances by ``compare_runs`` and its gradients leaf
+    by leaf by ``compare_moments``; the later steps beside the noise
+    floor, a second plain run against the plain run; the 2-rank
+    ``iter_12.pth`` loaded into one process bit-equal to rank 0's gathered
+    state. (b) one rank over NCCL: DP, then FSDP (``parallel.fsdp=True``),
+    against the plain one-process run the same way. (c) two-rank FSDP over
+    gloo against the twin (gloo carries FSDP2's all-gather and
+    reduce-scatter of CUDA tensors: a two-rank FSDP2 step over gloo on one
+    NVIDIA H100 ran, torch 2.11.0+cu128). (d)
+    ``tools/test.py --launcher pytorch`` on two ranks over (a)'s
+    checkpoint against the one-process tool: the metrics and the seg label
+    maps equal. (e) per rank and iteration the K1 / K1b / K2 / K2b launches
+    (``LOOP_WANT``, the one-process loop's, on the vector body), per-rank
+    step and gradient-sum ms (CUDA events) and peak memory, labelled as
+    two ranks sharing one card over gloo. The cls batch augments are off
+    (they pair within a rank, ROADMAP C15)."""
+    import shutil
+    import tempfile
+
+    from rscotr_tpu_torch.engine.checkpoint import load_checkpoint
+    from rscotr_tpu_torch.models import build_model
+    from rscotr_tpu_torch.tools import test as test_cli
+    from rscotr_tpu_torch.utils.config import load_cfg
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    work = tempfile.mkdtemp(prefix="rscotr_scale_")
+    tasks = ["cls", "det", "seg"] * (SCALE_ITERS // 3)
+    opts = ["--cfg-options", "log_config.interval=1",
+            "model.train_cfg.cls.augments=[]"]
+    kinds = {"a": ["--launcher", "pytorch", "dist_params.backend=gloo"],
+             "c": ["--launcher", "pytorch", "dist_params.backend=gloo",
+                   "parallel.fsdp=True"],
+             "b_dp": ["--launcher", "pytorch"],
+             "b_fsdp": ["--launcher", "pytorch", "parallel.fsdp=True"],
+             "twin": ["data.resisc.data.samples_per_gpu=32",
+                      "data.dior.data.samples_per_gpu=2",
+                      "data.potsdam.data.samples_per_gpu=4"],
+             "plain": [], "plain2": []}
+
+    def run(kind, first=None):
+        """(name, tool argv) of a ``kind`` run: 12 iterations, or one
+        starting with task ``first``."""
+        name = kind if first is None else f"{kind} {first} first"
+        wd = os.path.join(work, name.replace(" ", "_"))
+        extra = kinds[kind]
+        launcher = extra[:2] if extra[:1] == ["--launcher"] else []
+        cfg_opts = extra[len(launcher):]
+        iters = SCALE_ITERS if first is None else 1
+        argv = [FLAGSHIP_CFG, "--max-iters", str(iters),
+                "--steps-per-dispatch", "1", "--work-dir", wd] + launcher
+        if not (kind == "a" and first is None):
+            argv.append("--no-validate")
+        argv += opts + cfg_opts
+        if first is not None:
+            argv.append(f"iteration_strategy.start_idx={FIRST[first]}")
+        return dict(name=name, tool="train", argv=argv, wd=wd)
+
+    log(f"scale-out phase: the flagship through tools/train.py and "
+        f"tools/test.py --launcher pytorch, {SCALE_ITERS} round-robin "
+        f"iterations a run and a one-step run per task starting with it; "
+        f"two ranks share one H100 over gloo, one rank over NCCL  [{smi}]")
+    runs = {}
+    try:
+        a = run("a")
+        a["state_out"] = os.path.join(work, "a_state.pt")
+        ckpt = os.path.join(a["wd"], f"iter_{SCALE_ITERS}.pth")
+        d = dict(name="d 2-rank eval", tool="test",
+                 argv=[FLAGSHIP_CFG, ckpt, "--launcher", "pytorch", "--out",
+                       os.path.join(work, "d2.pkl"), "--eval-out",
+                       os.path.join(work, "d2.json"), "--cfg-options",
+                       "dist_params.backend=gloo"])
+        two_runs = [a, d, run("c")] + [run(k, t) for k in ("a", "c")
+                                       for t in FIRST]
+        two = launch_ranks(2, two_runs, work, "two_ranks")
+        one_runs = [run(k, t) for k in ("b_dp", "b_fsdp")
+                    for t in (None, *FIRST)]
+        one_rank = launch_ranks(1, one_runs, work, "one_rank_nccl")
+        for rec in two + one_rank:
+            rec["by_name"] = {r["name"]: r for r in rec["runs"]}
+        for r in [run(k, t) for k in ("twin", "plain")
+                  for t in (None, *FIRST)] + [run("plain2")]:
+            runs[r["name"]] = dict(r, res=train_cli_run(r["argv"], r["name"]))
+        one_eval = test_cli.main([FLAGSHIP_CFG, ckpt, "--out",
+                                  os.path.join(work, "d1.pkl"), "--eval-out",
+                                  os.path.join(work, "d1.json")])
+        for r in two_runs + one_runs:
+            runs.setdefault(r["name"], r)
+
+        # -- launches and finite values of every 12-step run ---------------
+        for rec in two:
+            for k in ("a", "c"):
+                check_rank_steps(f"{k} rank {rec['rank']}",
+                                 rec["by_name"][k], tasks)
+        for k in ("b_dp", "b_fsdp"):
+            check_rank_steps(k, one_rank[0]["by_name"][k], tasks)
+        for k in ("twin", "plain", "plain2"):
+            check_rank_steps(k, dict(steps=[
+                dict(s, log_vars=_float_logs(s["log_vars"]))
+                for s in runs[k]["res"]["steps"]]), tasks)
+
+        # -- each task's first step from the seed's weights; the floor ----
+        def rows(name):
+            return metrics_rows(runs[name]["wd"])
+
+        spread = compare_runs("plain2 vs plain (12 steps)", rows("plain2"),
+                              rows("plain"))
+        log(f"  the noise floor, one process against itself (a second "
+            f"plain run against the plain run, the same code and "
+            f"arithmetic): the 11 steps after the first part by up to "
+            f"{spread:.2e} in loss or grad_norm")
+        pairs = [("a", "twin", "a: 2 ranks (gloo)"),
+                 ("c", "twin", "c: 2-rank FSDP (gloo)"),
+                 ("b_dp", "plain", "b: 1-rank DP (NCCL)"),
+                 ("b_fsdp", "plain", "b: 1-rank FSDP (NCCL)")]
+        ref_mu = {}
+        for got, want, label in pairs:
+            worst_mu = 0.0
+            for t in FIRST:
+                compare_runs(f"{got} vs {want}, {t} first",
+                             rows(f"{got} {t} first"),
+                             rows(f"{want} {t} first"))
+                key = f"{want} {t} first"
+                if key not in ref_mu:
+                    ref_mu[key] = first_moments(runs[key]["wd"])
+                worst_mu = max(worst_mu, compare_moments(
+                    f"{got} vs {want}, {t} first step's gradients",
+                    first_moments(runs[f"{got} {t} first"]["wd"]),
+                    ref_mu[key]))
+            later = compare_runs(f"{got} vs {want} (12 steps)", rows(got),
+                                 rows(want))
+            log(f"  {label} against one process on the "
+                f"{'global' if want == 'twin' else 'same'} batch: the first "
+                f"step of cls, det and seg from the seed's weights within "
+                f"{TRAIN_ATOL:g} + {TRAIN_RTOL:g}*|w|, its gradients leaf by "
+                f"leaf within {MU_RTOL:g}*|ref| + {MU_ATOL:g}*|all| (worst "
+                f"relative error of a leaf {worst_mu:.2e}); the later steps "
+                f"part by up to {later:.2e} (the noise floor: {spread:.2e})")
+        del ref_mu
+
+        # -- (a) the checkpoint --------------------------------------------
+        state = torch.load(a["state_out"], map_location="cpu",
+                           weights_only=True)
+        model = build_model(load_cfg(FLAGSHIP_CFG)["model"], device="cpu")
+        ck = load_checkpoint(ckpt, model=model)
+        equal = sorted(state) == sorted(model.state_dict()) and all(
+            torch.equal(v, state[k]) for k, v in model.state_dict().items())
+        if not equal or ck["meta"]["iter"] != SCALE_ITERS:
+            fail("a: iter_12.pth does not load bit-equal to rank 0's "
+                 "gathered state")
+        log(f"  a: iter_12.pth (rank 0's write) loads into one process "
+            f"bit-equal to rank 0's gathered state ({len(state)} tensors), "
+            f"meta iter {ck['meta']['iter']}; the eval hook at 12 ran on "
+            f"both ranks: " + ", ".join(
+                f"{k} {v:.4f}" for k, v in rows("a")[-1].items()
+                if k in ("val/resisc.accuracy_top-1", "val/dior.bbox_mAP",
+                         "val/potsdam.mIoU")))
+        del state, model, ck
+
+        # -- (d) two-rank evaluation ------------------------------------------
+        with open(os.path.join(work, "d2.json")) as f:
+            m2 = json.load(f)
+        with open(os.path.join(work, "d2.pkl"), "rb") as f:
+            r2 = pickle.load(f)
+        with open(os.path.join(work, "d1.pkl"), "rb") as f:
+            r1 = pickle.load(f)
+        if not same_metrics(m2, one_eval) or not same_metrics(
+                two[0]["by_name"][d["name"]]["metrics"], one_eval):
+            fail(f"d: 2-rank metrics {m2} != one process {one_eval}")
+        raw_equal = {n: len(r2[n]) == len(r1[n]) and all(
+            np.array_equal(x, y) if not isinstance(x, list) else all(
+                np.array_equal(p, q) for p, q in zip(x, y))
+            for x, y in zip(r2[n], r1[n])) for n in r1}
+        if not raw_equal["potsdam"]:
+            fail("d: 2-rank seg label maps differ from one process's")
+        for rec in two:
+            dr = rec["by_name"][d["name"]]
+            per_task = {}
+            for task, got in dr["calls"]:
+                per_task[task] = per_task.get(task, 0) + 1
+                want = dict.fromkeys(got, 0)
+                want.update(zip(("K1", "K2"), EVAL_WANT[task]))
+                want["K1 vec"] = want["K1"]
+                if got != want:
+                    fail(f"d rank {rec['rank']} {task} batch: launches "
+                         f"{got} != {want}")
+            log(f"  d rank {rec['rank']}: {per_task} batches (its strided "
+                f"share), per batch K1 / K2 as the eval phase, "
+                f"{dr['wall']:.1f} s")
+        log(f"  d: 2-rank tools/test.py metrics equal the one-process "
+            f"tool's ({len(m2)} keys: resisc.accuracy_top-1 "
+            f"{m2['resisc.accuracy_top-1']}, dior.bbox_mAP "
+            f"{m2['dior.bbox_mAP']}, potsdam.mIoU {m2['potsdam.mIoU']}); "
+            f"raw results bit-equal: {raw_equal}")
+
+        # -- (e) per rank ----------------------------------------------------
+        label = "two ranks sharing one H100 over gloo, not a scaling figure"
+        for rec in two:
+            rec["run"] = rec["by_name"]["a"]
+        rep = rank_report("a", two, smi, label)
+        for rec in two:
+            log(f"  a rank {rec['rank']} launches per iteration: " + "; ".join(
+                f"{t} " + "/".join(str(next(
+                    s for s in rec["run"]["steps"] if s["task"] == t)
+                    ["launches"][k]) for k in ("K1", "K1b", "K2", "K2b"))
+                for t in ("cls", "det", "seg"))
+                + " (K1/K1b/K2/K2b, all K1 / K1b on the vector body; the "
+                "one-process loop's)")
+        for k in ("c",):
+            rank_report(k, [dict(rank=rec["rank"], run=rec["by_name"][k])
+                            for rec in two], smi, label)
+        for k in ("b_dp", "b_fsdp"):
+            rank_report(k, [dict(rank=0, run=one_rank[0]["by_name"][k])],
+                        smi, "one rank over NCCL")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+        torch.cuda.empty_cache()
+    res = dict(per_rank={f"rank {r} {t}": v for (r, t), v in rep.items()},
+               phase_s=time.perf_counter() - t_phase)
+    log(f"  scale-out phase {res['phase_s']:.1f} s  [{smi}]")
+    return res
+
+
 def kernels_line(times, btimes, qtimes, err, berr, qerr, k6err, k6levels,
                  launches):
     """The ``{"kernels": [...]}`` object: eight kernels, each with its
@@ -3412,6 +3950,8 @@ def main(argv) -> int:
               "False)", file=sys.stderr)
         return 1
     sys.path.insert(0, ROOT)
+    if argv[:1] == ["--scaleout-rank"]:
+        return scaleout_rank(argv[1:])
     from rscotr_tpu_torch.ops import kernel_lib
 
     smi = subprocess.run(
@@ -3448,6 +3988,7 @@ def main(argv) -> int:
     xlaunches, export = export_phase(smi, det_results)
     llaunches, loop = loop_phase(smi)
     alaunches, aug = aug_loop_phase(smi, stages)
+    scale = scaleout_phase(smi)
     library_phase(times, btimes)
     # K3' is launched by the quad-gather path; the training run launches it
     # 0 times (train_phase checks every step), K1b doing its work there
@@ -3499,7 +4040,12 @@ def main(argv) -> int:
         f"({100 * st['step_share']:.1f}% of its step)"
         for t, st in aug["stages"].items()) + "; " + "; ".join(
         f"MSDA impl={i} fwd+bwd {qtimes[f'MSDA {i}'][1]:.4f} ms"
-        for i in ("quad", "kernel")))
+        for i in ("quad", "kernel")) + "; " + "; ".join(
+        f"scale-out {k} step {v['ms']:.2f} ms, gradient sum "
+        f"{v['sync_ms']:.2f} ms, peak {v['peak']:.0f} MiB"
+        for k, v in scale["per_rank"].items())
+        + f" (two ranks sharing the card over gloo); scale-out phase "
+        f"{scale['phase_s']:.1f} s")
     log(smi)
     print(json.dumps(kernels_line(times, btimes, qtimes, err, berr, qerr,
                                   k6err, k6levels, launches)), flush=True)

@@ -198,18 +198,24 @@ def make_step_config(cfg: dict) -> TrainStepConfig:
 
 
 def make_eval_fn(cfg: dict, model, max_per_img: int = 300,
-                 skip_det: bool = False, max_batches: int = 0):
+                 skip_det: bool = False, max_batches: int = 0,
+                 source=None):
     """``eval_fn(runner=None) -> {"{dataset}.{metric}": value}``: the val
     datasets of a composed config (its test datasets when it has no val
     split; det left out with ``skip_det``) through ``make_infer_steps`` and
     each dataset's ``evaluate``, with the model in eval mode.
     ``MultiDatasetsEvalHook`` calls it with the runner, whose model is this
-    one (the train step puts it back in train mode). One process (the mesh
-    of JAX's ``make_eval_fn`` waits for ROADMAP M7)."""
+    one (the train step puts it back in train mode).
+
+    Under ``torch.distributed`` every rank calls it: each evaluates its
+    strided batches and the results are gathered
+    (``engine.test.adaptive_process_test``), so the metrics are the same on
+    every rank. ``source``: an FSDP model whose full weights are gathered
+    into ``model`` (a plain copy) before each evaluation."""
     from rscotr_tpu_torch.data.build import build_dataloaders, build_datasets
     from rscotr_tpu_torch.engine.infer import make_infer_steps
-    from rscotr_tpu_torch.engine.test import (evaluate_results,
-                                              single_device_test)
+    from rscotr_tpu_torch.engine.test import (adaptive_process_test,
+                                              evaluate_results)
     val_datasets = build_datasets(cfg["data"], split="val") or \
         build_datasets(cfg["data"], split="test")
     if skip_det:
@@ -222,9 +228,18 @@ def make_eval_fn(cfg: dict, model, max_per_img: int = 300,
     eval_kwargs = {t: dict((cfg.get("evaluation") or {}).get(t, {}))
                    for t in ("cls", "det", "seg")}
 
+    prepare = None
+    if source is not None:
+        from rscotr_tpu_torch.parallel.fsdp import load_full_weights
+
+        def prepare():
+            load_full_weights(source, model)
+
     def eval_fn(runner=None) -> dict:
         model.eval()
-        results = single_device_test(infer, loaders, max_batches=max_batches)
+        results = adaptive_process_test(infer, loaders,
+                                        max_batches=max_batches,
+                                        prepare=prepare)
         return evaluate_results(val_datasets, results, eval_kwargs)
 
     return eval_fn
@@ -358,8 +373,21 @@ def train_model(cfg: dict, work_dir: str, seed: int = 0,
     data stream starts again, as in JAX (ROADMAP C9). ``load_from`` loads
     weights only. Hooks: log, checkpoint, the eval hook unless
     ``validate`` is False, ``cfg["custom_hooks"]``, then ``hooks``. A
-    non-train ``workflow`` phase is logged and ignored. More than one
-    device (JAX's mesh and FSDP) waits for ROADMAP M7."""
+    non-train ``workflow`` phase is logged and ignored.
+
+    Under ``torch.distributed`` (a process group made by
+    ``parallel.initialize_distributed``, e.g. ``tools/train.py --launcher
+    pytorch``) each rank runs this on its own device
+    (``cuda:{LOCAL_RANK}`` on the card): every rank starts from rank 0's
+    weights, loads a checkpoint before anything is sharded, loads its
+    share of the global batch of ``samples_per_gpu * world``, and its
+    steps sum the task-masked gradients over the ranks
+    (``parallel.ddp.GradSync``); ``parallel.fsdp=True`` (JAX's key, with
+    ``fsdp_min_leaf_size``) shards the parameters and the moments with
+    FSDP2 (``parallel.fsdp.shard_model``) and evaluates on a plain copy
+    that gathers the full weights. N ranks compute what one process
+    computes on the global batch. ``num_devices`` (default: the group's
+    world size) must equal the world size: one process per device."""
     from rscotr_tpu_torch.data.build import (build_datasets,
                                              build_multidataloader)
     from rscotr_tpu_torch.engine.checkpoint import load_checkpoint
@@ -371,24 +399,72 @@ def train_model(cfg: dict, work_dir: str, seed: int = 0,
     from rscotr_tpu_torch.engine.runner import IterBasedRunner
     from rscotr_tpu_torch.engine.train_step import make_train_step
     from rscotr_tpu_torch.models import build_model
+    from rscotr_tpu_torch.parallel import mesh as pmesh
 
     logger = get_root_logger(os.path.join(work_dir, "train.log"))
-    if num_devices is not None and num_devices > 1:
-        raise NotImplementedError(
-            f"num_devices={num_devices}: data parallel and FSDP training "
-            "over torch.distributed are not ported yet (ROADMAP M7)")
+    distributed = pmesh.is_initialized()
+    world = pmesh.world_size()
+    if num_devices is not None and num_devices != world:
+        raise ValueError(
+            f"num_devices={num_devices} but {world} process(es) run: the "
+            "port runs one process per device; launch them with "
+            "python -m torch.distributed.run --nproc_per_node "
+            f"{num_devices} -m rscotr_tpu_torch.tools.train CONFIG "
+            "--launcher pytorch")
+    if distributed:
+        device = pmesh.local_device(device)
+        logger.info("data parallel over %d process(es) (%s, backend %s)",
+                    world, device, torch.distributed.get_backend())
     apply_fp16_cfg(cfg)
     model = build_model(cfg["model"], device=device,
                         generator=torch.Generator().manual_seed(seed),
                         cls_hw=derive_cls_hw(cfg))
+    pmesh.broadcast_module(model)
     n_params = sum(p.numel() for p in model.parameters())
     logger.info("model built: %.2fM params on %s", n_params / 1e6,
                 next(model.parameters()).device)
     if load_task_pretrain_path:
         load_task_pretrain(model, load_task_pretrain_path)
 
+    # checkpoints load on every rank, before anything is sharded
+    start_step, resume_ck = 0, None
+    resume_from, load_from = resolve_init_checkpoint(
+        cfg, resume_from, auto_resume, work_dir)
+    if resume_from:
+        resume_ck = load_checkpoint(resume_from, model=model)
+        start_step = int(resume_ck["meta"].get("iter", 0))
+        logger.info("resumed from %s @ iter %d", resume_ck["path"],
+                    start_step)
+    elif load_from:
+        ck = load_checkpoint(load_from, model=model)
+        logger.info("loaded weights (load_from) %s", ck["path"])
+
+    sync, eval_model = None, model
+    par_cfg = cfg.get("parallel") or {}
+    if distributed:
+        from rscotr_tpu_torch.parallel.ddp import GradSync
+        from rscotr_tpu_torch.parallel.fsdp import (DEFAULT_MIN_LEAF_SIZE,
+                                                    describe_fsdp,
+                                                    fsdp_managed,
+                                                    shard_model)
+        skip = ()
+        if par_cfg.get("fsdp"):
+            mls = par_cfg.get("fsdp_min_leaf_size")
+            min_leaf = DEFAULT_MIN_LEAF_SIZE if mls is None else int(mls)
+            logger.info(describe_fsdp(model, world, min_leaf))
+            if validate:
+                # strided eval runs on a plain copy that gathers the full
+                # weights (FSDP's all-gathers would wait on ranks with
+                # fewer eval batches)
+                eval_model = build_model(cfg["model"], device=device,
+                                         cls_hw=derive_cls_hw(cfg))
+            shard_model(model, min_leaf_size=min_leaf)
+            skip = fsdp_managed(model)
+        sync = GradSync(skip=skip)
+
     datasets = build_datasets(cfg["data"], split="train")
-    multi_loader = build_multidataloader(cfg, datasets, seed=seed)
+    multi_loader = build_multidataloader(cfg, datasets, seed=seed,
+                                         world_size=world)
     epoch_len = sum(len(dl) for dl in multi_loader.loaders.values())
     sched = resolve_schedule(cfg, epoch_len, max_iters_override)
     max_iters = sched["max_iters"]
@@ -420,7 +496,9 @@ def train_model(cfg: dict, work_dir: str, seed: int = 0,
         cls_uses_encoder=cls_head_cfg.get("type") == "MlvlClsHead")
     step_cfg = make_step_config(cfg)
     tasks_present = {e["task"] for e in cfg["data"].values()}
-    steps = {t: make_train_step(model, optimizer, t, step_cfg, masks.get(t))
+    kw = {"sync": sync} if sync is not None else {}
+    steps = {t: make_train_step(model, optimizer, t, step_cfg, masks.get(t),
+                                **kw)
              for t in tasks_present}
     steps_per_dispatch = int((cfg.get("runner") or {}).get(
         "steps_per_dispatch", 1))
@@ -429,18 +507,8 @@ def train_model(cfg: dict, work_dir: str, seed: int = 0,
                     "the JAX package dispatches them; one call a step",
                     steps_per_dispatch)
 
-    start_step = 0
-    resume_from, load_from = resolve_init_checkpoint(
-        cfg, resume_from, auto_resume, work_dir)
-    if resume_from:
-        ck = load_checkpoint(resume_from, model=model)
-        if ck["optimizer"] is not None:
-            optimizer.load_state_dict(ck["optimizer"])
-        start_step = int(ck["meta"].get("iter", 0))
-        logger.info("resumed from %s @ iter %d", ck["path"], start_step)
-    elif load_from:
-        ck = load_checkpoint(load_from, model=model)
-        logger.info("loaded weights (load_from) %s", ck["path"])
+    if resume_ck is not None and resume_ck["optimizer"] is not None:
+        optimizer.load_state_dict(resume_ck["optimizer"])
 
     profile_cfg = dict(cfg.get("profile_cfg") or {})
     if profile_cfg:
@@ -464,10 +532,11 @@ def train_model(cfg: dict, work_dir: str, seed: int = 0,
     if validate:
         ev = sched["evaluation"]
         eval_fn = make_eval_fn(
-            cfg, model,
+            cfg, eval_model,
             max_per_img=((cfg["model"].get("test_cfg") or {}).get("det")
                          or {}).get("max_per_img", 300),
-            skip_det=skip_det_eval)
+            skip_det=skip_det_eval,
+            source=model if eval_model is not model else None)
         runner.register_hook(MultiDatasetsEvalHook(
             eval_fn, interval=ev.get("interval", 15000),
             save_best=ev.get("save_best"), work_dir=work_dir,

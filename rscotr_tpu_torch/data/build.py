@@ -15,7 +15,7 @@ multi-task loader of co-training.
   augmentation (``cls_device_augment``, ``det_device_augment``,
   ``seg_device_augment``: the pipeline's augment tail becomes its planner,
   the collate its aug collate, and Normalize moves to the card).
-  ``num_replicas`` / ``rank`` are arguments (one process unless given).
+  ``num_replicas`` / ``rank`` default to the process group's.
 * ``build_iteration_strategy`` (default round_robin) logs a 300-draw
   histogram, as the reference does; ``derive_dn_ladder``;
   ``build_multidataloader`` assembles the ``MultiDataLoader``.
@@ -97,7 +97,8 @@ _COLLATES = {
     "cls": lambda opts: collate_cls,
     "det": lambda opts: (lambda samples: collate_det(
         samples, bucket_hw=opts.get("det_bucket_hw", (800, 800)),
-        max_gt=opts.get("max_gt", 100), dn_ladder=opts.get("_dn_ladder"))),
+        max_gt=opts.get("max_gt", 100), dn_ladder=opts.get("_dn_ladder"),
+        agree=opts.get("_agree"))),
     "seg": lambda opts: (lambda samples: collate_seg(
         samples, size=opts.get("seg_size", 512),
         seg_pad_val=opts.get("seg_pad_val", 255))),
@@ -132,7 +133,8 @@ def _device_augment(task: str, opts: dict, pcfg):
         return pcfg, (lambda samples: collate_det_aug(
             samples, bucket_hw=opts.get("det_bucket_hw", (800, 800)),
             max_gt=opts.get("max_gt", 100),
-            dn_ladder=opts.get("_dn_ladder"))), norm
+            dn_ladder=opts.get("_dn_ladder"),
+            agree=opts.get("_agree"))), norm
     if task == "seg" and opts.get("seg_device_augment"):
         pcfg, norm, _ = split_seg_device_augment_cfg(
             pcfg, src_size=seg_src_size(opts))
@@ -152,24 +154,37 @@ def _uint8_collate(fn):
 def build_dataloaders(datasets: Dict[str, object], data_cfg: dict,
                       train: bool = True, seed: int = 0,
                       num_threads: int = 4, world_size: int = 1,
-                      num_replicas: int = 1, rank: int = 0,
+                      num_replicas: Optional[int] = None,
+                      rank: Optional[int] = None,
                       det_dn_ladder=None) -> Dict[str, TaskDataLoader]:
     """One ``TaskDataLoader`` per dataset. Training loaders shuffle, drop
     the last short batch and take this rank's share of a global batch of
     ``samples_per_gpu * world_size``; a training det loader given
     ``det_dn_ladder`` adds the zero-width ``dn_wide`` entry to its batches.
+    ``num_replicas`` / ``rank`` default to the process group's (1 / 0
+    without one). With more than one replica a training det loader's
+    collate agrees with the other ranks on the batch's bucket and DN width
+    (the max over the global batch, on the ``"loader"`` gloo group of
+    ``parallel.multihost``).
     Eval loaders (``train=False``) run every sample in order,
     ``test_samples_per_gpu`` at a time. A training loader whose task asks
     for on-device augmentation runs its planner and aug collate (raw uint8
     images and ``aug_*`` records). Each loader carries ``img_norm``: the
     Normalize stats moved to the card by device augmentation or
     ``device_preprocess``, else None."""
+    from rscotr_tpu_torch.parallel import multihost
+    if num_replicas is None:
+        num_replicas = multihost.process_count()
+    if rank is None:
+        rank = multihost.process_index()
     loaders = {}
     for name, ds in datasets.items():
         entry = data_cfg[name]
         opts = dict(entry.get("loader", {}))
         if train and ds.task == "det" and det_dn_ladder:
             opts["_dn_ladder"] = tuple(det_dn_ladder)
+        if train and ds.task == "det" and num_replicas > 1:
+            opts["_agree"] = lambda v: multihost.all_reduce_max(v, "loader")
         if train:
             bs = entry["data"].get("samples_per_gpu", 1) * max(1, world_size)
             if bs % num_replicas:
@@ -249,10 +264,15 @@ def derive_dn_ladder(cfg: dict):
 
 
 def build_multidataloader(cfg: dict, datasets: Dict[str, object],
-                          seed: int = 0, world_size: int = 1
+                          seed: int = 0, world_size: Optional[int] = None
                           ) -> MultiDataLoader:
     """The training loaders of ``datasets`` (with the DN ladder) under the
-    config's iteration strategy, both seeded ``seed``."""
+    config's iteration strategy, both seeded ``seed``. ``world_size``
+    (default: the process group's) multiplies ``samples_per_gpu`` into the
+    global batch, of which each rank loads its share."""
+    if world_size is None:
+        from rscotr_tpu_torch.parallel.multihost import process_count
+        world_size = process_count()
     loaders = build_dataloaders(datasets, cfg["data"], train=True, seed=seed,
                                 world_size=world_size,
                                 det_dn_ladder=derive_dn_ladder(cfg))

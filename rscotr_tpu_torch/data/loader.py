@@ -25,7 +25,7 @@ from __future__ import annotations
 
 import queue
 import threading
-from typing import Callable, Dict, Iterator, List, Optional
+from typing import Callable, Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 
@@ -109,9 +109,21 @@ def dn_wide_marker(n_gt_max: int, dn_ladder) -> np.ndarray:
     return np.zeros((0, s), np.float32)
 
 
-def _det_targets(samples: List[dict], hws, max_gt: int, dn_ladder):
+def _det_agreed(samples: List[dict], hws, max_gt: int, agree):
+    """(largest h, largest w, largest valid-GT count) of the batch; under
+    data parallelism (``agree``: the element-wise max over the ranks) the
+    global batch's, so every rank picks the bucket and the DN width that
+    one process would."""
+    n_gt = max((min(len(s.get("gt_bboxes", ())), max_gt) for s in samples),
+               default=0)
+    vals = [max(h for h, _ in hws), max(w for _, w in hws), n_gt]
+    return tuple(agree(vals)) if agree is not None else tuple(vals)
+
+
+def _det_targets(samples: List[dict], hws, max_gt: int, dn_ladder,
+                 n_gt_max: int):
     """img_hw, scale_factor and the GT padded to ``max_gt``, with the
-    ``dn_wide`` marker when a DN ladder is given."""
+    ``dn_wide`` marker of ``n_gt_max`` when a DN ladder is given."""
     B = len(samples)
     out = {"img_hw": np.asarray(hws, np.int32).reshape(B, 2),
            "scale_factor": np.ones((B, 4), np.float32),
@@ -128,37 +140,38 @@ def _det_targets(samples: List[dict], hws, max_gt: int, dn_ladder):
         out["gt_labels"][i, :n] = labels[:n]
         out["gt_valid"][i, :n] = True
     if dn_ladder:
-        out["dn_wide"] = dn_wide_marker(
-            int(out["gt_valid"].sum(axis=1).max(initial=0)), dn_ladder)
+        out["dn_wide"] = dn_wide_marker(n_gt_max, dn_ladder)
     return out
 
 
 def collate_det(samples: List[dict], bucket_hw, max_gt: int,
-                dn_ladder=None) -> Dict[str, np.ndarray]:
+                dn_ladder=None, agree=None) -> Dict[str, np.ndarray]:
+    """``agree``: see ``_det_agreed``."""
     hws = [s["img"].shape[:2] for s in samples]
-    H, W = select_det_bucket(bucket_hw, max(h for h, _ in hws),
-                             max(w for _, w in hws))
+    mh, mw, n_gt = _det_agreed(samples, hws, max_gt, agree)
+    H, W = select_det_bucket(bucket_hw, mh, mw)
     img = np.zeros((len(samples), H, W, 3), np.float32)
     for i, s in enumerate(samples):
         h, w = hws[i]
         img[i, :h, :w] = s["img"]
-    return dict(img=img, **_det_targets(samples, hws, max_gt, dn_ladder))
+    return dict(img=img, **_det_targets(samples, hws, max_gt, dn_ladder,
+                                        n_gt))
 
 
 def collate_det_aug(samples: List[dict], bucket_hw, max_gt: int,
-                    dn_ladder=None) -> Dict[str, np.ndarray]:
+                    dn_ladder=None, agree=None) -> Dict[str, np.ndarray]:
     """Device-augment mode: the raw uint8 sources (in the static source
     bucket, as ``DetDeviceAugmentPlanner`` padded them) and the ``aug_*``
     programs. The output bucket, which the stage-2 sizes select, rides as
     the zero-width ``out_template`` (B, H, W, 0): a shape the det step
     reads, nothing to copy."""
     hws = [(int(s["aug_s2_h"]), int(s["aug_s2_w"])) for s in samples]
-    H, W = select_det_bucket(bucket_hw, max(h for h, _ in hws),
-                             max(w for _, w in hws))
+    mh, mw, n_gt = _det_agreed(samples, hws, max_gt, agree)
+    H, W = select_det_bucket(bucket_hw, mh, mw)
     batch = dict(
         img=np.stack([s["img"] for s in samples]).astype(np.uint8),
         out_template=np.zeros((len(samples), H, W, 0), np.float32),
-        **_det_targets(samples, hws, max_gt, dn_ladder))
+        **_det_targets(samples, hws, max_gt, dn_ladder, n_gt))
     return _stack_aug(batch, samples, _DET_AUG_KEYS)
 
 
@@ -254,8 +267,17 @@ class TaskDataLoader:
         return s
 
     def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
+        for _, batch in self.strided(1, 0):
+            yield batch
+
+    def strided(self, stride: int, offset: int, stop: Optional[int] = None
+                ) -> Iterator[Tuple[int, Dict[str, np.ndarray]]]:
+        """(batch index, batch) for the batches below ``stop`` (default:
+        all) whose index is ``offset`` modulo ``stride``; the others are not
+        prepared (the strided evaluation of ``engine.test``)."""
         epoch, order = self._epoch, self._index_order()
-        for b in range(len(self)):
+        stop = len(self) if stop is None else min(stop, len(self))
+        for b in range(offset, stop, stride):
             chunk = order[b * self.batch_size:(b + 1) * self.batch_size]
             seeds = [self.seed * 7 + epoch * 1000003 + int(i)
                      for i in chunk]
@@ -265,7 +287,7 @@ class TaskDataLoader:
             else:
                 samples = [self._prepare(int(i), s)
                            for i, s in zip(chunk, seeds)]
-            yield self.collate_fn(samples)
+            yield b, self.collate_fn(samples)
 
 
 class PrefetchIterator:

@@ -9,6 +9,14 @@ the JAX package's ``tools/convert_checkpoint.py`` turns it into an orbax
 checkpoint (forward) or makes one from an orbax checkpoint
 (``--to-torch``). Meta is plain JSON types, so ``torch.load(...,
 weights_only=True)`` reads the whole file.
+
+Under ``torch.distributed`` a save is a collective on every rank: the
+full state is gathered to rank 0's host (an FSDP model's shards and the
+optimizer's sharded moments by ``parallel.ddp.gather_shards``, c10d's
+all-gather, which gloo also carries for CUDA tensors), rank 0 writes the
+file one process would write, and a barrier follows.
+Async saves stay for one process, as in JAX. A load reads the file on
+every rank, before the model is sharded.
 """
 
 from __future__ import annotations
@@ -56,6 +64,28 @@ class CheckpointWriter:
             raise RuntimeError("async checkpoint save failed") from err
 
 
+def full_state_dict(model) -> Dict[str, torch.Tensor]:
+    """The model's state dict as full CPU tensors on rank 0 (the other
+    ranks of a process group get an empty dict). A collective when the
+    model holds DTensors (FSDP's shards, gathered one by one). Fused
+    projections that tensor parallelism keeps as (3, C, C) / (3, C) go
+    back to the port's (3C, C) / (3C,)."""
+    from rscotr_tpu_torch.parallel.ddp import full_tensor
+    from rscotr_tpu_torch.parallel.multihost import process_index
+    out = {}
+    for k, v in model.state_dict().items():
+        v = full_tensor(v)
+        if k.endswith("in_proj_weight") and v.dim() == 3:
+            v = v.reshape(-1, v.shape[-1])
+        elif k.endswith("in_proj_bias") and v.dim() == 2:
+            v = v.reshape(-1)
+        if process_index() == 0:
+            # a copy even for CPU tensors: the loop updates them in place
+            # while a writer thread serializes
+            out[k] = v.detach().to("cpu", copy=True)
+    return out
+
+
 def save_checkpoint(work_dir: str, step: int, model, optimizer=None,
                     meta: Optional[Dict[str, Any]] = None,
                     name: Optional[str] = None,
@@ -71,7 +101,13 @@ def save_checkpoint(work_dir: str, step: int, model, optimizer=None,
 
     The state is copied to the host before this returns. With a
     ``writer`` the file is written on its thread (the training loop waits
-    for the copy only); without one, here."""
+    for the copy only); without one, here. Under ``torch.distributed``
+    every rank calls it: the state is gathered, rank 0 writes (``writer``
+    and ``post_save`` run there only, the write in this call), then the
+    ranks meet at a barrier."""
+    from rscotr_tpu_torch.parallel.multihost import (host_group,
+                                                     process_count,
+                                                     process_index)
     work_dir = os.path.abspath(work_dir)
     if name is None:
         fname = f"iter_{int(step)}.pth"
@@ -79,32 +115,41 @@ def save_checkpoint(work_dir: str, step: int, model, optimizer=None,
         fname = name if name.endswith(".pth") else f"{name}.pth"
     path = os.path.join(work_dir, fname)
     m = json.loads(json.dumps(dict(meta or {}, iter=int(step)), default=str))
-    # a copy even for CPU tensors: the loop updates them in place while a
-    # writer thread serializes
-    ckpt = {"meta": m,
-            "state_dict": {k: v.detach().to("cpu", copy=True)
-                           for k, v in model.state_dict().items()}}
+    ckpt = {"meta": m, "state_dict": full_state_dict(model)}
     if optimizer is not None:
         ckpt["optimizer"] = optimizer.state_dict()
+    if process_count() > 1:
+        if process_index() == 0:
+            write_file(path, ckpt, work_dir, name, post_save)
+        torch.distributed.barrier(group=host_group("main"))
+        return path
 
     def write():
-        os.makedirs(work_dir, exist_ok=True)
-        tmp = path + ".tmp"
-        torch.save(ckpt, tmp)
-        os.replace(tmp, path)
-        if name is None:
-            pointer = os.path.join(work_dir, "last_checkpoint")
-            with open(pointer + ".tmp", "w") as f:
-                f.write(path)
-            os.replace(pointer + ".tmp", pointer)
-        if post_save is not None:
-            post_save()
+        write_file(path, ckpt, work_dir, name, post_save)
 
     if writer is not None:
         writer.submit(write)
     else:
         write()
     return path
+
+
+def write_file(path: str, ckpt: dict, work_dir: str, name: Optional[str],
+               post_save: Optional[Callable[[], None]]) -> None:
+    """``torch.save`` under a temporary name, the rename, the
+    ``last_checkpoint`` pointer (regular saves), then ``post_save``."""
+
+    os.makedirs(work_dir, exist_ok=True)
+    tmp = path + ".tmp"
+    torch.save(ckpt, tmp)
+    os.replace(tmp, path)
+    if name is None:
+        pointer = os.path.join(work_dir, "last_checkpoint")
+        with open(pointer + ".tmp", "w") as f:
+            f.write(path)
+        os.replace(pointer + ".tmp", pointer)
+    if post_save is not None:
+        post_save()
 
 
 def find_latest_checkpoint(work_dir: str) -> Optional[str]:

@@ -3,10 +3,16 @@ logging, checkpoints, the multi-dataset evaluation with save-best, and the
 hooks a config adds under ``custom_hooks``.
 
 A hook sees the runner after each step: ``runner.step`` (steps done),
-``runner.max_iters``, ``runner.log_vars``, ``runner.model``,
-``runner.optimizer``, ``runner.preempted``, and ``runner.datasets`` /
-``runner.model_cfg`` where ``train_model`` sets them. Hooks fire in
-ascending ``priority``.
+``runner.max_iters``, ``runner.log_vars``, ``runner.loss_keys`` (the step's
+loss terms among them), ``runner.model``, ``runner.optimizer``,
+``runner.preempted``, and ``runner.datasets`` / ``runner.model_cfg`` where
+``train_model`` sets them. Hooks fire in ascending ``priority``.
+
+Under ``torch.distributed`` every hook runs on every rank (JAX's hooks run
+in every process): ``LogHook`` sums the ranks' loss shares on its log
+steps and rank 0 writes them; a checkpoint save is a collective that rank
+0 writes; the eval hook evaluates on every rank and decides save-best from
+the gathered metrics, which are the same on every rank.
 """
 
 from __future__ import annotations
@@ -18,6 +24,8 @@ from typing import Any, Callable, Dict, Optional
 
 from rscotr_tpu_torch.engine.checkpoint import (CheckpointWriter,
                                                 save_checkpoint)
+from rscotr_tpu_torch.parallel.ddp import sum_log_vars
+from rscotr_tpu_torch.parallel.multihost import process_index
 from rscotr_tpu_torch.utils.logging import MetricsSink, get_root_logger
 from rscotr_tpu_torch.utils.registry import HOOKS
 
@@ -101,7 +109,7 @@ class LogHook(Hook):
 
     def __init__(self, interval: int = 300, work_dir: str = "work_dir"):
         self.interval = interval
-        self.sink = MetricsSink(work_dir)
+        self.sink = MetricsSink(work_dir) if process_index() == 0 else None
         self.logger = get_root_logger()
         self._t0 = time.time()
         self._iter0 = 0
@@ -114,11 +122,14 @@ class LogHook(Hook):
         if runner.step % self.interval != 0 and \
                 runner.step != runner.max_iters:
             return
-        logs = {k: float(v) for k, v in runner.log_vars.items()}
+        lv = sum_log_vars(runner.log_vars, getattr(runner, "loss_keys", ()))
+        logs = {k: float(v) for k, v in lv.items()}
         iters = max(runner.step - self._iter0, 1)
         logs["time"] = (time.time() - self._t0) / iters
         self._t0 = time.time()
         self._iter0 = runner.step
+        if self.sink is None:
+            return
         self.sink.log_scalars(runner.step, logs)
         main = {k: round(v, 4) for k, v in logs.items()
                 if k.endswith(".loss")
@@ -127,7 +138,8 @@ class LogHook(Hook):
                          main)
 
     def after_run(self, runner) -> None:
-        self.sink.close()
+        if self.sink is not None:
+            self.sink.close()
 
 
 @HOOKS.register_module()
@@ -139,8 +151,10 @@ class CheckpointHook(Hook):
     ahead of the current step (left by an earlier run in the same work
     dir). ``async_save`` copies the state to the host in the loop and
     writes the file on a writer thread; ``after_run`` drains it and
-    re-raises a failed write. After a preemption (SIGTERM) ``after_run``
-    writes the current step's checkpoint if no save covered it."""
+    re-raises a failed write (one process only: under
+    ``torch.distributed`` rank 0 writes in the save's collective). After a
+    preemption (SIGTERM) ``after_run`` writes the current step's
+    checkpoint if no save covered it."""
     priority = 70
 
     def __init__(self, interval: int = 100000, work_dir: str = "work_dir",

@@ -20,6 +20,14 @@ the parameters and its own state in place (the JAX optimizer is
 functional); it is not ``torch.optim.AdamW``, which has no per-parameter
 step counts or masks. Masks and multipliers are host floats, so the schedule
 and the branches cost no device sync.
+
+Sharded parameters (FSDP's or tensor parallelism's ``DTensor``s): the
+update runs on each rank's local shards and the moments are local shards
+too. The global grad norm is the same on every rank: the squared norms of
+the sharded gradients are summed over the mesh dims they are sharded on,
+then the whole ones are added. ``state_dict`` gathers the moments to full
+tensors (a collective on every rank) and ``load_state_dict`` takes full
+tensors and keeps this rank's shards.
 """
 
 from __future__ import annotations
@@ -28,6 +36,10 @@ import math
 from typing import Callable, Dict, Iterable, Mapping, Optional, Tuple
 
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor, Shard, distribute_tensor
+
+from rscotr_tpu_torch.parallel.ddp import gather_shards, local
 
 
 # ---------------------------------------------------------------------------
@@ -146,6 +158,56 @@ def task_param_masks(names: Iterable[str], cls_uses_encoder: bool = False
 
 
 # ---------------------------------------------------------------------------
+# Sharded parameters
+# ---------------------------------------------------------------------------
+
+def _shard_dims(p: torch.Tensor) -> Tuple[int, ...]:
+    if not isinstance(p, DTensor):
+        return ()
+    return tuple(i for i, pl in enumerate(p.placements)
+                 if isinstance(pl, Shard))
+
+
+def _full(t: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """The full tensor of ``like``'s shape from a local shard ``t`` laid
+    out as ``like`` (a collective when ``like`` is sharded)."""
+    if not isinstance(like, DTensor):
+        return t
+    return gather_shards(t, like.device_mesh, like.placements, like.shape)
+
+
+def _shard_of(full: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """This rank's shard of ``full`` laid out as ``like`` (every rank holds
+    ``full``: no communication)."""
+    if not isinstance(like, DTensor):
+        return full
+    return distribute_tensor(full.to(like.device), like.device_mesh,
+                             like.placements, src_data_rank=None).to_local()
+
+
+def global_grad_norm(grads: Mapping[str, torch.Tensor],
+                     params: Mapping[str, torch.Tensor]) -> torch.Tensor:
+    """The L2 norm over every gradient in ``grads`` (local tensors), the
+    sharded ones' squares summed over their mesh dims first."""
+    groups: Dict[tuple, list] = {}
+    for n, g in grads.items():
+        p = params[n]
+        key = (id(p.device_mesh), _shard_dims(p)) if _shard_dims(p) else ()
+        groups.setdefault(key, []).append((p, g))
+    dev = next(iter(params.values())).device
+    total = torch.zeros((), device=dev)
+    for key, items in sorted(groups.items(), key=lambda kv: kv[0] != ()):
+        sq = torch.stack(torch._foreach_norm([g for _, g in items])
+                         ).float().square().sum()
+        if key:
+            mesh = items[0][0].device_mesh
+            for d in key[1]:
+                dist.all_reduce(sq, group=mesh.get_group(d))
+        total = total + sq
+    return total.sqrt()
+
+
+# ---------------------------------------------------------------------------
 # AdamW with per-parameter step counts and task masking
 # ---------------------------------------------------------------------------
 
@@ -170,12 +232,14 @@ class MtlOptimizer:
         self.decay_mult = dict(decay_mult or {})
         self.b1_schedule = b1_schedule
         self.cumulative_iters = int(cumulative_iters)
-        self.mu = {n: torch.zeros_like(p) for n, p in self.params.items()}
-        self.nu = {n: torch.zeros_like(p) for n, p in self.params.items()}
+        self.mu = {n: torch.zeros_like(local(p))
+                   for n, p in self.params.items()}
+        self.nu = {n: torch.zeros_like(local(p))
+                   for n, p in self.params.items()}
         self.count = {n: 0 for n in self.params}
         self.step = 0
         if self.cumulative_iters > 1:
-            self.accum = {n: torch.zeros_like(p)
+            self.accum = {n: torch.zeros_like(local(p))
                           for n, p in self.params.items()}
             self.accum_mask = {n: 0.0 for n in self.params}
 
@@ -185,7 +249,7 @@ class MtlOptimizer:
         """One optimizer iteration; returns the global grad norm (a device
         scalar) of the (averaged) gradients before clipping."""
         names = list(self.params)
-        g = {n: grads.get(n) for n in names}
+        g = {n: local(grads.get(n)) for n in names}
         m = {n: 1.0 if mask is None else float(mask[n]) for n in names}
         K = self.cumulative_iters
         if K > 1:
@@ -199,11 +263,8 @@ class MtlOptimizer:
                 self.accum_mask[n] = 0.0 if apply else m[n]
                 if not apply:
                     m[n] = 0.0
-        present = [t for t in g.values() if t is not None]
-        dev = next(iter(self.params.values())).device
-        gnorm = (torch.linalg.vector_norm(torch.stack(
-            torch._foreach_norm(present))) if present
-                 else torch.zeros((), device=dev))
+        gnorm = global_grad_norm(
+            {n: t for n, t in g.items() if t is not None}, self.params)
         scale = None
         if self.grad_clip_norm is not None:
             scale = torch.clamp(self.grad_clip_norm /
@@ -222,7 +283,7 @@ class MtlOptimizer:
                    self.decay_mult.get(n, 1.0))
             groups.setdefault(key, []).append(n)
         for (count, lm, dm), ns in groups.items():
-            ps = [self.params[n] for n in ns]
+            ps = [local(self.params[n]) for n in ns]
             mus = [self.mu[n] for n in ns]
             nus = [self.nu[n] for n in ns]
             gs = [g[n] if g[n] is not None else torch.zeros_like(p)
@@ -247,15 +308,16 @@ class MtlOptimizer:
     def state_dict(self) -> dict:
         """The state to resume from: the step, the per-parameter update
         counts, the moments (and the gradient accumulators when
-        ``cumulative_iters > 1``), tensors copied to the CPU."""
+        ``cumulative_iters > 1``), full tensors copied to the CPU (sharded
+        ones gathered: every rank calls it)."""
+        def full(state):
+            return {n: _full(t.detach(), self.params[n]).cpu().clone()
+                    for n, t in state.items()}
+
         out = {"step": self.step, "count": dict(self.count),
-               "mu": {n: t.detach().cpu().clone() for n, t in
-                      self.mu.items()},
-               "nu": {n: t.detach().cpu().clone() for n, t in
-                      self.nu.items()}}
+               "mu": full(self.mu), "nu": full(self.nu)}
         if self.cumulative_iters > 1:
-            out["accum"] = {n: t.detach().cpu().clone()
-                            for n, t in self.accum.items()}
+            out["accum"] = full(self.accum)
             out["accum_mask"] = dict(self.accum_mask)
         return out
 
@@ -268,12 +330,12 @@ class MtlOptimizer:
                            f"{sorted(set(state['mu']) ^ set(self.params))}")
         self.step = int(state["step"])
         self.count = {n: int(state["count"][n]) for n in self.params}
-        for n in self.params:
-            self.mu[n].copy_(state["mu"][n])
-            self.nu[n].copy_(state["nu"][n])
+        for n, p in self.params.items():
+            self.mu[n].copy_(_shard_of(state["mu"][n], p))
+            self.nu[n].copy_(_shard_of(state["nu"][n], p))
         if self.cumulative_iters > 1:
-            for n in self.params:
-                self.accum[n].copy_(state["accum"][n])
+            for n, p in self.params.items():
+                self.accum[n].copy_(_shard_of(state["accum"][n], p))
             self.accum_mask = {n: float(state["accum_mask"][n])
                                for n in self.params}
 

@@ -21,8 +21,13 @@ names the log vars ``{task}.{dataset}.{loss}`` (``grad_norm`` bare) beside
 * The runner reads no device value: ``LogHook`` turns the log vars into
   floats at its interval.
 * SIGTERM stops the loop at the next step boundary and ``CheckpointHook``
-  writes the step's checkpoint. ``_should_stop`` covers one process; the
-  agreement across processes waits for ROADMAP M7.
+  writes the step's checkpoint. Under ``torch.distributed`` the signal may
+  reach some ranks only, so each boundary takes the max of the ranks'
+  flags (``_should_stop``, on the ``"main"`` gloo group of
+  ``parallel.multihost``, as JAX's runner all-gathers them) and every rank
+  enters the collective save together.
+* Each rank moves its batches to its own device (the model's); the
+  profiler runs on rank 0.
 * ``profile_cfg`` (``start``, ``end``, ``logdir``) traces steps [start,
   end) with ``torch.profiler`` and writes a Chrome trace to ``logdir``.
 
@@ -56,6 +61,7 @@ import torch
 
 from rscotr_tpu_torch.data.loader import PrefetchIterator
 from rscotr_tpu_torch.engine.hooks import Hook
+from rscotr_tpu_torch.parallel import multihost
 from rscotr_tpu_torch.utils.logging import get_root_logger
 from rscotr_tpu_torch.utils.rng import step_generator
 
@@ -76,6 +82,7 @@ class IterBasedRunner:
         self.rng_seed = rng_seed
         self.step = start_step
         self.log_vars: Dict[str, object] = {}
+        self.loss_keys: List[str] = []
         self._hooks: List[Hook] = []
         self.logger = get_root_logger()
         self.prefetch = prefetch
@@ -152,6 +159,9 @@ class IterBasedRunner:
         self.log_vars = {(f"{task}.{dataset_name}.{k}"
                           if k != "grad_norm" else k): v
                          for k, v in log_vars.items()}
+        # per-rank shares of the loss under data parallelism (LogHook sums
+        # them over the ranks)
+        self.loss_keys = [k for k in self.log_vars if k != "grad_norm"]
         t_now = time.perf_counter()
         self.log_vars["data_time"] = data_time
         self.log_vars["time"] = t_now - t_last
@@ -161,7 +171,7 @@ class IterBasedRunner:
 
     def _maybe_profile(self):
         pc = self.profile_cfg
-        if not pc:
+        if not pc or multihost.process_index() != 0:
             return
         if self.step == pc.get("start", -1):
             acts = [torch.profiler.ProfilerActivity.CPU]
@@ -206,7 +216,12 @@ class IterBasedRunner:
         return lambda: signal.signal(signal.SIGTERM, prev)
 
     def _should_stop(self) -> bool:
-        """The preemption check at a step boundary, for one process."""
+        """The preemption check at a step boundary, agreed by every rank:
+        the max of their flags (a collective; one process reads its own)."""
+        if not self.handle_preemption or multihost.process_count() == 1:
+            return self.preempted
+        if multihost.all_reduce_max([self.preempted])[0]:
+            self.preempted = True
         return self.preempted
 
     def run(self, multi_loader) -> None:

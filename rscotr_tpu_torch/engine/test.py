@@ -14,8 +14,18 @@ cropped to the image's region (``img_hw``), bilinearly resized to its
 original size (``ori_hw``, half-pixel centres, ``align_corners=False``)
 and only then argmaxed. When nothing is cropped or resized (the uniform
 512^2 tiles) the argmax runs on the device and only the label maps come
-back. Multi-process evaluation (``multi_process_test``) waits for ROADMAP
-M7.
+back.
+
+Multi-process (JAX's ``multi_process_test``): each rank evaluates the
+batches whose index is its rank modulo the world size (``_strided_test``),
+and the ranks' results, tagged with their sample indices, are gathered
+(``parallel.multihost.all_gather_pyobjects``) and merged in index order,
+so every rank returns what one process returns. ``adaptive_process_test``
+is the train-time entry: one process runs ``single_device_test``; several
+run ``multi_process_test`` after ``prepare()`` (the FSDP run's full
+weights gathered into a plain eval model, once, on every rank: the
+strided batches must not run FSDP's all-gathers, which ranks with fewer
+batches would leave waiting).
 """
 
 from __future__ import annotations
@@ -127,6 +137,58 @@ def single_device_test(infer_steps: Dict[str, Callable],
     each batch's host wall time in the loader and in the step (results
     copied back to the host included), and, when the card is in use, the
     peak device memory ``peak_bytes`` over the dataset's run."""
+    indexed = _strided_test(infer_steps, loaders, max_batches=max_batches,
+                            stats=stats)
+    return {name: [r for _, r in items] for name, items in indexed.items()}
+
+
+def multi_process_test(infer_steps: Dict[str, Callable],
+                       loaders: Dict[str, Any], max_batches: int = 0,
+                       stats: Optional[Dict[str, dict]] = None
+                       ) -> Dict[str, List]:
+    """Every rank evaluates its strided share of the batches, then the
+    results are gathered: every rank returns the full, index-ordered
+    result dict (``single_device_test``'s in one process)."""
+    from rscotr_tpu_torch.parallel.multihost import (all_gather_pyobjects,
+                                                     merge_strided_results,
+                                                     process_count,
+                                                     process_index)
+    pc = process_count()
+    if pc == 1:
+        return single_device_test(infer_steps, loaders,
+                                  max_batches=max_batches, stats=stats)
+    local = _strided_test(infer_steps, loaders, max_batches=max_batches,
+                          stride=pc, offset=process_index(), stats=stats)
+    return merge_strided_results(all_gather_pyobjects(local))
+
+
+def adaptive_process_test(infer_steps: Dict[str, Callable],
+                          loaders: Dict[str, Any], max_batches: int = 0,
+                          prepare: Optional[Callable[[], None]] = None
+                          ) -> Dict[str, List]:
+    """Train-time evaluation on any topology: ``prepare()`` when given (a
+    collective every rank calls, e.g. the gather of an FSDP model's full
+    weights into the eval model), then ``multi_process_test`` (which is
+    ``single_device_test`` in one process)."""
+    if prepare is not None:
+        prepare()
+    return multi_process_test(infer_steps, loaders, max_batches=max_batches)
+
+
+def _batches(loader, stride: int, offset: int, stop: int):
+    if hasattr(loader, "strided"):
+        return loader.strided(stride, offset, stop)
+    return ((bi, b) for bi, b in enumerate(loader)
+            if bi < stop and bi % stride == offset)
+
+
+def _strided_test(infer_steps: Dict[str, Callable], loaders: Dict[str, Any],
+                  max_batches: int = 0, stride: int = 1, offset: int = 0,
+                  stats: Optional[Dict[str, dict]] = None
+                  ) -> Dict[str, List]:
+    """The batches whose index is ``offset`` modulo ``stride``: {dataset
+    name: [(sample index, result), ...]}; ``stats`` as in
+    ``single_device_test``."""
     logger = get_root_logger()
     cuda = torch.cuda.is_available() and torch.cuda.is_initialized()
     results: Dict[str, List] = {}
@@ -137,28 +199,33 @@ def single_device_test(infer_steps: Dict[str, Callable],
         load_s, infer_s = [], []
         if stats is not None and cuda:
             torch.cuda.reset_peak_memory_stats()
-        it = iter(loader)
-        for bi in range(len(loader)):
-            if max_batches and bi >= max_batches:
-                break
+        n_batches = len(loader)
+        if max_batches:
+            n_batches = min(n_batches, max_batches)
+        it = _batches(loader, stride, offset, n_batches)
+        while True:
             t0 = time.perf_counter()
-            batch, valid = _pad_batch(next(it), bs)
+            bi, raw = next(it, (None, None))
+            if bi is None:
+                break
+            batch, valid = _pad_batch(raw, bs)
             t1 = time.perf_counter()
+            base = bi * bs
             if task == "cls":
                 probs = _np(infer_steps["cls"](batch["img"]))
-                out.extend(probs[i] for i in range(valid))
+                res = [probs[i] for i in range(valid)]
             elif task == "det":
                 det, labels = infer_steps["det"](
                     batch["img"], batch["img_hw"], batch["scale_factor"])
                 det, labels = _np(det), _np(labels)
                 K = len(loader.dataset.CLASSES)
-                for i in range(valid):
-                    out.append([det[i][labels[i] == c].astype(np.float32)
-                                for c in range(K)])
+                res = [[det[i][labels[i] == c].astype(np.float32)
+                        for c in range(K)] for i in range(valid)]
             elif task == "seg":
-                out.extend(_seg_results(infer_steps, batch, valid))
+                res = _seg_results(infer_steps, batch, valid)
             else:
                 raise ValueError(f"unknown task {task!r} of {name}")
+            out.extend((base + i, r) for i, r in enumerate(res))
             load_s.append(t1 - t0)
             infer_s.append(time.perf_counter() - t1)
         results[name] = out
@@ -166,7 +233,8 @@ def single_device_test(infer_steps: Dict[str, Callable],
             stats[name] = dict(load_s=load_s, infer_s=infer_s)
             if cuda:
                 stats[name]["peak_bytes"] = torch.cuda.max_memory_allocated()
-        logger.info("evaluated %s: %d samples", name, len(out))
+        logger.info("evaluated %s: %d samples%s", name, len(out),
+                    f" (process {offset}/{stride})" if stride > 1 else "")
     return results
 
 

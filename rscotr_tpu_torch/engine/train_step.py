@@ -32,14 +32,17 @@ from rscotr_tpu_torch.engine.infer import (device_normalize, normalize,
 from rscotr_tpu_torch.models.heads.cdn import (CdnConfig, cdn_self_attn_mask,
                                                draw_cdn_noise,
                                                generate_cdn_queries)
-from rscotr_tpu_torch.models.heads.dino_loss import DetLossConfig, dino_loss
+from rscotr_tpu_torch.models.heads.dino_loss import (DetLossConfig,
+                                                     avg_factors, dino_loss)
 from rscotr_tpu_torch.ops.box_ops import bbox_xyxy_to_cxcywh
 from rscotr_tpu_torch.ops.device_augment import (DetDeviceAugmentConfig,
                                                  DeviceAugmentConfig,
                                                  SegDeviceAugmentConfig,
                                                  run_stage)
-from rscotr_tpu_torch.ops.losses import (label_smooth_loss,
+from rscotr_tpu_torch.ops.losses import (counted_labels, label_smooth_loss,
                                         softmax_cross_entropy)
+from rscotr_tpu_torch.parallel.ddp import reduce_sum
+from rscotr_tpu_torch.utils.rng import per_sample, step_shard
 
 
 @dataclasses.dataclass(frozen=True)
@@ -147,20 +150,24 @@ def seg_loss_fn(model, batch, generator, cfg: TrainStepConfig,
     """mmseg's decode-head CE: the logits resized to the labels' size as
     ``jax.image.resize(method="linear")`` does (``resize_linear``, which
     averages when it shrinks), softmax CE over every channel (scheme 2's
-    one per query too, ROADMAP C4) with ``seg_ignore_index``."""
+    one per query too, ROADMAP C4) with ``seg_ignore_index``, over the
+    count of the global batch (``reduce_sum``)."""
     img = _input("seg", batch, generator, cfg, train)
     gt = batch["gt_semantic_seg"]
     logits = resize_linear(
         model.forward_seg(img, generator if train else None), gt.shape[1:3])
-    loss = softmax_cross_entropy(logits, gt,
-                                 ignore_index=cfg.seg_ignore_index)
+    count = counted_labels(gt, logits.shape[-1], cfg.seg_ignore_index)
+    loss = softmax_cross_entropy(
+        logits, gt, ignore_index=cfg.seg_ignore_index,
+        avg_factor=reduce_sum(count.to(logits.dtype).sum()))
     return {"seg.loss_ce": loss * cfg.seg_loss_weight}
 
 
 def det_loss_fn(model, batch, generator, cfg: TrainStepConfig,
                 mask_cache: Optional[dict] = None, train: bool = True):
     """With ``train=False`` the CDN noise is still drawn from ``generator``
-    (JAX's val step draws it from its key too)."""
+    (JAX's val step draws it from its key too). The avg factors are the
+    global batch's (``reduce_sum``)."""
     img_hw = batch["img_hw"]
     img = _input("det", batch, generator, cfg, train)
     gt_bboxes, gt_labels = batch["gt_bboxes"], batch["gt_labels"]
@@ -182,7 +189,8 @@ def det_loss_fn(model, batch, generator, cfg: TrainStepConfig,
         noise = {k: batch[f"dn_noise_{k}"]
                  for k in ("p", "new_label", "sign", "part")}
     else:
-        noise = draw_cdn_noise(generator, img.shape[0], cdn_cfg)
+        noise = per_sample(lambda n: draw_cdn_noise(generator, n, cdn_cfg),
+                           img.shape[0])
     dn_label_q, dn_bbox_q = generate_cdn_queries(
         gt_norm, gt_labels, gt_valid,
         model.bbox_head.label_embedding.weight, cdn_cfg, noise)
@@ -192,8 +200,10 @@ def det_loss_fn(model, batch, generator, cfg: TrainStepConfig,
                                          device=img.device)
     outs = model.forward_det(img, img_hw, dn_label_q, dn_bbox_q,
                              cache[cdn_cfg], generator if train else None)
+    factors = reduce_sum(avg_factors(gt_bboxes, gt_labels, gt_valid, img_hw,
+                                     cdn_cfg, cfg.det))
     return dino_loss(*outs, gt_bboxes, gt_labels, gt_valid, img_hw, cdn_cfg,
-                     cfg.det)
+                     cfg.det, factors)
 
 
 def parse_losses(losses: Dict[str, torch.Tensor]):
@@ -209,30 +219,49 @@ def parse_losses(losses: Dict[str, torch.Tensor]):
 # ---------------------------------------------------------------------------
 
 def make_train_step(model, optimizer, task: str, cfg: TrainStepConfig,
-                    task_mask: Optional[Dict[str, float]] = None):
+                    task_mask: Optional[Dict[str, float]] = None,
+                    sync=None):
     """Returns ``step(batch, generator) -> log_vars``; ``batch`` holds numpy
-    arrays or tensors, moved to the model's device."""
+    arrays or tensors, moved to the model's device.
+
+    ``sync`` (a ``parallel.ddp.GradSync``): data parallelism over its
+    ranks. The batch is this rank's share of the global batch; the step
+    runs under ``utils.rng.step_shard`` (per-sample draws for the global
+    batch, this rank's rows kept; det and seg normalizers summed over the
+    ranks), the cls loss, a mean over the local batch, is scaled by
+    ``1 / world``, and the task-masked gradients are summed over the ranks
+    before the update. ``log_vars`` then hold this rank's shares of the
+    loss terms (their sum over the ranks is the global loss;
+    ``LogHook`` sums them on its log steps) and the global ``grad_norm``.
+    """
     if task not in ("cls", "det", "seg"):
         raise ValueError(f"unknown task {task!r}")
     weight = float(cfg.task_weight.get(task, 1.0))
     params = dict(model.named_parameters())
     device = next(model.parameters()).device
     mask_cache: dict = {}
+    world = sync.world if sync is not None else 1
+    share = weight / world if task == "cls" else weight
 
     def step(batch, generator: torch.Generator) -> Dict[str, torch.Tensor]:
         batch = {k: torch.as_tensor(v).to(device) for k, v in batch.items()}
         model.train()
         for p in params.values():
             p.grad = None
-        if task == "cls":
-            losses = cls_loss_fn(model, batch, generator, cfg)
-        elif task == "seg":
-            losses = seg_loss_fn(model, batch, generator, cfg)
-        else:
-            losses = det_loss_fn(model, batch, generator, cfg, mask_cache)
-        total, log_vars = parse_losses(losses)
-        (total * weight).backward()
-        log_vars = {k: v.detach() * weight for k, v in log_vars.items()}
+        with step_shard(world, sync.rank if sync else 0,
+                        sync.group if sync else None):
+            if task == "cls":
+                losses = cls_loss_fn(model, batch, generator, cfg)
+            elif task == "seg":
+                losses = seg_loss_fn(model, batch, generator, cfg)
+            else:
+                losses = det_loss_fn(model, batch, generator, cfg,
+                                     mask_cache)
+            total, log_vars = parse_losses(losses)
+            (total * share).backward()
+        log_vars = {k: v.detach() * share for k, v in log_vars.items()}
+        if sync is not None:
+            sync(params, task_mask)
         log_vars["grad_norm"] = optimizer.update(
             {n: p.grad for n, p in params.items()}, task_mask)
         for p in params.values():

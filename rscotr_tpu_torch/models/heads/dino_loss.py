@@ -3,7 +3,9 @@ rscotr_tpu/models/heads/dino_loss.py).
 
 Static-shape scheme, as in the JAX module: GTs per image are padded to
 ``max_gt`` with a ``gt_valid`` mask, padded cost rows are a constant and the
-matcher skips them, and the avg factors are taken over the whole batch.
+matcher skips them, and the avg factors are taken over the whole batch
+(``avg_factors``; under data parallelism the train step sums them over the
+ranks and passes the global batch's, mmdet's ``reduce_mean`` as a sum).
 Loss-dict names are the reference's: ``interm_loss_*``, ``d{i}.loss_*``,
 ``d{i}.dn_loss_*``, ``loss_*``, ``dn_loss_*``.
 
@@ -20,7 +22,7 @@ the port keeps that behaviour so the losses stay equal (ROADMAP C3).
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -125,13 +127,14 @@ def _targets(cols: torch.Tensor, gt_bboxes_xyxy, gt_labels, gt_valid,
 
 
 def loss_single_layer(cls_scores, bbox_preds, gt_bboxes, gt_labels, gt_valid,
-                      img_hw, cfg: DetLossConfig, cols=None):
+                      img_hw, cfg: DetLossConfig, cols=None, num_pos=None):
     """Matching loss for one decoder layer (or the encoder top-k).
 
     cls_scores (B, Nq, K); bbox_preds (B, Nq, 4) normalized cxcywh;
     gt_bboxes (B, G, 4) absolute xyxy; img_hw (B, 2). ``cols`` (B, G) are the
     target columns of ``_target_columns``; when None this layer is matched
-    on its own.
+    on its own. ``num_pos``: the avg factor (the batch's valid GT count
+    when None; ``dino_loss`` passes the global batch's).
     """
     B, Nq, K = cls_scores.shape
     if cols is None:
@@ -143,7 +146,8 @@ def loss_single_layer(cls_scores, bbox_preds, gt_bboxes, gt_labels, gt_valid,
                                device=cls_scores.device)
     labels, bbox_t, bbox_w = _targets(cols, gt_bboxes, gt_labels, gt_valid,
                                       img_hw, Nq, cfg)
-    num_pos = gt_valid.float().sum()
+    if num_pos is None:
+        num_pos = gt_valid.float().sum()
     loss_cls = sigmoid_focal_loss(
         cls_scores.reshape(-1, K), labels.reshape(-1),
         alpha=cfg.focal_alpha, gamma=cfg.focal_gamma,
@@ -161,20 +165,33 @@ def loss_single_layer(cls_scores, bbox_preds, gt_bboxes, gt_labels, gt_valid,
     return loss_cls, loss_bbox, loss_iou
 
 
+def avg_factors(gt_bboxes, gt_labels, gt_valid, img_hw,
+                cdn_cfg: CdnConfig, cfg: DetLossConfig) -> torch.Tensor:
+    """The batch's avg factors as one f32 (3,) tensor, before their clamps:
+    the valid GT count (the matching losses' ``num_pos``), the DN cls avg
+    factor and the DN positive count."""
+    B, P = gt_valid.shape[0], cdn_cfg.pad_size
+    dn_pos = cdn_targets(bbox_xyxy_to_cxcywh(gt_bboxes / _factor(img_hw)),
+                         gt_labels, gt_valid, cdn_cfg)["num_pos"]
+    cls_avg = dn_pos * 1.0 + (B * P - dn_pos) * cfg.bg_cls_weight
+    return torch.stack([gt_valid.float().sum(), cls_avg, dn_pos]).float()
+
+
 def loss_dn_single_layer(dn_cls, dn_bbox, gt_bboxes, gt_labels, gt_valid,
-                         img_hw, cdn_cfg: CdnConfig, cfg: DetLossConfig):
-    """Denoising loss for one decoder layer (fixed positive mapping)."""
-    B, P, K = dn_cls.shape
+                         img_hw, cdn_cfg: CdnConfig, cfg: DetLossConfig,
+                         cls_avg, dn_pos):
+    """Denoising loss for one decoder layer (fixed positive mapping);
+    ``cls_avg`` and ``dn_pos`` are ``avg_factors``'s."""
+    K = dn_cls.shape[-1]
     factor = _factor(img_hw)
     t = cdn_targets(bbox_xyxy_to_cxcywh(gt_bboxes / factor), gt_labels,
                     gt_valid, cdn_cfg)
-    cls_avg = t["num_pos"] * 1.0 + (B * P - t["num_pos"]) * cfg.bg_cls_weight
     loss_cls = sigmoid_focal_loss(
         dn_cls.reshape(-1, K), t["labels"].reshape(-1),
         weight=t["label_weights"].reshape(-1), alpha=cfg.focal_alpha,
         gamma=cfg.focal_gamma,
         avg_factor=torch.clamp(cls_avg, min=1.0)) * cfg.loss_cls_weight
-    num_pos = torch.clamp(t["num_pos"], min=1.0)
+    num_pos = torch.clamp(dn_pos, min=1.0)
     pred_xyxy = bbox_cxcywh_to_xyxy(dn_bbox) * factor
     tgt_xyxy = bbox_cxcywh_to_xyxy(t["bbox_targets"]) * factor
     loss_iou = giou_loss(pred_xyxy.reshape(-1, 4), tgt_xyxy.reshape(-1, 4),
@@ -189,10 +206,13 @@ def loss_dn_single_layer(dn_cls, dn_bbox, gt_bboxes, gt_labels, gt_valid,
 
 def dino_loss(all_cls, all_coords, topk_score, topk_anchor, gt_bboxes,
               gt_labels, gt_valid, img_hw, cdn_cfg: CdnConfig,
-              cfg: DetLossConfig) -> Dict[str, torch.Tensor]:
+              cfg: DetLossConfig, factors: Optional[torch.Tensor] = None
+              ) -> Dict[str, torch.Tensor]:
     """Full DINO loss dict. all_cls (L, B, P + Nq, K) and all_coords
     (L, B, P + Nq, 4) hold the DN slots first; topk_score (B, Nq', K) and
-    topk_anchor (B, Nq', 4) are the encoder proposals."""
+    topk_anchor (B, Nq', 4) are the encoder proposals. ``factors``: the
+    avg factors (``avg_factors``'s, of the global batch under data
+    parallelism); this batch's when None."""
     P = cdn_cfg.pad_size
     dn_cls, dn_coords = all_cls[:, :, :P], all_coords[:, :, :P]
     m_cls, m_coords = all_cls[:, :, P:], all_coords[:, :, P:]
@@ -221,20 +241,25 @@ def dino_loss(all_cls, all_coords, topk_score, topk_anchor, gt_bboxes,
     else:
         interm_cols, layer_cols = None, cols
 
+    if factors is None:
+        factors = avg_factors(gt_bboxes, gt_labels, gt_valid, img_hw,
+                              cdn_cfg, cfg)
+    num_pos, dn_cls_avg, dn_pos = factors.unbind(0)
     out: Dict[str, torch.Tensor] = {}
     e_cls, e_bbox, e_iou = loss_single_layer(
         topk_score, topk_anchor, gt_bboxes, gt_labels, gt_valid, img_hw, cfg,
-        cols=interm_cols)
+        cols=interm_cols, num_pos=num_pos)
     out["interm_loss_cls"] = e_cls
     out["interm_loss_bbox"] = e_bbox
     out["interm_loss_iou"] = e_iou
     for lyr in range(L):
         c, b, i = loss_single_layer(m_cls[lyr], m_coords[lyr], gt_bboxes,
                                     gt_labels, gt_valid, img_hw, cfg,
-                                    cols=layer_cols[lyr])
+                                    cols=layer_cols[lyr], num_pos=num_pos)
         dc, db, di = loss_dn_single_layer(dn_cls[lyr], dn_coords[lyr],
                                           gt_bboxes, gt_labels, gt_valid,
-                                          img_hw, cdn_cfg, cfg)
+                                          img_hw, cdn_cfg, cfg, dn_cls_avg,
+                                          dn_pos)
         pre = "" if lyr == L - 1 else f"d{lyr}."
         out[f"{pre}loss_cls"], out[f"{pre}loss_bbox"], \
             out[f"{pre}loss_iou"] = c, b, i

@@ -9,7 +9,9 @@ decoder's, the Mask2Former decoder's) and cross-attention (the Mask2Former
 decoder's, ``key`` / ``value`` / ``key_pos``). Masks follow torch:
 ``attn_mask`` bool (Nq, Nk) or (B*heads, Nq, Nk), True = not allowed;
 ``key_padding_mask`` bool (B, Nk), True = padded. An all-masked row falls
-back to uniform attention, as in the JAX module.
+back to uniform attention, as in the JAX module. Under tensor parallelism
+(``parallel/tp.py``) the fused projection is held as (3, C, C) sharded by
+heads and each rank attends with its own heads; ``out_proj`` sums them.
 """
 
 from __future__ import annotations
@@ -51,8 +53,16 @@ class MultiheadAttention(nn.Module):
 
     def _proj(self, x, i):
         C, dt = self.embed_dims, self.dtype
-        w = self.attn.in_proj_weight[i * C:(i + 1) * C].to(dt)
-        b = self.attn.in_proj_bias[i * C:(i + 1) * C].to(dt)
+        w, b = self.attn.in_proj_weight, self.attn.in_proj_bias
+        if w.dim() == 3:
+            # tensor parallelism (parallel/tp.py): (3, C, C) sharded by
+            # heads; x replicated in, this rank's heads out
+            from torch.distributed.tensor import DTensor, Replicate
+            xd = DTensor.from_local(x.to(dt), w.device_mesh, [Replicate()],
+                                    run_check=False)
+            return F.linear(xd, w[i].to(dt), b[i].to(dt)).to_local()
+        w = w[i * C:(i + 1) * C].to(dt)
+        b = b[i * C:(i + 1) * C].to(dt)
         return F.linear(x.to(dt), w, b)
 
     def forward(self, query, key=None, value=None, identity=None,
@@ -75,9 +85,12 @@ class MultiheadAttention(nn.Module):
         k = key + key_pos if key_pos is not None else key
         B, Nq, C = q.shape
         Nk = k.shape[1]
-        H = self.num_heads
-        hd = C // H
-        qp = self._proj(q, 0).reshape(B, Nq, H, hd).transpose(1, 2)
+        hd = C // self.num_heads
+        qp = self._proj(q, 0)
+        # this rank's heads under tensor parallelism: [h0, h0 + H)
+        H = qp.shape[-1] // hd
+        h0 = _local_rank(self.attn.in_proj_weight) * H
+        qp = qp.reshape(B, Nq, H, hd).transpose(1, 2)
         kp = self._proj(k, 1).reshape(B, Nk, H, hd).transpose(1, 2)
         vp = self._proj(value, 2).reshape(B, Nk, H, hd).transpose(1, 2)
 
@@ -86,7 +99,7 @@ class MultiheadAttention(nn.Module):
         if attn_mask is not None or key_padding_mask is not None:
             if attn_mask is not None:
                 m = (attn_mask[None, None] if attn_mask.dim() == 2
-                     else attn_mask.reshape(B, H, Nq, Nk))
+                     else attn_mask.reshape(B, -1, Nq, Nk)[:, h0:h0 + H])
                 logits = logits.masked_fill(m, NEG_INF)
             if key_padding_mask is not None:
                 logits = logits.masked_fill(
@@ -94,5 +107,12 @@ class MultiheadAttention(nn.Module):
             all_masked = (logits <= NEG_INF / 2).all(-1, keepdim=True)
             logits = logits.masked_fill(all_masked, 0.0)
         attn = torch.softmax(logits, dim=-1)
-        out = torch.matmul(attn, vp).transpose(1, 2).reshape(B, Nq, C)
+        out = torch.matmul(attn, vp).transpose(1, 2).reshape(B, Nq, H * hd)
         return identity + self.attn.out_proj(out)
+
+
+def _local_rank(w: torch.Tensor) -> int:
+    """This rank's index on the mesh a tensor-parallel weight is sharded
+    over (0 for a plain tensor)."""
+    mesh = getattr(w, "device_mesh", None)
+    return mesh.get_local_rank() if mesh is not None else 0

@@ -28,6 +28,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from rscotr_tpu_torch.utils.rng import per_sample
+
 # flax variance_scaling's truncated-normal correction: std of a unit normal
 # truncated to [-2, 2]
 _TRUNC_STD = 0.87962566103423978
@@ -187,7 +189,8 @@ def _keep_mask(shape, keep: float, g: Optional[torch.Generator],
 class DropPath(nn.Module):
     """Stochastic depth per sample (timm semantics): in training, each
     sample's branch is zeroed with probability ``drop_prob`` and the kept
-    ones scaled by 1 / (1 - drop_prob)."""
+    ones scaled by 1 / (1 - drop_prob). Under data parallelism the draw is
+    the global batch's, this rank's rows kept (``utils.rng.per_sample``)."""
 
     def __init__(self, drop_prob: float = 0.0):
         super().__init__()
@@ -197,8 +200,11 @@ class DropPath(nn.Module):
         if not self.training or self.drop_prob == 0.0:
             return x
         keep = 1.0 - self.drop_prob
-        shape = (x.shape[0],) + (1,) * (x.dim() - 1)
-        return x * _keep_mask(shape, keep, generator, x) / keep
+        rest = (1,) * (x.dim() - 1)
+        mask = per_sample(
+            lambda n: _keep_mask((n,) + rest, keep, generator, x),
+            x.shape[0])
+        return x * mask / keep
 
 
 class Dropout(nn.Module):

@@ -4,7 +4,10 @@ rscotr_tpu/models/layers/msda.py; mmcv key layout ``sampling_offsets``,
 
 The sampling core is rscotr_tpu_torch.ops.ms_deform_attn (kernel K1 on
 CUDA). Init: sampling_offsets weight zero with the rotational grid bias,
-attention_weights zero, value/output projections flax-default.
+attention_weights zero, value/output projections flax-default. Under
+tensor parallelism (``parallel/tp.py``) ``value_proj`` is column-sharded:
+the layer runs the kernel on this rank's heads and ``output_proj``
+(row-sharded) sums them.
 """
 
 from __future__ import annotations
@@ -83,10 +86,21 @@ class MultiScaleDeformableAttention(nn.Module):
         v = self.value_proj(value)
         if key_padding_mask is not None:
             v = v.masked_fill(key_padding_mask[..., None], 0.0)
-        v = v.reshape(B, Nv, H, C // H)
         offsets = self.sampling_offsets(query).reshape(B, Nq, H, L, P, 2)
         attn = self.attention_weights(query).reshape(B, Nq, H, L * P)
         attn = attn.softmax(-1).reshape(B, Nq, H, L, P)
+        if v.shape[-1] != C:
+            # tensor parallelism (parallel/tp.py): value_proj gave this
+            # rank's heads [h0, h0 + H); the offsets and weights of every
+            # head are sliced to them, their gradients summed over the ranks
+            from rscotr_tpu_torch.parallel.tp import sum_grad_over_tp
+            mesh = self.value_proj.weight.device_mesh
+            Hl = v.shape[-1] // (C // H)
+            h0 = mesh.get_local_rank() * Hl
+            offsets = sum_grad_over_tp(offsets, mesh)[:, :, h0:h0 + Hl]
+            attn = sum_grad_over_tp(attn, mesh)[:, :, h0:h0 + Hl]
+            H = Hl
+        v = v.reshape(B, Nv, H, C // self.num_heads)
 
         ref = reference_points[:, :, None, :, None, :]
         if reference_points.shape[-1] == 2:

@@ -37,6 +37,8 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from rscotr_tpu_torch.utils.rng import per_sample
+
 # canonical op table order: data/pipelines.py RAND_AUG_OPS
 RAND_AUG_OP_NAMES = (
     "AutoContrast", "Equalize", "Invert", "Rotate", "Posterize",
@@ -398,7 +400,8 @@ def random_erase(img, on, y, x, eh, ew, fill, fill_std,
                  generator: Optional[torch.Generator] = None):
     """mmcls RandomErasing(mode='rand'): the box filled with fill + std *
     N(0, 1), drawn from ``generator`` (on its own device, then moved); with
-    every std 0 the fill is constant and nothing is drawn."""
+    every std 0 the fill is constant and nothing is drawn. Under data
+    parallelism the noise is the global batch's, this rank's rows kept."""
     B, H, W, C = img.shape
     ys = torch.arange(H, device=img.device)[None, :, None]
     xs = torch.arange(W, device=img.device)[None, None, :]
@@ -408,7 +411,8 @@ def random_erase(img, on, y, x, eh, ew, fill, fill_std,
     fill_t = torch.as_tensor(fill, dtype=_F32, device=img.device)
     if max(fill_std) > 0.0:
         dev = generator.device if generator is not None else "cpu"
-        noise = torch.randn(img.shape, generator=generator, device=dev)
+        noise = per_sample(lambda n: torch.randn(
+            (n,) + tuple(img.shape[1:]), generator=generator, device=dev), B)
         std = torch.as_tensor(fill_std, dtype=_F32, device=img.device)
         patch = fill_t + std * noise.to(img.device)
     else:

@@ -158,6 +158,17 @@ def check(err: int, name: str) -> None:
         raise RuntimeError(f"{name} launch failed: cudaError {err}")
 
 
+def refuse_dtensor(name: str, *tensors) -> None:
+    """A kernel wrapper takes plain tensors: the ``ctypes`` kernels read
+    raw ``data_ptr()``s, which of a DTensor (tensor parallelism's, FSDP's)
+    would be its local shard under the global shape. Raise on one."""
+    for t in tensors:
+        if type(t).__name__ == "DTensor":
+            raise TypeError(f"{name}: got a DTensor; kernel wrappers take "
+                            "plain (local) tensors (call .to_local() on "
+                            "the shard the layer owns)")
+
+
 def dtype_code(t: torch.Tensor, name: str) -> int:
     if t.dtype not in DTYPE_CODES:
         raise TypeError(f"{name}: dtype {t.dtype} not supported "

@@ -68,20 +68,36 @@ def giou_loss(pred: torch.Tensor, target: torch.Tensor,
 def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
                           ignore_index: int = 255,
                           class_weight: Optional[torch.Tensor] = None,
-                          avg_non_ignore: bool = True) -> torch.Tensor:
+                          avg_non_ignore: bool = True,
+                          avg_factor: Optional[torch.Tensor] = None
+                          ) -> torch.Tensor:
     """Softmax CE over (..., C) logits; labels equal to ``ignore_index`` or
-    outside [0, C) are ignored."""
+    outside [0, C) are ignored (``counted_labels``). ``avg_factor``: the
+    denominator of the mean (the global batch's count under data
+    parallelism); this batch's when None."""
     C = logits.shape[-1]
     labels = labels.long()
-    valid = (labels != ignore_index) & (labels >= 0) & (labels < C)
+    valid = counted_labels(labels, C, ignore_index)
     safe = torch.where(valid, labels, 0)
     nll = -torch.log_softmax(logits, -1).gather(-1, safe[..., None])[..., 0]
     w = valid.to(logits.dtype)
     if class_weight is not None:
         w = w * class_weight[safe]
-    denom = w.sum() if avg_non_ignore else torch.tensor(
-        float(labels.numel()), dtype=logits.dtype, device=logits.device)
+    if avg_factor is not None:
+        denom = avg_factor
+    elif avg_non_ignore:
+        denom = w.sum()
+    else:
+        denom = torch.tensor(float(labels.numel()), dtype=logits.dtype,
+                             device=logits.device)
     return (nll * w).sum() / denom.clamp(min=1e-12)
+
+
+def counted_labels(labels: torch.Tensor, num_classes: int,
+                   ignore_index: int = 255) -> torch.Tensor:
+    """The labels ``softmax_cross_entropy`` counts: not ``ignore_index``,
+    in [0, num_classes)."""
+    return (labels != ignore_index) & (labels >= 0) & (labels < num_classes)
 
 
 def label_smooth_loss(logits: torch.Tensor, target: torch.Tensor,

@@ -136,6 +136,8 @@ def ms_deform_attn(value: torch.Tensor,
     Returns:
         (B, num_query, num_heads * head_dim) in value's dtype.
     """
+    kernel_lib.refuse_dtensor("ms_deform_attn", value, sampling_locations,
+                              attention_weights)
     if value.device.type not in ("cpu", "cuda"):
         raise ValueError(f"ms_deform_attn: no path for device {value.device}")
     shapes = _shapes(spatial_shapes)
@@ -246,6 +248,8 @@ def ms_deform_attn_bwd(value: torch.Tensor,
     """Gradients of ``ms_deform_attn`` -> (d_value, d_loc, d_attn) in the
     primal dtypes: one launch of K1b on CUDA (``launches`` counts it); the
     plain decomposition (``ms_deform_attn_bwd_torch``) on the CPU."""
+    kernel_lib.refuse_dtensor("ms_deform_attn_bwd", value,
+                              sampling_locations, attention_weights, d_out)
     shapes = _shapes(spatial_shapes)
     if value.device.type == "cpu":
         return ms_deform_attn_bwd_torch(value, shapes, sampling_locations,

@@ -95,6 +95,8 @@ def window_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     Returns:
         (B, nW, H, n, hd) contiguous, in q's dtype.
     """
+    kernel_lib.refuse_dtensor("window_attention", q, k, v, rel_bias,
+                              shift_mask)
     if scale is None:
         scale = q.shape[-1] ** -0.5
     if q.device.type not in ("cpu", "cuda"):
@@ -237,6 +239,8 @@ def window_attention_bwd(q, k, v, rel_bias, shift_mask, scale, d_out):
     """Gradients of ``window_attention`` -> (dq, dk, dv in q's dtype,
     d_rel_bias float32): kernel K2b on CUDA (``launches`` counts it), the
     plain version on the CPU."""
+    kernel_lib.refuse_dtensor("window_attention_bwd", q, k, v, rel_bias,
+                              shift_mask, d_out)
     if q.device.type == "cpu":
         return window_attention_bwd_torch(q, k, v, rel_bias, shift_mask,
                                           scale, d_out)

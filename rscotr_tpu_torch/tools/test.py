@@ -17,8 +17,16 @@ with the command that converts it (``tools/convert_checkpoint.py
 --to-torch``). ``--show`` / ``--show-dir`` paint every evaluated image into
 ``SHOW_DIR/<dataset>/<index>.png`` (``utils/visualize.py``; ``--show``
 alone paints into ``WORK_DIR/painted``), det boxes at or above
-``--show-score-thr``. A ``--launcher`` other than ``none`` waits for
-ROADMAP M7.
+``--show-score-thr``.
+
+``--launcher pytorch`` (or ``slurm`` / ``mpi``; ``jax`` is refused) joins
+the launcher's process group: every rank evaluates its strided share of
+the batches (``engine.test.multi_process_test``), the results are
+gathered, and rank 0 writes the metrics, ``--out``, the painted images and
+the formatted results::
+
+    python -m torch.distributed.run --nproc_per_node 2 \\
+        -m rscotr_tpu_torch.tools.test CONFIG CKPT --launcher pytorch
 """
 
 from __future__ import annotations
@@ -101,14 +109,10 @@ def _eval_kwargs(cfg: dict, args, logger) -> Dict[str, dict]:
 
 
 def main(argv=None, stats: Optional[Dict[str, dict]] = None):
-    """Run the CLI; returns the metrics dict (None with --format-only).
-    ``stats`` is handed to ``single_device_test`` (per-batch loader and
-    step times, peak memory)."""
+    """Run the CLI; returns the metrics dict (None with --format-only),
+    the same on every rank. ``stats`` is handed to ``multi_process_test``
+    (per-batch loader and step times, peak memory; this rank's batches)."""
     args = parse_args(argv)
-    if args.launcher != "none":
-        raise NotImplementedError(
-            f"--launcher {args.launcher}: multi-process evaluation over "
-            "torch.distributed is not ported yet (ROADMAP M7)")
 
     from rscotr_tpu_torch.apis import derive_cls_hw, derive_img_norm
     from rscotr_tpu_torch.data.build import (build_dataloaders,
@@ -116,7 +120,7 @@ def main(argv=None, stats: Optional[Dict[str, dict]] = None):
     from rscotr_tpu_torch.engine.checkpoint import load_checkpoint
     from rscotr_tpu_torch.engine.infer import make_infer_steps
     from rscotr_tpu_torch.engine.test import (evaluate_results,
-                                              single_device_test)
+                                              multi_process_test)
     from rscotr_tpu_torch.models import build_model
     from rscotr_tpu_torch.utils.config import load_cfg, merge_from_dict
     from rscotr_tpu_torch.utils.logging import get_root_logger
@@ -125,6 +129,13 @@ def main(argv=None, stats: Optional[Dict[str, dict]] = None):
     if args.cfg_options:
         cfg = merge_from_dict(cfg, args.cfg_options)
     cfg = load_data_cfg(cfg, config_root=ROOT, filename=args.config)
+    device, rank = args.device, 0
+    if args.launcher != "none":
+        from rscotr_tpu_torch.parallel import initialize_distributed, mesh
+        device = initialize_distributed(
+            args.launcher, device=args.device,
+            backend=(cfg.get("dist_params") or {}).get("backend"))
+        rank = mesh.rank()
     logger = get_root_logger(os.path.join(args.work_dir, "test.log")
                              if args.work_dir else None)
 
@@ -139,7 +150,7 @@ def main(argv=None, stats: Optional[Dict[str, dict]] = None):
             results = pickle.load(f)
         logger.info("loaded cached outputs from %s", args.test_outputs)
     else:
-        model = build_model(cfg["model"], device=args.device,
+        model = build_model(cfg["model"], device=device,
                             cls_hw=derive_cls_hw(cfg))
         ck = load_checkpoint(args.checkpoint, model=model)
         logger.info("loaded %d tensors from %s", len(ck["state_dict"]),
@@ -152,14 +163,14 @@ def main(argv=None, stats: Optional[Dict[str, dict]] = None):
             model, max_per_img=(test_cfg.get("det") or {}).get(
                 "max_per_img", 300),
             img_norm=derive_img_norm(cfg), seg_test_cfg=test_cfg.get("seg"))
-        results = single_device_test(infer, loaders,
+        results = multi_process_test(infer, loaders,
                                      max_batches=args.max_batches,
                                      stats=stats)
-        if args.out:
+        if args.out and rank == 0:
             with open(args.out, "wb") as f:
                 pickle.dump(results, f)
 
-    if args.show or args.show_dir:
+    if (args.show or args.show_dir) and rank == 0:
         from rscotr_tpu_torch.utils.visualize import save_eval_visualizations
         show_dir = args.show_dir or os.path.join(args.work_dir or ".",
                                                  "painted")
@@ -170,6 +181,8 @@ def main(argv=None, stats: Optional[Dict[str, dict]] = None):
     if args.format_only:
         out_dir = args.work_dir or "formatted"
         for name, ds in datasets.items():
+            if rank != 0:
+                break
             paths = ds.format_results(results.get(name, []), out_dir)
             logger.info("formatted %s -> %s", name,
                         paths[0] if len(paths) == 1
@@ -183,12 +196,16 @@ def main(argv=None, stats: Optional[Dict[str, dict]] = None):
     out_path = args.eval_out or (
         os.path.join(args.work_dir, "eval_metrics.json")
         if args.work_dir else "eval_metrics.json")
-    os.makedirs(os.path.dirname(os.path.abspath(out_path)), exist_ok=True)
-    with open(out_path, "w") as f:
-        json.dump(metrics, f, indent=2)
-    logger.info("metrics written to %s", out_path)
+    if rank == 0:
+        os.makedirs(os.path.dirname(os.path.abspath(out_path)),
+                    exist_ok=True)
+        with open(out_path, "w") as f:
+            json.dump(metrics, f, indent=2)
+        logger.info("metrics written to %s", out_path)
     return metrics
 
 
 if __name__ == "__main__":
     main()
+    from rscotr_tpu_torch.parallel.mesh import destroy_distributed
+    destroy_distributed()

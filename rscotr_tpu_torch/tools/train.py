@@ -15,7 +15,18 @@ the last step, ``best_checkpoint.pth`` on a better save-best score,
 grouped order of K same-task steps (``runner.steps_per_dispatch``).
 ``--deterministic`` makes cuDNN deterministic and turns off its benchmark
 search. ``--diff-seed`` adds the process rank to the seed (0: one process).
-A ``--launcher`` other than ``none`` waits for ROADMAP M7.
+
+``--launcher pytorch`` (or ``slurm`` / ``mpi``) joins the process group
+its launcher set up, on the backend of ``dist_params.backend`` (default
+``nccl`` on the card, ``gloo`` on the CPU), one rank per device; every
+rank trains its share of the global batch (``samples_per_gpu`` x ranks),
+with FSDP when ``parallel.fsdp=True``; rank 0 writes the logs and the
+checkpoints::
+
+    python -m torch.distributed.run --nproc_per_node 4 \\
+        -m rscotr_tpu_torch.tools.train CONFIG --launcher pytorch
+
+``--launcher jax`` (a TPU pod's) is refused.
 """
 
 from __future__ import annotations
@@ -80,10 +91,6 @@ def main(argv=None, hooks: Sequence = (),
     registered after the config's; ``train_fn``: the training API
     (``apis.train_model`` unless given)."""
     args = parse_args(argv)
-    if args.launcher != "none":
-        raise NotImplementedError(
-            f"--launcher {args.launcher}: multi-process training over "
-            "torch.distributed is not ported yet (ROADMAP M7)")
 
     from rscotr_tpu_torch import apis
     from rscotr_tpu_torch.data.build import load_data_cfg
@@ -103,14 +110,22 @@ def main(argv=None, hooks: Sequence = (),
         cfg = merge_from_dict(
             cfg, {"runner.steps_per_dispatch": args.steps_per_dispatch})
     cfg = load_data_cfg(cfg, config_root=ROOT, filename=args.config)
+    rank = 0
+    if args.launcher != "none":
+        from rscotr_tpu_torch.parallel import initialize_distributed, mesh
+        initialize_distributed(
+            args.launcher, device=args.device,
+            backend=(cfg.get("dist_params") or {}).get("backend"))
+        rank = mesh.rank()
 
     work_dir = args.work_dir or os.path.join(
         "work_dirs", os.path.splitext(os.path.basename(args.config))[0])
     os.makedirs(work_dir, exist_ok=True)
-    with open(os.path.join(work_dir, os.path.basename(args.config)),
-              "w") as f:
-        f.write("".join(f"{k} = {pprint.pformat(v, width=88)}\n"
-                        for k, v in cfg.items()))
+    if rank == 0:
+        with open(os.path.join(work_dir, os.path.basename(args.config)),
+                  "w") as f:
+            f.write("".join(f"{k} = {pprint.pformat(v, width=88)}\n"
+                            for k, v in cfg.items()))
 
     logger = get_root_logger(os.path.join(work_dir, "train.log"))
     for k, v in collect_env().items():
@@ -118,17 +133,16 @@ def main(argv=None, hooks: Sequence = (),
 
     seed = args.seed if args.seed is not None else 0
     if args.diff_seed:
-        import torch.distributed as dist
-        seed += dist.get_rank() if dist.is_available() and \
-            dist.is_initialized() else 0
+        seed += rank
     set_random_seed(seed, deterministic=args.deterministic)
     logger.info("seed=%d deterministic=%s", seed, args.deterministic)
 
     if args.auto_scale_lr:
         base_bs = (cfg.get("auto_scale_lr") or {}).get("base_batch_size",
                                                        16)
+        from rscotr_tpu_torch.parallel.mesh import world_size
         world_bs = sum(e["data"].get("samples_per_gpu", 1)
-                       for e in cfg["data"].values())
+                       for e in cfg["data"].values()) * world_size()
         cfg["optimizer"]["lr"] = cfg["optimizer"]["lr"] * world_bs / base_bs
         logger.info("auto-scaled lr to %g", cfg["optimizer"]["lr"])
 
@@ -151,3 +165,5 @@ def main(argv=None, hooks: Sequence = (),
 
 if __name__ == "__main__":
     main()
+    from rscotr_tpu_torch.parallel.mesh import destroy_distributed
+    destroy_distributed()

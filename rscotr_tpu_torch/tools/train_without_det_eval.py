@@ -4,6 +4,9 @@ flags of ``rscotr_tpu_torch.tools.train``, and
 ``apis.train_model_without_det_eval`` in place of ``train_model``.
 
     python -m rscotr_tpu_torch.tools.train_without_det_eval CONFIG ...
+
+``--launcher pytorch`` runs it on every rank of a ``torch.distributed.run``
+launch, as for ``tools/train.py``.
 """
 
 from __future__ import annotations
@@ -21,3 +24,5 @@ def main(argv=None, hooks: Sequence = ()):
 
 if __name__ == "__main__":
     main()
+    from rscotr_tpu_torch.parallel.mesh import destroy_distributed
+    destroy_distributed()

@@ -18,13 +18,23 @@ from typing import Any, Dict, Optional
 _LOGGERS: Dict[str, logging.Logger] = {}
 
 
+def _rank() -> int:
+    try:
+        import torch.distributed as dist
+    except ImportError:
+        return 0
+    return dist.get_rank() if dist.is_available() and \
+        dist.is_initialized() else 0
+
+
 def get_root_logger(log_file: Optional[str] = None,
                     log_level: int = logging.INFO,
                     name: str = "rscotr_tpu_torch") -> logging.Logger:
     """The logger ``name``, made on its first call. A call that names a
     log file the logger does not write yet moves its file handler there
     (a process that evaluates, then trains, logs the training to the
-    run's ``train.log``); other calls return it as it is."""
+    run's ``train.log``); other calls return it as it is. On a rank other
+    than 0 of a process group it logs errors only, to no file."""
     logger = _LOGGERS.get(name)
     fmt = logging.Formatter(
         "%(asctime)s - %(name)s - %(levelname)s - %(message)s")
@@ -36,6 +46,10 @@ def get_root_logger(log_file: Optional[str] = None,
         sh.setFormatter(fmt)
         logger.addHandler(sh)
         _LOGGERS[name] = logger
+    if _rank() != 0:
+        # mmcv's rule: ranks other than 0 log errors only, to no file
+        logger.setLevel(logging.ERROR)
+        return logger
     if log_file is not None:
         path = os.path.abspath(log_file)
         files = [h for h in logger.handlers

@@ -10,11 +10,19 @@ step)``: the runner hands step ``s`` a generator that depends on ``(seed,
 s)`` alone, as JAX's runner hands it ``fold_in(root, s)``
 (rscotr_tpu/engine/runner.py:219), so a resumed step draws what the same
 step drew in an uninterrupted run.
+
+Under data parallelism each rank steps its share of the global batch: the
+rows ``rank, rank + world, ...`` of the one-process batch (the rank stride
+of the loaders). ``step_shard(world, rank, group)`` says so for the step's
+duration, and ``per_sample(draw, B)`` makes a per-sample draw for the
+global batch (``draw(B * world)``, so every rank's generator advances as
+the one process's does) and keeps this rank's rows.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+import contextlib
+from typing import Callable, Optional, TypeVar
 
 import numpy as np
 import torch
@@ -32,6 +40,42 @@ def step_generator(seed: int, step: int) -> torch.Generator:
     """The CPU generator of training step ``step`` (0-based) of a run
     seeded ``seed``."""
     return torch.Generator().manual_seed(mix_seed(seed, step))
+
+
+class StepShard:
+    """The share of the global batch that the current step runs: ``world``
+    ranks, this one ``rank``, their ``group`` (None: the default group)."""
+    world = 1
+    rank = 0
+    group = None
+
+
+SHARD = StepShard()
+T = TypeVar("T")
+
+
+@contextlib.contextmanager
+def step_shard(world: int, rank: int, group=None):
+    prev = (SHARD.world, SHARD.rank, SHARD.group)
+    SHARD.world, SHARD.rank, SHARD.group = int(world), int(rank), group
+    try:
+        yield SHARD
+    finally:
+        SHARD.world, SHARD.rank, SHARD.group = prev
+
+
+def per_sample(draw: Callable[[int], T], B: int) -> T:
+    """``draw(n)`` returns a tensor (or a dict of tensors) whose first axis
+    is ``n`` samples. In one process: ``draw(B)``. In a step of
+    ``step_shard(world, rank)``: ``draw(B * world)``, this rank's rows
+    ``rank::world`` of it."""
+    w = SHARD.world
+    if w == 1:
+        return draw(B)
+    out = draw(B * w)
+    if isinstance(out, dict):
+        return {k: v[SHARD.rank::w] for k, v in out.items()}
+    return out[SHARD.rank::w]
 
 
 def _stable_hash(name: str) -> int:

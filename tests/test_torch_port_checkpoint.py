@@ -349,12 +349,20 @@ def test_cli_runs_on_the_card_unless_asked(port_ckpt):
 
 @pytest.mark.parametrize("flag", [["--launcher", "pytorch"], ["--show"],
                                   ["--show-dir", "painted"]])
-def test_cli_refuses_what_waits_for_m7(port_ckpt, flag, tmp_path):
-    """``--launcher`` waits for M7's scale-out; ``--show`` (into
+def test_cli_refuses_what_waits_for_m7(port_ckpt, flag, tmp_path,
+                                       monkeypatch):
+    """``--launcher``: ``jax`` (a TPU pod's launcher) is refused with the
+    port's command line, ``slurm`` outside slurm says which variables are
+    missing (``pytorch`` under ``torch.distributed.run`` is driven in
+    tests/test_torch_port_dist_tools.py); ``--show`` (into
     WORK_DIR/painted) and ``--show-dir`` paint each evaluated image."""
     if flag[0] == "--launcher":
-        with pytest.raises(NotImplementedError, match="ROADMAP M7"):
-            _cli([TINY, port_ckpt, "--device", "cpu"] + flag)
+        with pytest.raises(ValueError, match="torch.distributed.run"):
+            _cli([TINY, port_ckpt, "--device", "cpu", "--launcher", "jax"])
+        monkeypatch.delenv("SLURM_PROCID", raising=False)
+        with pytest.raises(RuntimeError, match="SLURM_PROCID"):
+            _cli([TINY, port_ckpt, "--device", "cpu", "--launcher",
+                  "slurm"])
         return
     painted = tmp_path / "painted"
     _cli([TINY, port_ckpt, "--device", "cpu", "--tasks", "cls",

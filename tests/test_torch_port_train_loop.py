@@ -462,10 +462,14 @@ def test_train_cli_writes_resumes_and_feeds_test_cli(tmp_path):
 
 
 def test_train_cli_refuses_a_launcher(tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP M7"):
+    """``--launcher jax`` (a TPU pod's) is refused with the port's command
+    line; ``num_devices`` other than the process count (one process, no
+    group) says how to launch one process per device. ``--launcher
+    pytorch`` runs in tests/test_torch_port_dist_tools.py."""
+    with pytest.raises(ValueError, match="torch.distributed.run"):
         train_cli.main([TINY, "--work-dir", str(tmp_path), "--launcher",
-                        "pytorch"])
-    with pytest.raises(NotImplementedError, match="ROADMAP M7"):
+                        "jax", "--device", "cpu"])
+    with pytest.raises(ValueError, match="nproc_per_node 2"):
         train_model(load_cfg(TINY), str(tmp_path), num_devices=2,
                     device="cpu")
 
