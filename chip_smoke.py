@@ -118,7 +118,32 @@ Phases, each of which raises on failure (exit code 1, no result line):
     the infer step's share of the wall time and the peak memory reported;
     the seg logits path (crop and resize on the host) timed once; the tiny
     config's ``make_val_step`` for cls, det and seg on the CPU and on the
-    card, float32, TF32 off, every log var within SLICE_TOL;
+    card, float32, TF32 off, every log var within SLICE_TOL; the
+    checkpoint and the cls results stay for the tools phase;
+13b. the user tools (``tools_phase``), each through its ``main``, every
+    count set to 0 just before it and read just after:
+    ``tools/benchmark.py`` on the flagship at full width and depth (cls,
+    det and seg requests and train steps, 10 timed calls after 2, then the
+    det step with ``with_cp`` on the backbone and the shared encoder, then
+    ``--eval-loop``): the root tool's report keys, 0 < MFU <= 1, per call
+    the K1 / K1b / K2 / K2b launches (``TOOL_WANT``, ``CP_WANT``: with_cp
+    runs each encoder layer and Swin block again) and FlopCounterMode's
+    count of the four kernel operators equal to ``ops/flops.py``'s
+    formulas over those launches, the with_cp det step's ``train_temp_mb``
+    below the plain one; ``tools/overfit_proof.py`` (``--eval-every 250
+    --max-iters 4000``): every target met (cls top-1 100, det mAP_50 >=
+    0.9, seg mIoU >= 90), the iterations printed; ``tools/parity_check.py
+    dump`` of the tiny config's seeded init on the card and on the CPU
+    (float32, TF32 off) and ``compare``: cls and seg within SLICE_TOL, det
+    boxes within SLICE_TOL x the image size, labels equal, on the inputs
+    of the first seed whose det top-k cut and seg attention-mask margins
+    clear 10 x SLICE_TOL; ``featmap_vis.vis_featmap_single_img`` at
+    224^2, 800^2 and 512^2 on seeded PNGs with the eval phase's flagship
+    ``.pth``: the root tools' file names, K2 12 launches per image, the
+    backbone's maps on the card against the CPU's within SLICE_TOL;
+    ``confusion_matrix.get_cls_confusion_matrix`` on the eval phase's cls
+    scores: its accuracy equal to the eval phase's, the plot skipped
+    without matplotlib;
 14. export and serve (``export_phase``): the host C++ libraries built
     on the machine (the COCO AP core must build; the JPEG / PNG decoder may
     lack libjpeg / libpng, which alone is printed and passed over), the
@@ -205,7 +230,8 @@ Phases, each of which raises on failure (exit code 1, no result line):
 The line before the last is {"kernels": [...]}: eight kernels, each with
 ``launches`` (the main path's run: the flagship's training), K1, K1b, K2
 and K2b also ``launches_paths`` (each zoo path's, each flagship task's,
-the flagship eval's run, each artifact request's, each loop step's per
+the flagship eval's run, each tool's run in the tools phase, each
+artifact request's, each loop step's per
 task and the loop's whole run, the same for the first devaug and hostaug
 runs, counted from 0), ``max_abs_err``, ``ms`` and ``plain_ms``
 (kernel and plain version, same inputs), ``bound_ms`` / ``bound_by`` (the
@@ -718,6 +744,7 @@ def k1_phase(err, times):
     parent's kernel, ``body=BODY_LANE``). The timed cases give device times
     of both by graph replay, the eager time, the plain version's, the bound
     and the modelled L2 traffic."""
+    from rscotr_tpu_torch.ops import flops
     from rscotr_tpu_torch.ops.ms_deform_attn import (
         BODY_LANE, BODY_VEC, _ms_deform_attn_cuda, ms_deform_attn,
         ms_deform_attn_torch, msda_fwd_body)
@@ -749,7 +776,8 @@ def k1_phase(err, times):
             D = v.shape[-1]
             on_map = corners_on_map(shapes, loc)
             # one multiply-add per channel of each corner on the map
-            ms, by = bound((v, loc, w, got), 2.0 * D * on_map, "f32")
+            ms, by = bound((v, loc, w, got), flops.msda_fwd_flops(on_map, D),
+                           "f32")
 
             def vec():
                 return ms_deform_attn(v, shapes, loc, w)
@@ -775,6 +803,7 @@ def k1_phase(err, times):
 
 
 def kernel_phase():
+    from rscotr_tpu_torch.ops import flops
     from rscotr_tpu_torch.ops.window_attention import (window_attention,
                                                        window_attention_torch)
     g = torch.Generator(device="cuda").manual_seed(0)
@@ -809,7 +838,8 @@ def kernel_phase():
                     n, hd = q.shape[-2:]
                     tiles = B * nW * H
                     ms, by = bound((q, k, v, bias, mask, got),
-                                   4.0 * n * n * hd * tiles, "bf16 tensor")
+                                   flops.window_attn_flops(tiles, n, hd),
+                                   "bf16 tensor")
                     def run():
                         return window_attention(q, k, v, bias, mask, scale)
 
@@ -1178,6 +1208,7 @@ def check_grads(name, gots, refs, names, dtype, tol=None,
 
 
 def backward_phase():
+    from rscotr_tpu_torch.ops import flops
     from rscotr_tpu_torch.ops.ms_deform_attn import (
         BODY_LANE, BODY_VEC, _msda_bwd_cuda, ms_deform_attn,
         ms_deform_attn_bwd, ms_deform_attn_bwd_torch, msda_bwd_body,
@@ -1249,7 +1280,8 @@ def backward_phase():
                 on_map = corners_on_map(shapes, loc)
                 # per corner on the map: D multiply-adds for <V_c, d_out>,
                 # D products and D atomic adds for d_value
-                ms, by = bound((v, loc, w, d_out) + got, 4.0 * D * on_map,
+                ms, by = bound((v, loc, w, d_out) + got,
+                               flops.msda_bwd_flops(on_map, D),
                                "f32")
                 # a model of the L2 traffic, not a reading: each corner
                 # row loaded, each accumulator row read and written by its
@@ -1357,7 +1389,8 @@ def backward_phase():
                     n, hd = q.shape[-2:]
                     # five n x n x hd products per tile: S, dP, dV, dQ, dK
                     ms, by = bound((q, k, v, bias, mask, d_out) + got,
-                                   10.0 * n * n * hd * B * nW * H,
+                                   flops.window_attn_bwd_flops(
+                                       B * nW * H, n, hd),
                                    "bf16 tensor")
                     times[f"K2b {name}"] = dict(
                         ms=graph_ms(lambda: window_attention_bwd(*args)),
@@ -2482,7 +2515,8 @@ def eval_phase(smi):
                 json.dumps(metrics, sort_keys=True):
             fail("eval: --eval-out holds other metrics than main returned")
         with open(raw, "rb") as f:
-            det_results = pickle.load(f)["dior"]
+            raw_results = pickle.load(f)
+        det_results = raw_results["dior"]
         per_task = {}
         for task, got in calls:
             per_task[task] = per_task.get(task, 0) + 1
@@ -2586,8 +2620,9 @@ def eval_phase(smi):
             f"resize and argmax  [{smi}]")
         del model, steps, lg, preds
         torch.cuda.empty_cache()
-    finally:
+    except BaseException:
         shutil.rmtree(work_dir, ignore_errors=True)
+        raise
 
     # -- 3. the val step, CPU vs card -------------------------------------
     tf32 = (torch.backends.cuda.matmul.allow_tf32,
@@ -2623,7 +2658,14 @@ def eval_phase(smi):
             fail(f"val step {task}: CPU and CUDA log vars differ")
     (torch.backends.cuda.matmul.allow_tf32,
      torch.backends.cudnn.allow_tf32) = tf32
-    return launches, res, det_results
+    # kept for the tools phase, which removes the work dir
+    kept = dict(work_dir=work_dir, pth=path,
+                cls_scores=np.stack(raw_results["resisc"]),
+                cls_labels=np.asarray([datasets["resisc"][i]["gt_label"]
+                                       for i in range(len(
+                                           datasets["resisc"]))]),
+                accuracy=metrics["resisc.accuracy_top-1"])
+    return launches, res, det_results, kept
 
 
 # the serving buckets of the export phase: task -> (batch, size)
@@ -3844,6 +3886,440 @@ def scaleout_phase(smi):
     return res
 
 
+# -- the tools phase -------------------------------------------------------
+
+# K1 / K1b / K2 / K2b launches per call of the flagship's requests and
+# train steps (the serving, training and eval phases' counts): the cls
+# head reads no encoder; det runs 6 encoder and 6 decoder MSDA layers, seg
+# the pixel decoder's 6; 12 Swin blocks per backbone pass
+TOOL_WANT = {
+    ("infer", "cls"): (0, 0, 12, 0), ("infer", "det"): (12, 0, 12, 0),
+    ("infer", "seg"): (6, 0, 12, 0), ("train", "cls"): (0, 0, 12, 12),
+    ("train", "det"): (12, 12, 12, 12), ("train", "seg"): (6, 6, 12, 12)}
+# with_cp: the recompute runs each encoder layer and Swin block again
+CP_WANT = {("train", "det"): (18, 12, 24, 12)}
+BENCH_KEYS = {"infer_ms", "infer_gflops", "infer_temp_mb", "infer_mfu",
+              "train_ms", "train_gflops", "train_temp_mb", "train_mfu"}
+EVAL_LOOP_KEYS = {"task", "images", "img_per_s", "total_s",
+                  "host_pipeline_s", "host_share", "metric_s"}
+FEATMAP_SIZES = (224, 800, 512)
+FEATMAP_PNGS = 2
+# the parity dump's input seeds tried (the first that clears the margins)
+DUMP_SEEDS = 16
+K4 = ("K1", "K1b", "K2", "K2b")
+
+
+def kernel_flops_recorder():
+    """Patches the four kernels' CUDA entry points (which the operators'
+    CUDA bodies call) to add each launch's operation count, from
+    ``ops/flops.py``'s formulas at the launch's shapes, while ``on``."""
+    from rscotr_tpu_torch.ops import flops
+    from rscotr_tpu_torch.ops import ms_deform_attn as msda
+    from rscotr_tpu_torch.ops import window_attention as wa
+    rec = {"on": False, "flops": dict.fromkeys(
+        ("msda_fwd", "msda_bwd", "window_attn_fwd", "window_attn_bwd"), 0)}
+
+    def wrap(mod, attr, op, count):
+        real = getattr(mod, attr)
+
+        def call(*a, **kw):
+            if rec["on"]:
+                rec["flops"][op] += count(*a)
+            return real(*a, **kw)
+        setattr(mod, attr, call)
+        return mod, attr, real
+
+    def tiles(q, *_):
+        B, nW, H, n, hd = q.shape
+        return B * nW * H, n, hd
+
+    rec["restore"] = [
+        wrap(msda, "_ms_deform_attn_cuda", "msda_fwd",
+             lambda v, s, loc, *_: flops.msda_fwd_flops(
+                 flops.msda_corners(loc.shape), v.shape[-1])),
+        wrap(msda, "_msda_bwd_cuda", "msda_bwd",
+             lambda v, s, loc, *_: flops.msda_bwd_flops(
+                 flops.msda_corners(loc.shape), v.shape[-1])),
+        wrap(wa, "_window_attention_cuda", "window_attn_fwd",
+             lambda *a: flops.window_attn_flops(*tiles(*a))),
+        wrap(wa, "_window_attention_bwd_cuda", "window_attn_bwd",
+             lambda *a: flops.window_attn_bwd_flops(*tiles(*a)))]
+    return rec
+
+
+def run_benchmark(name, argv, counters, want, n_calls, smi):
+    """``tools/benchmark.main(argv)`` with every count set to 0 just before
+    and read just after; each ``count_flops`` call (one request or step,
+    outside the timed window) checked: its K1 / K1b / K2 / K2b launches
+    against ``want`` and ``FlopCounterMode``'s count of each kernel
+    operator against the formulas summed over the launches; the run's
+    launches against ``n_calls`` calls of each. Returns (report, the run's
+    launches)."""
+    from rscotr_tpu_torch.tools import benchmark
+    rec = kernel_flops_recorder()
+    calls = []
+    real = benchmark.count_flops
+
+    def counted(fn):
+        before = launch_counts(counters)
+        rec["flops"] = dict.fromkeys(rec["flops"], 0)
+        rec["on"] = True
+        try:
+            out = real(fn)
+        finally:
+            rec["on"] = False
+        after = launch_counts(counters)
+        calls.append(({k: after[k] - before[k] for k in after},
+                      dict(rec["flops"]), out[2]))
+        return out
+
+    benchmark.count_flops = counted
+    try:
+        log(f"  rscotr_tpu_torch.tools.benchmark {' '.join(argv)}")
+        zero_counts(counters)
+        t0 = time.perf_counter()
+        report = benchmark.main(argv)
+        wall = time.perf_counter() - t0
+        total = launch_counts(counters)
+    finally:
+        benchmark.count_flops = real
+        for mod, attr, fn in rec["restore"]:
+            setattr(mod, attr, fn)
+    if "eval_loop" in report:
+        for ds, ev in report["eval_loop"].items():
+            if set(ev) != EVAL_LOOP_KEYS:
+                fail(f"benchmark {name}: eval_loop {ds} keys {sorted(ev)}")
+        log(f"  benchmark {name}: {json.dumps(report['eval_loop'])} "
+            f"({wall:.1f} s)  [{smi}]")
+        return report, total
+    tasks = list(report["tasks"])
+    phases = [p for p in ("infer", "train")
+              if f"{p}_ms" in report["tasks"][tasks[0]]]
+    keys = [(p, t) for p in phases for t in tasks]
+    if len(calls) != len(keys):
+        fail(f"benchmark {name}: {len(calls)} FLOP-count calls for {keys}")
+    for (phase, task), (got, formula, counted_ops) in zip(keys, calls):
+        entry = report["tasks"][task]
+        missing = {k for k in BENCH_KEYS if k.startswith(phase)} - set(entry)
+        if missing:
+            fail(f"benchmark {name} {task}: keys {sorted(missing)} missing")
+        mfu = entry[f"{phase}_mfu"]
+        if not 0 < mfu <= 1:
+            fail(f"benchmark {name} {task} {phase}_mfu {mfu}")
+        w = dict(zip(K4, want[(phase, task)]))
+        if any(got[k] != w[k] for k in K4) or \
+                got["K1 vec"] != w["K1"] or got["K1b vec"] != w["K1b"] or \
+                any(got[k] for k in QUAD):
+            fail(f"benchmark {name} {phase} {task}: launches {got} != {w}, "
+                 "every K1 / K1b on the vector body, no quad-path kernel")
+        if counted_ops != formula or counted_ops != entry[
+                f"{phase}_kernel_flops"]:
+            fail(f"benchmark {name} {phase} {task}: FlopCounterMode's "
+                 f"operator counts {counted_ops} != the formulas over the "
+                 f"launches {formula}")
+        log(f"  benchmark {name} {phase} {task}: {entry[phase + '_ms']:.3f}"
+            f" ms, {entry[phase + '_gflops']:.2f} GFLOP "
+            f"(kernel operators {sum(formula.values()) / 1e9:.3f} = the "
+            f"formulas over the launches), MFU {mfu:.4f}, temp "
+            f"{entry[phase + '_temp_mb']:.1f} MiB; launches per call "
+            + ", ".join(f"{k} {got[k]}" for k in K4) + f"  [{smi}]")
+    run_want = {k: n_calls * sum(want[key][i] for key in keys)
+                for i, k in enumerate(K4)}
+    if any(total[k] != run_want[k] for k in K4):
+        fail(f"benchmark {name}: launches in the run {total} != {run_want} "
+             f"({n_calls} calls of each request and step)")
+    log(f"  benchmark {name}: {wall:.1f} s, launches in the run "
+        + ", ".join(f"{k} {total[k]}" for k in K4))
+    return report, total
+
+
+def tools_phase(smi, kept):
+    """The port's user tools on the card (``rscotr_tpu_torch/tools``), each
+    through its ``main`` with every count set to 0 just before it and read
+    just after: (1) the benchmark on the flagship at full width and depth
+    (``--tasks cls det seg --train --iters 10 --warmup 2``; again with
+    ``with_cp`` on the backbone and the shared encoder, det only; then
+    ``--eval-loop --iters 2``), its reports' keys, ``0 < MFU <= 1``, per
+    call the launches (``TOOL_WANT``, ``CP_WANT``) and FlopCounterMode's
+    operator counts equal to the formulas over the launches, the with_cp
+    det step's ``train_temp_mb`` below the plain one; (2) the overfit proof
+    (``--eval-every 250 --max-iters 4000``): every target met; (3) the
+    parity dump of the tiny config's seeded init on the card and on the
+    CPU (float32, TF32 off), then ``compare``: cls and seg within
+    SLICE_TOL, det boxes within SLICE_TOL x the image size, labels equal,
+    on inputs of the first seed whose det top-k cut gap and seg
+    attention-mask margin clear 10 x SLICE_TOL on the CPU; (4) ``featmap_vis.vis_featmap_single_img`` at 224^2, 800^2
+    and 512^2 on seeded PNGs with the eval phase's flagship ``.pth``: the
+    root tools' file names, K2 once per Swin block per image, and the
+    backbone's maps on the card against the CPU's within SLICE_TOL
+    (relative above 1; float32, TF32 off); (5) the confusion matrix of the
+    eval phase's cls scores, its accuracy equal to the eval phase's. The
+    eval phase's work dir is removed at the end."""
+    import contextlib
+    import importlib.util
+    import io
+    import shutil
+
+    from PIL import Image
+
+    from rscotr_tpu_torch.apis import derive_shapes
+    from rscotr_tpu_torch.data.build import load_data_cfg
+    from rscotr_tpu_torch.engine import make_infer_steps, save_checkpoint
+    from rscotr_tpu_torch.models import build_model
+    from rscotr_tpu_torch.tools import overfit_proof, parity_check
+    from rscotr_tpu_torch.tools.confusion_matrix import (
+        get_cls_confusion_matrix)
+    from rscotr_tpu_torch.tools.featmap_vis import (_common,
+                                                    vis_featmap_single_img)
+    from rscotr_tpu_torch.utils.config import load_cfg
+    counters = kernel_counters()
+    t_phase = time.perf_counter()
+    work = kept["work_dir"]
+    res, paths = {"seconds": {}}, {}
+    log("tools phase: the port's benchmark, overfit proof, parity dump, "
+        "featmap and confusion-matrix tools on the card")
+    try:
+        # -- 1. benchmark ------------------------------------------------
+        t0 = time.perf_counter()
+        iters, warm = 10, 2
+        base = ["--iters", str(iters), "--warmup", str(warm)]
+        plain, total = run_benchmark(
+            "flagship", [FLAGSHIP_CFG, "--tasks", "cls", "det", "seg",
+                         "--train"] + base, counters, TOOL_WANT,
+            iters + warm + 2, smi)
+        paths["benchmark (cls, det, seg requests and steps, 14 calls "
+              "each)"] = total
+        cp, total = run_benchmark(
+            "flagship with_cp", [FLAGSHIP_CFG, "--tasks", "det", "--train",
+                                 "--cfg-options",
+                                 "model.backbone.with_cp=True",
+                                 "model.shared_encoder.with_cp=True"]
+            + base, counters, {**TOOL_WANT, **CP_WANT},
+            iters + warm + 2, smi)
+        paths["benchmark with_cp (det request and step, 14 calls "
+              "each)"] = total
+        a = plain["tasks"]["det"]["train_temp_mb"]
+        b = cp["tasks"]["det"]["train_temp_mb"]
+        log(f"  with_cp: det step temp {b:.1f} MiB against {a:.1f} MiB "
+            f"without ({100 * (1 - b / a):.1f}% less), step "
+            f"{cp['tasks']['det']['train_ms']:.2f} ms against "
+            f"{plain['tasks']['det']['train_ms']:.2f} ms  [{smi}]")
+        if not b < a:
+            fail(f"with_cp: det train_temp_mb {b} is not below {a}")
+        ev, total = run_benchmark(
+            "flagship eval-loop", [FLAGSHIP_CFG, "--eval-loop", "--iters",
+                                   "2"], counters, {}, 0, smi)
+        paths["benchmark --eval-loop (2 + 1 batches a val set)"] = total
+        res["benchmark"] = dict(plain=plain["tasks"],
+                                with_cp=cp["tasks"]["det"],
+                                eval_loop=ev["eval_loop"])
+        res["seconds"]["benchmark"] = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+
+        # -- 2. overfit proof --------------------------------------------
+        t0 = time.perf_counter()
+        argv = ["--work-dir", os.path.join(work, "overfit"),
+                "--eval-every", "250", "--max-iters", "4000",
+                "--device", "cuda"]
+        log(f"  rscotr_tpu_torch.tools.overfit_proof {' '.join(argv)}")
+        zero_counts(counters)
+        proof = overfit_proof.main(argv)
+        total = launch_counts(counters)
+        secs = time.perf_counter() - t0
+        with open(os.path.join(work, "overfit", "proof.md")) as f:
+            log("  " + "\n  ".join(f.read().splitlines()))
+        log(f"  overfit proof: first met {proof['first_met']}, final "
+            f"{proof['final']}, {secs:.1f} s; launches "
+            + ", ".join(f"{k} {total[k]}" for k in K4)
+            + f" (K1 vector body {total['K1 vec']}, K1b "
+            f"{total['K1b vec']})  [{smi}]")
+        if not proof["ok"]:
+            fail(f"overfit proof: targets not met within 4000 iterations: "
+                 f"{proof}")
+        # the tiny model's decoder heads are narrower than the vector
+        # body's widths: part of K1 / K1b takes the lane body there
+        if any(total[k] == 0 for k in K4) or any(total[k] for k in QUAD):
+            fail(f"overfit proof: launches {total}")
+        paths["overfit proof (tiny MTL, trains and evaluates)"] = total
+        res["overfit"] = dict(proof, seconds=secs)
+        res["seconds"]["overfit proof"] = secs
+
+        # -- 3. parity dump ----------------------------------------------
+        t0 = time.perf_counter()
+        tf32 = (torch.backends.cuda.matmul.allow_tf32,
+                torch.backends.cudnn.allow_tf32)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        tiny = load_data_cfg(load_cfg(TINY_CFG), config_root=ROOT,
+                             filename=TINY_CFG)
+        model = build_model(tiny["model"], device="cpu",
+                            generator=torch.Generator().manual_seed(0))
+        pth = save_checkpoint(os.path.join(work, "tiny"), 0, model)
+        k = tiny["model"]["test_cfg"]["det"]["max_per_img"]
+        # the dump's input seed: the first whose det top-k cut gap and
+        # smallest seg attention-mask logit (on the CPU, the reference;
+        # inputs drawn as the tool draws them) both clear 10 x SLICE_TOL,
+        # so that no kept detection or mask bit is a coin toss
+        shapes = derive_shapes(tiny)
+        det_hw = max(shapes["det"][1:3])
+        more_steps = make_infer_steps(model, max_per_img=k + 1)
+        for seed in range(DUMP_SEEDS):
+            rng = np.random.default_rng(seed)
+            rng.normal(size=(1,) + shapes["cls"][1:])
+            det_x = rng.normal(size=(1,) + shapes["det"][1:]).astype(
+                np.float32)
+            seg_x = rng.normal(size=(1,) + shapes["seg"][1:]).astype(
+                np.float32)
+            more, _ = more_steps["det"](
+                det_x, np.array([shapes["det"][1:3]], np.int32),
+                np.ones((1, 4), np.float32))
+            gap = float(more[0, k - 1, 4] - more[0, k, 4])
+            margin = seg_mask_margin(model, (seg_x,),
+                                     tiny["model"]["test_cfg"]["seg"])
+            log(f"  parity dump inputs, seed {seed}: det top-{k} cut gap "
+                f"{gap:.3e}, smallest seg attention-mask logit "
+                f"{margin:.3e} (each must exceed 10 x {SLICE_TOL:g})")
+            if gap > 10 * SLICE_TOL and margin > 10 * SLICE_TOL:
+                break
+        else:
+            fail(f"parity dump: no seed below {DUMP_SEEDS} clears the det "
+                 "cut and the seg mask margins")
+        dumps = {}
+        for dev in ("cuda", "cpu"):
+            out = os.path.join(work, f"dump_{dev}.npz")
+            argv = ["dump", TINY_CFG, pth, "--out", out, "--seed",
+                    str(seed), "--device", dev]
+            log(f"  rscotr_tpu_torch.tools.parity_check {' '.join(argv)}")
+            zero_counts(counters)
+            if parity_check.main(argv) != 0:
+                fail(f"parity dump on {dev} failed")
+            if dev == "cuda":
+                paths["parity dump (tiny cls, det, seg)"] = launch_counts(
+                    counters)
+            dumps[dev] = dict(np.load(out))
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = tf32
+        got, want = dumps["cuda"], dumps["cpu"]
+        if sorted(got) != ["cls", "det_boxes", "det_labels", "seg"] or \
+                sorted(want) != sorted(got):
+            fail(f"parity dump keys {sorted(got)} / {sorted(want)}")
+        box_tol = SLICE_TOL * det_hw
+        errs = {}
+        for key, tol in (("cls", SLICE_TOL), ("det_scores", SLICE_TOL),
+                         ("det_boxes", box_tol), ("seg", SLICE_TOL)):
+            a, b = ((got["det_boxes"][..., 4], want["det_boxes"][..., 4])
+                    if key == "det_scores" else
+                    (got[key][..., :4], want[key][..., :4])
+                    if key == "det_boxes" else (got[key], want[key]))
+            errs[key] = float(np.abs(a.astype(np.float64) - b).max())
+            log(f"  dump {key} {a.shape}: card vs CPU max_abs_err "
+                f"{errs[key]:.3e} (tol {tol:g})")
+            if not errs[key] <= tol:
+                fail(f"parity dump: {key} differs between card and CPU")
+        if not np.array_equal(got["det_labels"], want["det_labels"]):
+            fail("parity dump: det labels differ between card and CPU")
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            rc = parity_check.main(["compare", os.path.join(
+                work, "dump_cuda.npz"), os.path.join(work, "dump_cpu.npz"),
+                "--tol", str(box_tol)])
+        log("  " + "\n  ".join(out.getvalue().splitlines()))
+        if rc != 0:
+            fail("parity_check compare: FORWARD PARITY FAIL")
+        res["parity"] = errs
+        res["seconds"]["parity dump"] = time.perf_counter() - t0
+
+        # -- 4. featmap --------------------------------------------------
+        t0 = time.perf_counter()
+        rng = np.random.default_rng(0)
+        pngs = []
+        for i in range(FEATMAP_PNGS):
+            p = os.path.join(work, f"featmap_{i}.png")
+            Image.fromarray(rng.integers(0, 256, (300 + 40 * i, 400, 3))
+                            .astype(np.uint8)).save(p)
+            pngs.append(p)
+        zero_counts(counters)
+        written = []
+        for size in FEATMAP_SIZES:
+            for p in pngs:
+                written += vis_featmap_single_img.main([
+                    FLAGSHIP_CFG, p, "--checkpoint", kept["pth"],
+                    "--size", str(size), "--out-dir",
+                    os.path.join(work, f"featmap_{size}"), "--device",
+                    "cuda"])
+        total = launch_counts(counters)
+        n_img = len(FEATMAP_SIZES) * len(pngs)
+        if total["K2"] != 12 * n_img or any(
+                total[k] for k in counters if k != "K2"):
+            fail(f"featmap: launches {total} != K2 12 per image x {n_img}")
+        paths[f"featmap single image ({n_img} images at 224^2, 800^2, "
+              "512^2)"] = total
+        names = sorted({os.path.basename(w) for w in written})
+        want_names = sorted(f"featmap_{i}_l{lvl}_top20.png"
+                            for i in range(len(pngs)) for lvl in range(4))
+        if names != want_names or not all(os.path.getsize(w) for w in
+                                          written):
+            fail(f"featmap: wrote {names}, not {want_names}")
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        nets = {d: _common.load_backbone(FLAGSHIP_CFG, kept["pth"],
+                                         device=d) for d in ("cuda", "cpu")}
+        worst = {}
+        img = np.asarray(Image.open(pngs[0]).convert("RGB"))
+        for size in FEATMAP_SIZES:
+            x = _common.preprocess(img, size)
+            a, b = (_common.run_backbone(nets[d], x) for d in ("cuda",
+                                                              "cpu"))
+            worst[size] = max(float((np.abs(u - v) / np.maximum(
+                1.0, np.abs(v))).max()) for u, v in zip(a, b))
+            log(f"  featmap {size}^2: {len(a)} maps "
+                f"{[tuple(u.shape) for u in a]}, card vs CPU max err "
+                f"{worst[size]:.2e} (tol {SLICE_TOL:g}, relative above 1)")
+            if not worst[size] <= SLICE_TOL:
+                fail(f"featmap {size}^2: card and CPU maps differ")
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = tf32
+        del nets
+        log(f"  featmap: {len(written)} montages under the root tools' "
+            f"names ({', '.join(names[:2])}, ...), K2 {total['K2']} "
+            f"launches = 12 per image x {n_img}")
+        res["featmap"] = worst
+        res["seconds"]["featmap"] = time.perf_counter() - t0
+
+        # -- 5. confusion matrix -----------------------------------------
+        t0 = time.perf_counter()
+        gt = os.path.join(work, "cls_gt.npy")
+        pred = os.path.join(work, "cls_pred.npy")
+        np.save(gt, kept["cls_labels"])
+        np.save(pred, kept["cls_scores"])
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            cm = get_cls_confusion_matrix.main([
+                gt, pred, "--out", os.path.join(work, "cm.npy"), "--plot",
+                os.path.join(work, "cm.png")])
+        log("  " + "\n  ".join(out.getvalue().splitlines()))
+        acc = float(np.trace(cm) / cm.sum())
+        want_acc = kept["accuracy"] / 100
+        has_mpl = importlib.util.find_spec("matplotlib") is not None
+        log(f"  confusion matrix {cm.shape}: accuracy {acc:.6f}, the eval "
+            f"phase's resisc.accuracy_top-1 / 100 {want_acc:.6f}; plot "
+            f"{'written' if has_mpl else 'skipped (no matplotlib)'}")
+        if abs(acc - want_acc) > 1e-9 or cm.sum() != len(kept["cls_labels"]):
+            fail("confusion matrix: accuracy differs from the eval phase's")
+        if ("skipped plot" in out.getvalue()) == has_mpl:
+            fail("confusion matrix: the plot's skip line is wrong")
+        res["confusion"] = dict(accuracy=acc, plot=has_mpl)
+        res["seconds"]["confusion matrix"] = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+        torch.cuda.empty_cache()
+    res["phase_s"] = time.perf_counter() - t_phase
+    log(f"  tools phase {res['phase_s']:.1f} s ("
+        + ", ".join(f"{k} {v:.1f} s" for k, v in res["seconds"].items())
+        + f")  [{smi}]")
+    return {k: {kk: v[kk] for kk in K4} for k, v in paths.items()}, res
+
+
 def kernels_line(times, btimes, qtimes, err, berr, qerr, k6err, k6levels,
                  launches):
     """The ``{"kernels": [...]}`` object: eight kernels, each with its
@@ -3984,7 +4460,8 @@ def main(argv) -> int:
     launches, train = train_phase()
     stages = augment_phase()
     zlaunches, zoo = zoo_phase()
-    elaunches, evals, det_results = eval_phase(smi)
+    elaunches, evals, det_results, kept = eval_phase(smi)
+    tlaunches, tools = tools_phase(smi, kept)
     xlaunches, export = export_phase(smi, det_results)
     llaunches, loop = loop_phase(smi)
     alaunches, aug = aug_loop_phase(smi, stages)
@@ -4000,6 +4477,7 @@ def main(argv) -> int:
     zlaunches.update({f"flagship {t} steps (12)": n
                       for t, n in launches.pop("per task").items()})
     zlaunches["flagship eval (cls 4, det 2, seg 2 batches)"] = elaunches
+    zlaunches.update(tlaunches)
     zlaunches.update(xlaunches)
     zlaunches.update(llaunches)
     zlaunches.update(alaunches)
@@ -4045,7 +4523,21 @@ def main(argv) -> int:
         f"{v['sync_ms']:.2f} ms, peak {v['peak']:.0f} MiB"
         for k, v in scale["per_rank"].items())
         + f" (two ranks sharing the card over gloo); scale-out phase "
-        f"{scale['phase_s']:.1f} s")
+        f"{scale['phase_s']:.1f} s; " + "; ".join(
+        f"benchmark {t} request {r['infer_ms']:.2f} ms (MFU "
+        f"{r['infer_mfu']:.4f}), step {r['train_ms']:.2f} ms (MFU "
+        f"{r['train_mfu']:.4f}, temp {r['train_temp_mb']:.0f} MiB)"
+        for t, r in tools["benchmark"]["plain"].items())
+        + f"; benchmark det step with_cp "
+        f"{tools['benchmark']['with_cp']['train_ms']:.2f} ms, temp "
+        f"{tools['benchmark']['with_cp']['train_temp_mb']:.0f} MiB; "
+        f"overfit proof first met {tools['overfit']['first_met']} in "
+        f"{tools['overfit']['seconds']:.1f} s; parity dump max errors "
+        + ", ".join(f"{k} {v:.2e}" for k, v in tools["parity"].items())
+        + "; featmap card vs CPU " + ", ".join(
+            f"{s}^2 {v:.2e}" for s, v in tools["featmap"].items())
+        + f"; confusion accuracy {tools['confusion']['accuracy']:.4f}; "
+        f"tools phase {tools['phase_s']:.1f} s")
     log(smi)
     print(json.dumps(kernels_line(times, btimes, qtimes, err, berr, qerr,
                                   k6err, k6levels, launches)), flush=True)

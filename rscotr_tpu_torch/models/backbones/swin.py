@@ -18,15 +18,22 @@ Parameter names follow mmdet's SwinTransformer (``patch_embed.proj/norm``,
   ``drop_rate``, drawing from the ``generator`` passed to ``forward``.
   Attention dropout (``attn_drop_rate``) is not supported: the K2 kernels
   have none.
+* ``with_cp=True`` (mmdet's key; JAX's per-block ``nn.remat``) runs each
+  block under ``torch.utils.checkpoint`` in training: the backward keeps
+  the block's input and recomputes the rest. The recompute draws its drop
+  path and dropout masks from a copy of the explicit generator at the
+  state the first pass started from (``checkpoint`` restores only the
+  default generators), so the gradients are those without ``with_cp``.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Sequence, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 from torch import nn
 
 from rscotr_tpu_torch.models.layers.common import (FFN, Conv2d, DropPath,
@@ -125,13 +132,34 @@ class ShiftWindowMSA(nn.Module):
         self.w_msa = WindowMSA(*args, **kwargs)
 
 
+def checkpoint_with_generator(fn, x, generator: Optional[torch.Generator]):
+    """``fn(x, generator)`` under ``torch.utils.checkpoint`` (non-reentrant).
+    The first pass draws from ``generator`` and advances it, as a plain
+    call does; the recompute in the backward draws from a copy of it at the
+    state the first pass started from, so both passes draw the same masks."""
+    state = None if generator is None else generator.get_state()
+    passes = []
+
+    def run(t):
+        g = generator
+        if passes and g is not None:
+            g = torch.Generator(device=generator.device)
+            g.set_state(state)
+        passes.append(None)
+        return fn(t, g)
+
+    return torch.utils.checkpoint.checkpoint(run, x, use_reentrant=False)
+
+
 class SwinBlock(nn.Module):
     def __init__(self, dim: int, num_heads: int, window_size: int = 7,
                  shift: int = 0, mlp_ratio: float = 4.0,
                  qkv_bias: bool = True, qk_scale=None, drop: float = 0.0,
-                 drop_path: float = 0.0, dtype=torch.float32, device=None):
+                 drop_path: float = 0.0, with_cp: bool = False,
+                 dtype=torch.float32, device=None):
         super().__init__()
         self.window_size, self.shift = window_size, shift
+        self.with_cp = with_cp
         self.norm1 = LayerNorm(dim, device=device)
         self.attn = ShiftWindowMSA(dim, num_heads, window_size, qkv_bias,
                                    qk_scale, proj_drop=drop, dtype=dtype,
@@ -162,6 +190,11 @@ class SwinBlock(nn.Module):
 
     def forward(self, x, generator=None):
         """x: (B, H, W, C)."""
+        if self.with_cp and self.training and torch.is_grad_enabled():
+            return checkpoint_with_generator(self._forward, x, generator)
+        return self._forward(x, generator)
+
+    def _forward(self, x, generator=None):
         B, H, W, C = x.shape
         win = self.window_size
         shift = self.shift if min(H, W) > win else 0
@@ -239,7 +272,7 @@ class SwinTransformer(nn.Module):
                  qk_scale=None, drop_rate: float = 0.0,
                  drop_path_rate: float = 0.0, patch_norm: bool = True,
                  out_indices: Sequence[int] = (0, 1, 2, 3),
-                 dtype=torch.float32, device=None):
+                 with_cp: bool = False, dtype=torch.float32, device=None):
         super().__init__()
         self.out_indices = tuple(out_indices)
         self.patch_embed = PatchEmbed(embed_dims, patch_size, patch_norm,
@@ -253,8 +286,8 @@ class SwinTransformer(nn.Module):
                                 shift=0 if bi % 2 == 0 else window_size // 2,
                                 mlp_ratio=mlp_ratio, qkv_bias=qkv_bias,
                                 qk_scale=qk_scale, drop=drop_rate,
-                                drop_path=dprs[si][bi], dtype=dtype,
-                                device=device)
+                                drop_path=dprs[si][bi], with_cp=with_cp,
+                                dtype=dtype, device=device)
                       for bi in range(depth)]
             down = (PatchMerging(dim, dtype=dtype, device=device)
                     if si < len(depths) - 1 else None)

@@ -60,7 +60,8 @@ def build_backbone(cfg: dict, dtype, device):
             drop_path_rate=c.get("drop_path_rate", 0.2),
             patch_norm=c.get("patch_norm", True),
             out_indices=tuple(c.get("out_indices", (0, 1, 2, 3))),
-            dtype=dtype, device=device)
+            with_cp=bool(c.get("with_cp", False)), dtype=dtype,
+            device=device)
     if t == "ResNet":
         return ResNet(depth=c.get("depth", 50),
                       num_stages=c.get("num_stages", 4),
@@ -104,7 +105,7 @@ def build_shared_encoder(cfg: dict, dtype, device):
         num_levels=attn.get("num_levels", 4),
         num_points=attn.get("num_points", 4),
         feedforward_channels=ffn.get("feedforward_channels", 2048),
-        dtype=dtype, device=device)
+        with_cp=bool(c.get("with_cp", False)), dtype=dtype, device=device)
 
 
 def build_cls_head(cfg: dict, dtype, device, token_counts=None):

@@ -14,6 +14,7 @@ layout: ``attentions.{i}``, ``ffns.0``, ``norms.{i}``.
 from __future__ import annotations
 
 import torch
+import torch.utils.checkpoint
 from torch import nn
 
 from rscotr_tpu_torch.models.layers.attention import MultiheadAttention
@@ -47,12 +48,15 @@ class DeformableEncoderLayer(nn.Module):
 
 class DeformableEncoder(nn.Module):
     """The shared multi-scale deformable encoder (one module used by every
-    task head)."""
+    task head). ``with_cp=True`` (JAX's ``nn.remat`` of each layer) runs each
+    layer under ``torch.utils.checkpoint`` in training: the backward keeps
+    the layer's inputs and recomputes the rest (the layers draw nothing)."""
 
     def __init__(self, num_layers=6, embed_dims=256, num_heads=8,
                  num_levels=4, num_points=4, feedforward_channels=2048,
-                 dtype=torch.float32, device=None):
+                 with_cp=False, dtype=torch.float32, device=None):
         super().__init__()
+        self.with_cp = with_cp
         self.layers = nn.ModuleList(
             DeformableEncoderLayer(embed_dims, num_heads, num_levels,
                                    num_points, feedforward_channels,
@@ -61,9 +65,15 @@ class DeformableEncoder(nn.Module):
 
     def forward(self, x, query_pos, reference_points, spatial_shapes,
                 key_padding_mask=None):
+        cp = self.with_cp and self.training and torch.is_grad_enabled()
         for layer in self.layers:
-            x = layer(x, query_pos, reference_points, spatial_shapes,
-                      key_padding_mask)
+            if cp:
+                x = torch.utils.checkpoint.checkpoint(
+                    layer, x, query_pos, reference_points, spatial_shapes,
+                    key_padding_mask, use_reentrant=False)
+            else:
+                x = layer(x, query_pos, reference_points, spatial_shapes,
+                          key_padding_mask)
         return x
 
 

@@ -5,9 +5,11 @@ K1b the whole MSDA backward via ``ms_deform_attn.ms_deform_attn_bwd``;
 quad-gather path; ``window_attention.window_attention``
 = K2 forward, K2b backward via ``window_attention.window_attention_bwd``).
 
-Importing the package registers K1's and K2's forwards as the operators
-``torch.ops.rscotr_torch.msda_fwd`` and ``window_attn_fwd``, which
-``torch.export.load`` needs to find before it loads an artifact of
-``rscotr_tpu_torch.export``."""
+Importing the package registers K1, K1b, K2 and K2b as the operators
+``torch.ops.rscotr_torch.msda_fwd``, ``msda_bwd``, ``window_attn_fwd`` and
+``window_attn_bwd`` (``torch.export.load`` needs the forwards before it
+loads an artifact of ``rscotr_tpu_torch.export``), and their FLOP formulas
+for ``FlopCounterMode`` (``ops/flops.py``)."""
 
 from rscotr_tpu_torch.ops import ms_deform_attn, window_attention  # noqa: F401
+from rscotr_tpu_torch.ops import flops  # noqa: F401,E402

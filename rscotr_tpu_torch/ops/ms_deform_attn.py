@@ -7,8 +7,8 @@ Counterpart of rscotr_tpu/ops/ms_deform_attn.py. Sampling semantics match
 ``x_pix = loc_x * W - 0.5``; bilinear corners outside the map contribute
 zero.
 
-``ms_deform_attn`` is a ``torch.autograd.Function`` around the operator
-``torch.ops.rscotr_torch.msda_fwd`` (``msda_fwd``, registered when
+``ms_deform_attn`` is a ``torch.autograd.Function`` around the operators
+``torch.ops.rscotr_torch.msda_fwd`` and ``msda_bwd`` (registered when
 ``rscotr_tpu_torch.ops`` is imported). For CUDA tensors the forward
 launches the hand-written kernel ``csrc/msda_fwd.cu`` (K1; its body picked
 by ``msda_fwd_body`` from the head width and the tensors' alignment)
@@ -246,20 +246,52 @@ def ms_deform_attn_bwd(value: torch.Tensor,
                        attention_weights: torch.Tensor,
                        d_out: torch.Tensor):
     """Gradients of ``ms_deform_attn`` -> (d_value, d_loc, d_attn) in the
-    primal dtypes: one launch of K1b on CUDA (``launches`` counts it); the
-    plain decomposition (``ms_deform_attn_bwd_torch``) on the CPU."""
+    primal dtypes, through the operator ``torch.ops.rscotr_torch.msda_bwd``:
+    one launch of K1b on CUDA (``launches`` counts it); the plain
+    decomposition (``ms_deform_attn_bwd_torch``) on the CPU."""
     kernel_lib.refuse_dtensor("ms_deform_attn_bwd", value,
                               sampling_locations, attention_weights, d_out)
-    shapes = _shapes(spatial_shapes)
-    if value.device.type == "cpu":
-        return ms_deform_attn_bwd_torch(value, shapes, sampling_locations,
-                                        attention_weights, d_out)
-    if value.device.type != "cuda":
+    if value.device.type not in ("cpu", "cuda"):
         raise ValueError(f"ms_deform_attn_bwd: no path for device "
                          f"{value.device}")
-    acc, d_loc, d_attn = _msda_bwd_cuda(value, shapes, sampling_locations,
+    return torch.ops.rscotr_torch.msda_bwd(
+        value, _flat_shapes(_shapes(spatial_shapes)), sampling_locations,
+        attention_weights, d_out)
+
+
+@torch.library.custom_op("rscotr_torch::msda_bwd", mutates_args=(),
+                         device_types="cpu")
+def msda_bwd(value: torch.Tensor, spatial_shapes: List[int],
+             sampling_locations: torch.Tensor,
+             attention_weights: torch.Tensor, d_out: torch.Tensor
+             ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K1b as an operator (``torch.ops.rscotr_torch.msda_bwd``), so that
+    dispatch modes such as ``FlopCounterMode`` see it: the plain
+    decomposition on the CPU, one K1b launch on CUDA (``_msda_bwd_cuda``,
+    its body picked as before) and the accumulator's cast to value's dtype;
+    (d_value, d_loc, d_attn) shaped and typed as value, the locations and
+    the weights from the fake implementation. ``spatial_shapes`` is the
+    flat [H0, W0, H1, W1, ...]."""
+    return ms_deform_attn_bwd_torch(value, _pairs(spatial_shapes),
+                                    sampling_locations, attention_weights,
+                                    d_out)
+
+
+@msda_bwd.register_kernel("cuda")
+def _msda_bwd_op_cuda(value, spatial_shapes, sampling_locations,
+                      attention_weights, d_out):
+    acc, d_loc, d_attn = _msda_bwd_cuda(value, _pairs(spatial_shapes),
+                                        sampling_locations,
                                         attention_weights, d_out)
     return acc.to(value.dtype), d_loc, d_attn
+
+
+@msda_bwd.register_fake
+def _msda_bwd_fake(value, spatial_shapes, sampling_locations,
+                   attention_weights, d_out):
+    return (value.new_empty(value.shape),
+            sampling_locations.new_empty(sampling_locations.shape),
+            attention_weights.new_empty(attention_weights.shape))
 
 
 ms_deform_attn_bwd.launches = 0

@@ -5,9 +5,10 @@ Counterpart of rscotr_tpu/ops/pallas/window_attention.py
 einsum path in rscotr_tpu/models/backbones/swin.py, which is what JAX trains
 through. ``window_attention`` is a ``torch.autograd.Function`` with
 gradients for q, k, v and rel_bias (summed over images and windows, in
-float32); the shift mask is a constant. Its forward is the operator
-``torch.ops.rscotr_torch.window_attn_fwd`` (``window_attn_fwd``, registered
-when ``rscotr_tpu_torch.ops`` is imported). For CUDA tensors the forward
+float32); the shift mask is a constant. Its forward and backward are the
+operators ``torch.ops.rscotr_torch.window_attn_fwd`` and
+``window_attn_bwd`` (registered when ``rscotr_tpu_torch.ops`` is
+imported). For CUDA tensors the forward
 launches the hand-written kernel ``csrc/window_attn.cu`` (K2) and the
 backward ``csrc/window_attn_bwd.cu`` (K2b); for CPU tensors they are the
 plain versions ``window_attention_torch`` and ``window_attention_bwd_torch``;
@@ -33,7 +34,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -237,16 +238,51 @@ def _window_attention_cuda(q, k, v, rel_bias, shift_mask, scale):
 
 def window_attention_bwd(q, k, v, rel_bias, shift_mask, scale, d_out):
     """Gradients of ``window_attention`` -> (dq, dk, dv in q's dtype,
-    d_rel_bias float32): kernel K2b on CUDA (``launches`` counts it), the
-    plain version on the CPU."""
+    d_rel_bias float32), through the operator
+    ``torch.ops.rscotr_torch.window_attn_bwd``: kernel K2b on CUDA
+    (``launches`` counts it), the plain version on the CPU."""
     kernel_lib.refuse_dtensor("window_attention_bwd", q, k, v, rel_bias,
                               shift_mask, d_out)
-    if q.device.type == "cpu":
-        return window_attention_bwd_torch(q, k, v, rel_bias, shift_mask,
-                                          scale, d_out)
-    if q.device.type != "cuda":
+    if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"window_attention_bwd: no path for device "
                          f"{q.device}")
+    return torch.ops.rscotr_torch.window_attn_bwd(q, k, v, rel_bias,
+                                                  shift_mask, float(scale),
+                                                  d_out)
+
+
+@torch.library.custom_op("rscotr_torch::window_attn_bwd", mutates_args=(),
+                         device_types="cpu")
+def window_attn_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    rel_bias: torch.Tensor, shift_mask: Optional[torch.Tensor],
+                    scale: float, d_out: torch.Tensor
+                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                               torch.Tensor]:
+    """K2b as an operator (``torch.ops.rscotr_torch.window_attn_bwd``), so
+    that dispatch modes such as ``FlopCounterMode`` see it: the plain
+    version on the CPU, K2b on CUDA (``_window_attention_bwd_cuda``, its
+    instantiation planned at run time as before), contiguous (dq, dk, dv)
+    in q's dtype and a float32 (H, n, n) d_rel_bias from the fake
+    implementation."""
+    return tuple(t.contiguous() for t in window_attention_bwd_torch(
+        q, k, v, rel_bias, shift_mask, scale, d_out))
+
+
+@window_attn_bwd.register_kernel("cuda")
+def _window_attn_bwd_cuda(q, k, v, rel_bias, shift_mask, scale, d_out):
+    return _window_attention_bwd_cuda(q, k, v, rel_bias, shift_mask, scale,
+                                      d_out)
+
+
+@window_attn_bwd.register_fake
+def _window_attn_bwd_fake(q, k, v, rel_bias, shift_mask, scale, d_out):
+    H, n = q.shape[2], q.shape[3]
+    return (q.new_empty(q.shape), q.new_empty(q.shape), q.new_empty(q.shape),
+            q.new_empty((H, n, n), dtype=torch.float32))
+
+
+def _window_attention_bwd_cuda(q, k, v, rel_bias, shift_mask, scale, d_out):
+    """Kernel K2b on CUDA tensors."""
     B, nW, H, n, hd = q.shape
     st = _check_cuda_args("window_attention_bwd", q, k, v, rel_bias,
                           shift_mask)

@@ -93,7 +93,8 @@ def test_det_matches_jax(slice_models):
 
 def test_port_imports_no_jax():
     """Importing every module of rscotr_tpu_torch (and chip_smoke) leaves
-    jax, flax and the JAX package out of sys.modules."""
+    jax, flax, the JAX package and the root tools package out of
+    sys.modules."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import rscotr_tpu_torch, chip_smoke\n"
@@ -102,7 +103,7 @@ def test_port_imports_no_jax():
         "    importlib.import_module(m.name)\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'flax',\n"
-        "                                    'rscotr_tpu'))\n"
+        "                                    'rscotr_tpu', 'tools'))\n"
         "print(len([m for m in sys.modules\n"
         "           if m.startswith('rscotr_tpu_torch.')]), bad)\n"
         "sys.exit(1 if bad else 0)\n")
