@@ -32,6 +32,13 @@ Phases, each of which raises on failure (exit code 1, no result line):
    lane-per-channel body, with locations that clamp at the map's edge, and
    at the zoo's encoders;
    K2b at K2's extra cases too), float32 and bfloat16, timed, with bounds;
+   each case also through K1b's and K2b's ordered bodies (the ones
+   ``torch.use_deterministic_algorithms`` picks: K1b's value gradient by
+   sorted corners and a walk per row, K2b's d_rel_bias by per-block
+   partials summed in block order), called twice on the same tensors: the
+   two results bit-equal, each held to the same tolerance; their times
+   beside the default bodies', and K1b's ordered body part by part at the
+   timed cases;
    K3' (the scatter alone, which the quad-gather path runs) on the quad-row
    updates of the plain backward at the det encoder (locations in [0, 1]
    and [-0.2, 1.2]) and the train decoder, its vector body and its scalar
@@ -69,7 +76,14 @@ Phases, each of which raises on failure (exit code 1, no result line):
     bit-identical, kernel launches counted per step (every K1 and K1b
     launch on the vector body); median step time (CUDA events around the
     whole step, host matcher included), the host matcher's time and peak
-    memory reported;
+    memory reported; then ``--deterministic``'s cost: the three steps with
+    ``torch.use_deterministic_algorithms`` off, on, and on with torch's
+    fill of new tensors off, 24 each in turns, their medians and quartiles
+    (every K1b / K2b launch on its ordered body under it, none refusing
+    it; the fill's share of the cost named only where the no-fill mode's
+    quartiles are apart from both others'), and what the flag refuses:
+    ``F.interpolate``'s antialiased bilinear backward must raise, and
+    ``resize_linear``'s products there equal it;
 11. on-device augmentation (``augment_phase``): the stages of
     ``ops/device_augment.py`` on the card against the same stages on the
     CPU, on records the port's planners drew for
@@ -131,8 +145,13 @@ Phases, each of which raises on failure (exit code 1, no result line):
     count of the four kernel operators equal to ``ops/flops.py``'s
     formulas over those launches, the with_cp det step's ``train_temp_mb``
     below the plain one; ``tools/overfit_proof.py`` (``--eval-every 250
-    --max-iters 4000``): every target met (cls top-1 100, det mAP_50 >=
-    0.9, seg mIoU >= 90), the iterations printed; ``tools/parity_check.py
+    --max-iters 4000``) in a process of its own (this script's
+    ``--overfit-proof`` mode), started once the scale-out phase's timed
+    runs have ended and waited for after the devaug ``--deterministic``
+    runs (17), none of whose work in between prints a timing, since its
+    tiny steps are host-bound: every target
+    met (cls top-1 100, det mAP_50 >= 0.9, seg mIoU >= 90), the
+    iterations printed, its launches counted; ``tools/parity_check.py
     dump`` of the tiny config's seeded init on the card and on the CPU
     (float32, TF32 off) and ``compare``: cls and seg within SLICE_TOL, det
     boxes within SLICE_TOL x the image size, labels equal, on the inputs
@@ -207,8 +226,10 @@ Phases, each of which raises on failure (exit code 1, no result line):
     within the training-parity tolerances, and its gradients leaf by leaf
     (the first moment its ``iter_1.pth`` holds, ``(1 - b1)`` times the
     clipped gradient) within ``MU_RTOL`` / ``MU_ATOL``; the later steps
-    printed beside the spread of the plain run against a second plain
-    run, the noise floor; the two-rank
+    printed; the plain 12-step run and a second one (``plain2``) with
+    ``--deterministic`` (ROADMAP C17): every loss term and grad_norm of all
+    12 steps bit-equal, and their ``iter_12.pth`` (weights and moments)
+    bit-equal, every K1b / K2b launch on its ordered body; the two-rank
     ``iter_12.pth`` loaded into one process bit-equal to rank 0's
     gathered state; (b) one rank over NCCL, DP then FSDP
     (``parallel.fsdp=True``), against the plain one-process run; (c)
@@ -220,7 +241,22 @@ Phases, each of which raises on failure (exit code 1, no result line):
     K1 / K1b / K2 / K2b launches (the one-process loop's, on the vector
     body), per-rank step and gradient-sum ms (CUDA events) and peak
     memory, labelled as two ranks sharing one card over gloo. Each rank
-    runs this script's ``--scaleout-rank`` mode;
+    runs this script's ``--scaleout-rank`` mode. The overfit proof (13b)
+    starts in its own process once (a), (b) and (c) have ended, so the
+    timed runs have the card and the host to themselves; then
+    ``MTL_synthetic_flagship_devaug.py`` (the harness's training config,
+    its augment stages on the card) through ``tools/train.py
+    --deterministic`` twice for 6 round-robin iterations
+    (``deterministic_devaug``): no op refuses the mode, every K1b / K2b
+    launch on its ordered body, the two runs bit-equal at every step and
+    in ``iter_6.pth``;
+17b. the harness (``bench_phase``): ``python -m rscotr_tpu_torch.bench``
+    in a process of its own (160 co-training iterations of
+    ``MTL_synthetic_flagship_devaug.py``, then the root harness's
+    inference fields): one stdout line with the root ``bench.py``'s keys,
+    no ``train_bench_error``, 0 < mfu <= 1, the K1 / K2 launches per
+    inference call the serving phase's (cls 0 / 12, det 12 / 12, seg 6 /
+    12); the headline img/s and ``train_s_per_iter`` beside the card;
 18. library yardsticks of K2 and K2b, last because cuDNN keeps workspace
     once it has run under graph capture: ``scaled_dot_product_attention``
     with the additive bias + mask, and its autograd backward, on the timed
@@ -247,8 +283,12 @@ too, at the det encoder with locations in [0, 1], beside ``eager_ms``,
 ``vec_launches_serving`` (the launches that took the vector body); its
 ``stages`` hold [-0.2, 1.2], det encoder B=4, seg encoder B=1 and B=4 and
 the train decoder (Q=800). K1b's are device times too,
-beside ``eager_ms`` and ``whole_ms`` (the whole ``ms_deform_attn_bwd``: zero
-fill, kernel, cast), timed at locations in [0, 1], as a model's are; its
+beside ``eager_ms``, ``whole_ms`` (the whole ``ms_deform_attn_bwd``: zero
+fill, kernel, cast) and ``ordered_ms`` (its ordered body on the same
+tensors, with ``ordered_parts``), timed at locations in [0, 1], as a
+model's are; K1b's and K2b's ``ordered_launches_deterministic_steps`` are
+those of the training phase's steps under the flag; K2b's ``ordered_ms``
+is its ordered body on the same tensors; K1b's
 ``stages`` also hold the time at the [-0.2, 1.2] locations of the other
 kernel cases, where half the corners are off the map and skipped. K4's and
 K5's ``ms`` are device times too, beside ``eager_ms``, ``row_ms`` (the
@@ -265,6 +305,7 @@ before printing any result.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import pickle
@@ -1207,6 +1248,102 @@ def check_grads(name, gots, refs, names, dtype, tol=None,
     return worst
 
 
+def ordered_k1b_parts(v, shapes, loc, w, d_out, acc):
+    """K1b's ordered body at these tensors, part by part (CUDA-graph
+    replay): the body with its value-gradient reduction off, the corner
+    keys, the stable sort, the row bounds, the walk; the walk also over
+    the coarsest level's rows alone (the hot rows, many corners each) and
+    over the other rows alone. A log line and the dict."""
+    from rscotr_tpu_torch.ops import kernel_lib
+    from rscotr_tpu_torch.ops.kernel_lib import BODY_VEC, ORDERED
+    from rscotr_tpu_torch.ops.ms_deform_attn import _levels_arg
+    lib = kernel_lib.load()
+    B, Nv, H, D = v.shape
+    _, Q, _, L, P, _ = loc.shape
+    dt, wt = (kernel_lib.dtype_code(t, "") for t in (v, w))
+    lv = _levels_arg(shapes)
+
+    def st():
+        # the stream current at the call: graph_ms captures on its own
+        return kernel_lib.stream_ptr(v.device)
+
+    d_attn, d_loc = torch.empty_like(w), torch.empty_like(loc)
+    keys = torch.empty(B * Q * H * L * P * 4, dtype=torch.int32,
+                       device=v.device)
+    lib.msda_bwd_keys(loc.data_ptr(), B, Nv, Q, H, L, P, lv, keys.data_ptr(),
+                      st())
+    sk, perm = torch.sort(keys, stable=True)
+    start = torch.zeros(B * Nv * H, dtype=torch.int64, device=v.device)
+    end = torch.zeros_like(start)
+    lib.msda_bwd_bounds(sk.data_ptr(), sk.numel(), start.data_ptr(),
+                        end.data_ptr(), st())
+
+    def walk(s, e):
+        lib.msda_bwd_walk(dt, loc.data_ptr(), w.data_ptr(), wt,
+                          d_out.data_ptr(), perm.data_ptr(), s.data_ptr(),
+                          e.data_ptr(), acc.data_ptr(), B, Nv, Q, H, D, L, P,
+                          lv, BODY_VEC, st())
+
+    hot = (B * Nv - B * shapes[-1][0] * shapes[-1][1]) * H  # B == 1
+    hot_s, hot_e, cold_s, cold_e = (t.clone() for t in (start, end) * 2)
+    for t in (hot_s, hot_e):
+        t[:hot] = 0
+    for t in (cold_s, cold_e):
+        t[hot:] = 0
+    parts = dict(
+        body_ms=graph_ms(lambda: lib.msda_bwd(
+            v.data_ptr(), dt, loc.data_ptr(), w.data_ptr(), wt,
+            d_out.data_ptr(), d_attn.data_ptr(), d_loc.data_ptr(),
+            acc.data_ptr(), B, Nv, Q, H, D, L, P, lv, BODY_VEC | ORDERED,
+            st())),
+        keys_ms=graph_ms(lambda: lib.msda_bwd_keys(
+            loc.data_ptr(), B, Nv, Q, H, L, P, lv, keys.data_ptr(), st())),
+        sort_ms=graph_ms(lambda: torch.sort(keys, stable=True)),
+        bounds_ms=graph_ms(lambda: lib.msda_bwd_bounds(
+            sk.data_ptr(), sk.numel(), start.data_ptr(), end.data_ptr(),
+            st())),
+        walk_ms=graph_ms(lambda: walk(start, end)),
+        walk_coarsest_rows_ms=graph_ms(lambda: walk(hot_s, hot_e)),
+        walk_other_rows_ms=graph_ms(lambda: walk(cold_s, cold_e)),
+        corners=int((end - start).sum()),
+        coarsest_corners=int((hot_e - hot_s).sum()),
+        most_corners_a_row=int((end - start).max()))
+    log(f"    K1b ordered body, parts: the body without its reduction "
+        f"{parts['body_ms']:.4f} ms, keys {parts['keys_ms']:.4f}, stable "
+        f"sort {parts['sort_ms']:.4f}, bounds {parts['bounds_ms']:.4f}, walk "
+        f"{parts['walk_ms']:.4f} ({parts['corners']} corners; the "
+        f"{shapes[-1][0]}x{shapes[-1][1]} level's rows alone "
+        f"{parts['walk_coarsest_rows_ms']:.4f} ms for "
+        f"{parts['coarsest_corners']} corners, up to "
+        f"{parts['most_corners_a_row']} a row; the other rows "
+        f"{parts['walk_other_rows_ms']:.4f} ms)")
+    return parts
+
+
+def ordered(fn):
+    """``fn`` called under ``--deterministic``'s switches (torch's fill of
+    new tensors off, as it adds nothing to a kernel's own work): K1b and
+    K2b take their ordered bodies there."""
+    def call(*args, **kw):
+        with deterministic_algorithms(True, fill=False):
+            return fn(*args, **kw)
+    return call
+
+
+def check_ordered(name, call, as_grads, refs, names, dtype, slacks=None):
+    """A kernel's ordered body (``call`` under ``ordered``, the body
+    ``torch.use_deterministic_algorithms`` picks): two calls on the same
+    tensors give the same bits, and the result is held against the plain
+    version by ``check_grads``. ``as_grads`` maps the call's result to the
+    gradients ``refs`` name. Returns the largest max abs error."""
+    first, second = call(), call()
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(first, second)):
+        fail(f"{name} (ordered body): two calls on the same tensors differ")
+    return check_grads(f"{name} (ordered, 2 calls bit-equal)",
+                       as_grads(first), refs, names, dtype, slacks=slacks)
+
+
 def backward_phase():
     from rscotr_tpu_torch.ops import flops
     from rscotr_tpu_torch.ops.ms_deform_attn import (
@@ -1217,7 +1354,8 @@ def backward_phase():
                                                  scatter_add_mm,
                                                  scatter_add_mm_torch)
     from rscotr_tpu_torch.ops.window_attention import (
-        window_attention, window_attention_bwd, window_attention_bwd_torch)
+        _window_attention_bwd_cuda, window_attention, window_attention_bwd,
+        window_attention_bwd_torch)
     g = torch.Generator(device="cuda").manual_seed(1)
     err = {k: [0.0, 0.0] for k in ("K1b", "K3", "K2b")}   # [f32, bf16]
     times = {}
@@ -1272,6 +1410,14 @@ def backward_phase():
             e = check_grads(f"K1b {name}", got, ref,
                             ("d_value", "d_loc", "d_attn"), dtype)
             err["K1b"][bf] = max(err["K1b"][bf], e)
+            # the ordered body (--deterministic's) on the same tensors: two
+            # calls bit-equal, each within the same tolerance
+            e = check_ordered(
+                f"K1b {name}", lambda: ordered(_msda_bwd_cuda)(
+                    v, shapes, loc, w, d_out),
+                lambda r: (r[0].to(dtype), r[1], r[2]), ref,
+                ("d_value", "d_loc", "d_attn"), dtype)
+            err["K1b"][bf] = max(err["K1b"][bf], e)
             if not timed:
                 continue
             if bf:
@@ -1300,6 +1446,9 @@ def backward_phase():
 
                 times[f"K1b {name}"] = dict(
                     ms=graph_ms(kernel), eager_ms=cuda_ms(kernel, 50),
+                    ordered_ms=graph_ms(lambda: ordered(_msda_bwd_cuda)(
+                        *args, acc=acc)),
+                    ordered_parts=ordered_k1b_parts(*args, acc),
                     whole_ms=graph_ms(lambda: ms_deform_attn_bwd(*args)),
                     whole_eager_ms=cuda_ms(
                         lambda: ms_deform_attn_bwd(*args), 50),
@@ -1384,6 +1533,14 @@ def backward_phase():
                     slacks=k2_ulp_slack(q, k, v, bias, mask, scale, d_out)
                     if bf else None)
                 err["K2b"][bf] = max(err["K2b"][bf], e)
+                e = check_ordered(
+                    f"K2b {name}{' masked' if masked else ''}",
+                    lambda: ordered(_window_attention_bwd_cuda)(
+                        q, k, v, bias, mask, scale, d_out),
+                    lambda r: r, ref, ("dq", "dk", "dv", "d_rel_bias"),
+                    dtype, slacks=k2_ulp_slack(q, k, v, bias, mask, scale,
+                                               d_out) if bf else None)
+                err["K2b"][bf] = max(err["K2b"][bf], e)
                 if timed:
                     args = (q, k, v, bias, mask, scale, d_out)
                     n, hd = q.shape[-2:]
@@ -1394,6 +1551,9 @@ def backward_phase():
                                    "bf16 tensor")
                     times[f"K2b {name}"] = dict(
                         ms=graph_ms(lambda: window_attention_bwd(*args)),
+                        ordered_ms=graph_ms(
+                            lambda: ordered(_window_attention_bwd_cuda)(
+                                *args)),
                         eager_ms=cuda_ms(
                             lambda: window_attention_bwd(*args), 20),
                         plain_ms=cuda_ms(
@@ -1665,6 +1825,160 @@ def seg_train_batch(rng, B, hw=512):
                 gt_semantic_seg=labels)
 
 
+# steps per mode in deterministic_cost: enough that the quartiles of the
+# host-bound det and seg steps (the matcher, the loss's host work) are
+# narrower than the flag's effect (4 each read 1.05x and 1.26x for det in
+# two runs)
+DET_REPS = 24
+
+
+def deterministic_refusals():
+    """What ``torch.use_deterministic_algorithms(True)`` refuses on the
+    card among the ops the port's training could reach, and what the port
+    runs there: ``F.interpolate``'s antialiased bilinear backward (the seg
+    loss's shrink) must raise and ``resize_linear`` take its products
+    within 1e-5 of it (run off the flag); the plain bilinear backward (the
+    seg loss's upsampling, the pixel decoder's resizes) must be taken; a
+    float ``cumsum`` (the sine positional encoding) is logged as taken or
+    refused. Returns the refused ops."""
+    import torch.nn.functional as F
+
+    from rscotr_tpu_torch.engine.infer import resize_linear
+    g = torch.Generator(device="cuda").manual_seed(5)
+    x = torch.randn(2, 64, 48, 3, device="cuda", generator=g)
+    d = torch.randn(2, 16, 12, 3, device="cuda", generator=g)
+
+    def aa(t):
+        return F.interpolate(t.permute(0, 3, 1, 2), size=(16, 12),
+                             mode="bilinear", align_corners=False,
+                             antialias=True).permute(0, 2, 3, 1)
+
+    def up(t):
+        return F.interpolate(t.permute(0, 3, 1, 2), size=(128, 96),
+                             mode="bilinear", align_corners=False
+                             ).permute(0, 2, 3, 1)
+
+    def grads(fn, t, dy):
+        t = t.clone().requires_grad_()
+        out = fn(t)
+        return out.detach(), torch.autograd.grad(out, t, dy)[0]
+
+    refused, taken = [], []
+    with deterministic_algorithms(True):
+        for name, call in (
+                ("F.interpolate bilinear antialias backward",
+                 lambda: grads(aa, x, d)),
+                ("F.interpolate bilinear backward",
+                 lambda: grads(up, x, torch.randn(2, 128, 96, 3,
+                                                  device="cuda"))),
+                ("torch.cumsum float32", lambda: x.cumsum(1))):
+            try:
+                call()
+                torch.cuda.synchronize()
+                taken.append(name)
+            except RuntimeError as e:
+                if "deterministic" not in str(e):
+                    raise
+                refused.append(f"{name} ({str(e).split(' does not')[0]})")
+        ours = grads(lambda t: resize_linear(t, (16, 12)), x, d)
+    want = grads(aa, x, d)
+    err = max((a - b).abs().max().item() for a, b in zip(ours, want))
+    # the pixel decoder's resize and the seg loss's upsampling keep
+    # F.interpolate's plain bilinear backward under the flag
+    if "F.interpolate bilinear antialias backward" not in " ".join(
+            refused) or "F.interpolate bilinear backward" not in taken or \
+            err > 1e-5:
+        fail(f"deterministic mode: refused {refused}; resize_linear's "
+             f"products against F.interpolate(antialias=True) {err:.2e}")
+    log(f"  under torch.use_deterministic_algorithms(True): refused "
+        f"{refused}, replaced by ops/resize.py's products (resize_linear's "
+        f"shrink against F.interpolate's, output and gradient, max "
+        f"{err:.2e}); ran {taken}")
+    return refused
+
+
+# the switches deterministic_cost times: off; --deterministic's (torch's
+# default fill of new empty tensors on); the same with the fill off
+DET_MODES = {"off": (False, True), "on": (True, True),
+             "on, no fill": (True, False)}
+
+
+def quartiles(xs):
+    """(25th percentile, median, 75th percentile) of ``xs``."""
+    q1, med, q3 = np.percentile(xs, (25, 50, 75))
+    return float(q1), float(med), float(q3)
+
+
+def apart(a, b) -> bool:
+    """Whether two (q1, median, q3) quartile spans do not overlap."""
+    return a[2] < b[0] or b[2] < a[0]
+
+
+def deterministic_cost(steps, batches, gen, want, counters):
+    """``--deterministic``'s cost: the flagship's cls, det and seg steps
+    under each of ``DET_MODES``, in turns (the order of the modes rotated
+    each round), ``DET_REPS`` times each in this process (CUDA events
+    around the step). Under the flag every K1b and K2b launch must take its
+    ordered body and no op may refuse the mode; off, none may. Per task
+    each mode's quartiles; the flag's cost is called resolved where the
+    quartile spans of on and off do not overlap, and the share of torch's
+    fill of new tensors only where the no-fill mode's span is apart from
+    both others. Returns per task the quartiles of each mode and the two
+    verdicts, and the K1b / K2b launches under the flag."""
+    times = {t: {m: [] for m in DET_MODES} for t in steps}
+    ordered = {"K1b": 0, "K2b": 0}
+    modes = list(DET_MODES)
+    for r in range(DET_REPS):
+        for mode in modes[r % 3:] + modes[:r % 3]:
+            on, fill = DET_MODES[mode]
+            with deterministic_algorithms(on, fill):
+                for task in steps:
+                    before = launch_counts(counters)
+                    start = torch.cuda.Event(enable_timing=True)
+                    end = torch.cuda.Event(enable_timing=True)
+                    start.record()
+                    lv = steps[task](batches[task], gen)
+                    end.record()
+                    torch.cuda.synchronize()
+                    now = launch_counts(counters)
+                    got = {k: now[k] - before[k] for k in now}
+                    took = (got["K1b ordered"], got["K2b ordered"])
+                    if {k: got[k] for k in want[task]} != want[task] or \
+                            took != ((got["K1b"], got["K2b"]) if on
+                                     else (0, 0)):
+                        fail(f"{task} step, deterministic {on}: launches "
+                             f"{got}, want {want[task]} with K1b / K2b "
+                             f"{'all' if on else 'none'} on the ordered "
+                             "bodies")
+                    if not all(np.isfinite(float(v)) for v in lv.values()):
+                        fail(f"{task} step, deterministic {on}: non-finite "
+                             "loss terms")
+                    times[task][mode].append(start.elapsed_time(end))
+                    ordered["K1b"] += got["K1b ordered"]
+                    ordered["K2b"] += got["K2b ordered"]
+    res = {}
+    for task, t in times.items():
+        off, on, nofill = (quartiles(t[m]) for m in DET_MODES)
+        flag = apart(on, off)
+        fill = flag and apart(nofill, on) and apart(nofill, off)
+        res[task] = dict(off_ms=off, on_ms=on, on_no_fill_ms=nofill,
+                         cost_resolved=flag, fill_resolved=fill)
+        span = " / ".join(
+            f"{m} {q[1]:.2f} ms [{q[0]:.2f}, {q[2]:.2f}]"
+            for m, q in zip(DET_MODES, (off, on, nofill)))
+        log(f"  train step {task} under --deterministic's switches, median "
+            f"[quartiles] of {DET_REPS} steps each in turns: {span}; on / "
+            f"off {on[1] / off[1]:.3f}x, "
+            + ("the quartiles apart" if flag else
+               "the quartiles overlap: no cost resolved")
+            + "; the fill's share: "
+            + (f"{(on[1] - nofill[1]) / (on[1] - off[1]):.2f} of the cost "
+               "(no-fill apart from both)" if fill else
+               "unresolved (no-fill not apart from both)")
+            + "; K1b / K2b on their ordered bodies, no op refused the mode")
+    return res, ordered
+
+
 def train_phase():
     from rscotr_tpu_torch.apis import make_step_config
     from rscotr_tpu_torch.engine.optimizer import (build_optimizer,
@@ -1776,6 +2090,11 @@ def train_phase():
     launches["per task"] = per_task
     log(f"  launches in the main path's run ({len(schedule)} steps): "
         f"{launches}")
+    det_cost, ordered = deterministic_cost(steps, batches, gen, want,
+                                           counters)
+    deterministic_refusals()
+    launches.update({f"{k} ordered deterministic": n
+                     for k, n in ordered.items()})
     # the one device-to-host copy of the matching costs, alone
     cost = torch.randn(7, 1, 100, 600, device="cuda")
     copy_ms = []
@@ -1800,7 +2119,30 @@ def train_phase():
         f"(7 x 100 x 600, 18 valid rows), cost copy alone "
         f"{np.median(copy_ms):.3f} ms (1.68 MB); "
         f"{100 * lap_med / res['det']['median_ms']:.1f}% of the det step")
-    return launches, res
+    return launches, res, det_cost
+
+
+@contextlib.contextmanager
+def deterministic_algorithms(on: bool = True, fill: bool = True):
+    """``tools/train.py --deterministic``'s switches for the duration
+    (``torch.use_deterministic_algorithms``, cuDNN's deterministic
+    algorithms without benchmark search), then the caller's again.
+    ``fill``: ``torch.utils.deterministic.fill_uninitialized_memory``
+    (torch's default, on, fills every new empty tensor under the flag)."""
+    import torch.utils.deterministic as tud
+    cudnn = torch.backends.cudnn
+    prev = (torch.are_deterministic_algorithms_enabled(), cudnn.deterministic,
+            cudnn.benchmark, tud.fill_uninitialized_memory)
+    torch.use_deterministic_algorithms(on)
+    tud.fill_uninitialized_memory = fill
+    if on:
+        cudnn.deterministic, cudnn.benchmark = True, False
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(prev[0])
+        cudnn.deterministic, cudnn.benchmark = prev[1:3]
+        tud.fill_uninitialized_memory = prev[3]
 
 
 def kernel_counters():
@@ -1817,17 +2159,20 @@ def kernel_counters():
 
 
 def launch_counts(counters):
-    """Each kernel's count, and K1's and K1b's launches on the vector
-    body."""
+    """Each kernel's count, K1's and K1b's launches on the vector body, and
+    K1b's and K2b's on their ordered bodies."""
     return dict({k: c.launches for k, c in counters.items()},
                 **{"K1 vec": counters["K1"].vec_launches,
-                   "K1b vec": counters["K1b"].vec_launches})
+                   "K1b vec": counters["K1b"].vec_launches,
+                   "K1b ordered": counters["K1b"].ordered_launches,
+                   "K2b ordered": counters["K2b"].ordered_launches})
 
 
 def zero_counts(counters):
     for c in counters.values():
         c.launches = 0
     counters["K1"].vec_launches = counters["K1b"].vec_launches = 0
+    counters["K1b"].ordered_launches = counters["K2b"].ordered_launches = 0
 
 
 def aug_batch(cfg, name, seed=0):
@@ -2064,18 +2409,22 @@ def train_cli_run(argv, name, on_start=None, on_end=None):
 
     log(f"  {name}: rscotr_tpu_torch.tools.train {' '.join(argv)}")
     ts_mod.make_train_step = timed_make
+    # a --deterministic run's switches end with it
     try:
-        zero_counts(counters)
-        t0 = time.perf_counter()
-        runner = train_cli.main(argv, hooks=[probe, Tail()])
-        wall = time.perf_counter() - t0
-        total = launch_counts(counters)
-        if on_end is not None:
-            on_end(runner)
-        torch.cuda.synchronize()
-        run = dict(steps=steps, total=total, moved=moved, wall=wall,
-                   end_step=runner.step, end_opt_step=runner.optimizer.step)
-        del runner
+        with deterministic_algorithms(
+                torch.are_deterministic_algorithms_enabled()):
+            zero_counts(counters)
+            t0 = time.perf_counter()
+            runner = train_cli.main(argv, hooks=[probe, Tail()])
+            wall = time.perf_counter() - t0
+            total = launch_counts(counters)
+            if on_end is not None:
+                on_end(runner)
+            torch.cuda.synchronize()
+            run = dict(steps=steps, total=total, moved=moved, wall=wall,
+                       end_step=runner.step,
+                       end_opt_step=runner.optimizer.step)
+            del runner
     finally:
         ts_mod.make_train_step = real_make
         torch.cuda.empty_cache()
@@ -3611,16 +3960,19 @@ def compare_moments(name, got, want):
     return worst_rel
 
 
-def check_rank_steps(name, rec, tasks):
+def check_rank_steps(name, rec, tasks, ordered=False):
     """A rank's train run: its tasks in order and every iteration's K1 /
     K1b / K2 / K2b launches ``LOOP_WANT`` (K1 / K1b on the vector body, no
-    quad-path kernel)."""
+    quad-path kernel), every K1b and K2b launch on its ordered body where
+    ``ordered`` (a ``--deterministic`` run), none elsewhere."""
     steps = rec["steps"]
     if [s["task"] for s in steps] != tasks:
         fail(f"{name}: tasks {[s['task'] for s in steps]} != {tasks}")
     for s in steps:
         got = s["launches"]
         want = dict(LOOP_WANT[s["task"]], **dict.fromkeys(QUAD, 0))
+        want.update({"K1b ordered": want["K1b"] if ordered else 0,
+                     "K2b ordered": want["K2b"] if ordered else 0})
         if {k: got[k] for k in want} != want or \
                 (got["K1 vec"], got["K1b vec"]) != (got["K1"], got["K1b"]):
             fail(f"{name} step {s['step']} ({s['task']}): launches {got} "
@@ -3653,7 +4005,109 @@ def rank_report(name, recs, smi, label):
     return res
 
 
-def scaleout_phase(smi):
+# the scale-out runs made with --deterministic (C17): the 12-step plain run
+# and its repeat
+DETERMINISTIC = ("plain", "plain2")
+
+
+def bit_equal_runs(name, wd_a, wd_b, iters=SCALE_ITERS):
+    """Two runs' ``metrics.jsonl`` rows equal value for value at every step
+    (every loss term and grad_norm; not the clocks), and their last
+    checkpoints (``iter_{iters}.pth``) equal tensor for tensor: the
+    weights and the optimizer's moments."""
+    a, b = metrics_rows(wd_a), metrics_rows(wd_b)
+    skip = ("time", "data_time")
+    if [r["step"] for r in a] != list(range(1, iters + 1)) or \
+            [r["step"] for r in b] != [r["step"] for r in a]:
+        fail(f"{name}: steps {[r['step'] for r in a]} / "
+             f"{[r['step'] for r in b]}, not 1..{iters}")
+    for ra, rb in zip(a, b):
+        keys = sorted(k for k in ra if k not in skip)
+        if keys != sorted(k for k in rb if k not in skip) or \
+                any(ra[k] != rb[k] for k in keys):
+            fail(f"{name} step {ra['step']}: "
+                 + ", ".join(f"{k} {ra[k]!r} vs {rb.get(k)!r}" for k in keys
+                             if ra[k] != rb.get(k)))
+        loss = next(k for k in keys if k.endswith(".loss"))
+        log(f"    {name} step {ra['step']} {loss.split('.')[0]}: "
+            f"{len(keys) - 1} values bit-equal (loss {ra[loss]!r}, "
+            f"grad_norm {ra['grad_norm']!r})")
+    ck = [torch.load(os.path.join(wd, f"iter_{iters}.pth"),
+                     map_location="cpu", weights_only=True, mmap=True)
+          for wd in (wd_a, wd_b)]
+    counts = {}
+    for part in ("state_dict", "optimizer"):
+        flat = [dict(_leaves(c[part])) for c in ck]
+        if sorted(flat[0]) != sorted(flat[1]) or not all(
+                torch.equal(v, flat[1][k]) for k, v in flat[0].items()):
+            bad = [k for k, v in flat[0].items()
+                   if k not in flat[1] or not torch.equal(v, flat[1][k])]
+            fail(f"{name}: iter_{iters}.pth {part} differs at {bad[:5]}")
+        counts[part] = len(flat[0])
+    log(f"  {name}: every loss term and grad_norm of all {iters} steps "
+        f"bit-equal; iter_{iters}.pth bit-equal: {counts['state_dict']} "
+        f"weights, {counts['optimizer']} optimizer tensors (the first and "
+        "second moments)")
+
+
+# iterations of each --deterministic devaug run (two rounds of cls, det, seg)
+DEVAUG_DET_ITERS = 6
+
+
+def deterministic_devaug():
+    """``MTL_synthetic_flagship_devaug.py`` (the bench harness's training
+    config: its augment stages run on the card inside the step) through
+    ``tools/train.py --deterministic`` twice, ``DEVAUG_DET_ITERS``
+    round-robin iterations each (``--steps-per-dispatch 1``): no op of the
+    steps or their augment stages refuses the mode (a refusal raises out of
+    the step and fails the phase), every K1b and K2b launch takes its
+    ordered body, and the two runs are bit-equal at every step and in
+    their last checkpoint. It prints no timing (it runs beside the overfit
+    proof)."""
+    import shutil
+    import tempfile
+    want = loop_order(as_written(DEVAUG_CFG), DEVAUG_DET_ITERS, 1)
+    if sorted(set(want)) != ["cls", "det", "seg"]:
+        fail(f"devaug --deterministic: the order derives {want}")
+    log(f"deterministic devaug: {os.path.relpath(DEVAUG_CFG, ROOT)} "
+        f"(augment stages on the card) through tools/train.py "
+        f"--deterministic, twice, {DEVAUG_DET_ITERS} iterations {want}")
+    work = tempfile.mkdtemp(prefix="rscotr_devaug_det_")
+    try:
+        wds = []
+        for i in (1, 2):
+            wd = os.path.join(work, f"run{i}")
+            run = train_cli_run(
+                [DEVAUG_CFG, "--work-dir", wd, "--max-iters",
+                 str(DEVAUG_DET_ITERS), "--steps-per-dispatch", "1",
+                 "--no-validate", "--deterministic", "--cfg-options",
+                 "log_config.interval=1"], f"devaug --deterministic {i}")
+            check_rank_steps(f"devaug --deterministic {i}", dict(steps=[
+                dict(s, log_vars=_float_logs(s["log_vars"]))
+                for s in run["steps"]]), want, ordered=True)
+            wds.append(wd)
+        bit_equal_runs(f"devaug run 2 vs run 1 ({DEVAUG_DET_ITERS} steps, "
+                       "--deterministic)", *wds, iters=DEVAUG_DET_ITERS)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    log("  devaug under --deterministic: no op of the steps or their "
+        "augment stages refused the mode; every K1b / K2b launch on its "
+        "ordered body")
+
+
+def _leaves(tree, prefix=""):
+    """(dotted name, tensor) of every tensor in a nested dict / list."""
+    if isinstance(tree, torch.Tensor):
+        yield prefix, tree
+    elif isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _leaves(v, f"{prefix}.{k}" if prefix else str(k))
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from _leaves(v, f"{prefix}.{i}")
+
+
+def scaleout_phase(smi, after_timed=None):
     """Scale-out through the port's ``--launcher pytorch`` on one card.
 
     (a) two ranks share the card under ``torch.distributed.run
@@ -3679,7 +4133,9 @@ def scaleout_phase(smi):
     (``LOOP_WANT``, the one-process loop's, on the vector body), per-rank
     step and gradient-sum ms (CUDA events) and peak memory, labelled as
     two ranks sharing one card over gloo. The cls batch augments are off
-    (they pair within a rank, ROADMAP C15)."""
+    (they pair within a rank, ROADMAP C15). ``after_timed()`` runs once
+    the timed runs, (a), (b) and (c), have ended: what it starts runs
+    beside the phase's untimed rest."""
     import shutil
     import tempfile
 
@@ -3714,6 +4170,8 @@ def scaleout_phase(smi):
         iters = SCALE_ITERS if first is None else 1
         argv = [FLAGSHIP_CFG, "--max-iters", str(iters),
                 "--steps-per-dispatch", "1", "--work-dir", wd] + launcher
+        if kind in DETERMINISTIC and first is None:
+            argv.append("--deterministic")
         if not (kind == "a" and first is None):
             argv.append("--no-validate")
         argv += opts + cfg_opts
@@ -3741,6 +4199,8 @@ def scaleout_phase(smi):
         one_runs = [run(k, t) for k in ("b_dp", "b_fsdp")
                     for t in (None, *FIRST)]
         one_rank = launch_ranks(1, one_runs, work, "one_rank_nccl")
+        if after_timed is not None:
+            after_timed()
         for rec in two + one_rank:
             rec["by_name"] = {r["name"]: r for r in rec["runs"]}
         for r in [run(k, t) for k in ("twin", "plain")
@@ -3762,18 +4222,15 @@ def scaleout_phase(smi):
         for k in ("twin", "plain", "plain2"):
             check_rank_steps(k, dict(steps=[
                 dict(s, log_vars=_float_logs(s["log_vars"]))
-                for s in runs[k]["res"]["steps"]]), tasks)
+                for s in runs[k]["res"]["steps"]]), tasks,
+                ordered=k in DETERMINISTIC)
 
-        # -- each task's first step from the seed's weights; the floor ----
         def rows(name):
             return metrics_rows(runs[name]["wd"])
 
-        spread = compare_runs("plain2 vs plain (12 steps)", rows("plain2"),
-                              rows("plain"))
-        log(f"  the noise floor, one process against itself (a second "
-            f"plain run against the plain run, the same code and "
-            f"arithmetic): the 11 steps after the first part by up to "
-            f"{spread:.2e} in loss or grad_norm")
+        # -- C17: two --deterministic runs repeat bit for bit -------------
+        bit_equal_runs("plain2 vs plain (12 steps, --deterministic)",
+                       runs["plain2"]["wd"], runs["plain"]["wd"])
         pairs = [("a", "twin", "a: 2 ranks (gloo)"),
                  ("c", "twin", "c: 2-rank FSDP (gloo)"),
                  ("b_dp", "plain", "b: 1-rank DP (NCCL)"),
@@ -3800,7 +4257,8 @@ def scaleout_phase(smi):
                 f"{TRAIN_ATOL:g} + {TRAIN_RTOL:g}*|w|, its gradients leaf by "
                 f"leaf within {MU_RTOL:g}*|ref| + {MU_ATOL:g}*|all| (worst "
                 f"relative error of a leaf {worst_mu:.2e}); the later steps "
-                f"part by up to {later:.2e} (the noise floor: {spread:.2e})")
+                f"part by up to {later:.2e} (this run on today's atomic "
+                f"bodies; two --deterministic runs are bit-equal)")
         del ref_mu
 
         # -- (a) the checkpoint --------------------------------------------
@@ -3882,8 +4340,69 @@ def scaleout_phase(smi):
         torch.cuda.empty_cache()
     res = dict(per_rank={f"rank {r} {t}": v for (r, t), v in rep.items()},
                phase_s=time.perf_counter() - t_phase)
-    log(f"  scale-out phase {res['phase_s']:.1f} s  [{smi}]")
+    log(f"  scale-out phase {res['phase_s']:.1f} s (its runs after the "
+        f"timed ones beside the overfit proof)  [{smi}]")
     return res
+
+
+# -- the bench phase -------------------------------------------------------
+
+# the keys of the root bench.py's line, when its training half ran
+BENCH_LINE_KEYS = {
+    "metric", "unit", "infer_img_s", "infer_vs_baseline", "mfu",
+    "unit_gflops", "cls_ms", "det_ms", "seg_ms", "cls_dispatch_ms",
+    "det_dispatch_ms", "seg_dispatch_ms", "device", "baseline_note",
+    "value", "vs_baseline", "train_s_per_iter"}
+
+
+def bench_phase(smi):
+    """``python -m rscotr_tpu_torch.bench`` in a process of its own, as the
+    driver would run a harness (``RSCOTR_BENCH_TRAIN_ITERS`` at its
+    default): one line on stdout with the root harness's keys, no
+    ``train_bench_error``, 0 < mfu <= 1; the K1 / K2 launches per inference
+    call (its stderr) the serving phase's (``EVAL_WANT``)."""
+    log("bench phase: python -m rscotr_tpu_torch.bench (the flagship devaug "
+        "co-training headline, then the root's inference fields)")
+    t0 = time.perf_counter()
+    env = {k: v for k, v in os.environ.items()
+           if k != "RSCOTR_BENCH_TRAIN_ITERS"}
+    p = subprocess.run([sys.executable, "-m", "rscotr_tpu_torch.bench"],
+                       cwd=ROOT, env=env, capture_output=True, text=True,
+                       timeout=600)
+    wall = time.perf_counter() - t0
+    for line in p.stderr.splitlines():
+        if line.startswith("bench: "):
+            log(f"  {line}")
+    lines = p.stdout.strip().splitlines()
+    if p.returncode or len(lines) != 1:
+        print(p.stdout[-4000:], file=sys.stderr)
+        print(p.stderr[-8000:], file=sys.stderr)
+        fail(f"bench: exit {p.returncode}, {len(lines)} stdout lines")
+    out = json.loads(lines[0])
+    if "train_bench_error" in out or set(out) != BENCH_LINE_KEYS:
+        fail(f"bench: keys {sorted(out)}, want {sorted(BENCH_LINE_KEYS)}; "
+             f"train_bench_error {out.get('train_bench_error')}")
+    if out["mfu"] is None or not 0 < out["mfu"] <= 1:
+        fail(f"bench: mfu {out['mfu']}")
+    m = re.search(r"launches per inference call (\{.*\})", p.stderr)
+    if m is None:
+        fail("bench: no launches line on stderr")
+    per_call = json.loads(m.group(1))
+    for task, (k1, k2) in EVAL_WANT.items():
+        if (per_call[task]["K1"], per_call[task]["K2"]) != (k1, k2):
+            fail(f"bench {task}: K1 / K2 launches per call "
+                 f"{per_call[task]}, want {k1} / {k2}")
+    log(f"  bench line: {json.dumps(out)}")
+    log(f"  bench: headline {out['value']} img/s, train_s_per_iter "
+        f"{out['train_s_per_iter']} s (the devaug co-training mix), "
+        f"inference {out['infer_img_s']} img/s (device ms cls "
+        f"{out['cls_ms']}, det {out['det_ms']}, seg {out['seg_ms']}; "
+        f"dispatch ms {out['cls_dispatch_ms']} / {out['det_dispatch_ms']} / "
+        f"{out['seg_dispatch_ms']}), {out['unit_gflops']} GFLOP a mix, mfu "
+        f"{out['mfu']}; K1 / K2 per inference call " + ", ".join(
+            f"{t} {per_call[t]['K1']:g} / {per_call[t]['K2']:g}"
+            for t in EVAL_WANT) + f"; {wall:.1f} s  [{smi}]")
+    return dict(out, phase_s=wall)
 
 
 # -- the tools phase -------------------------------------------------------
@@ -4033,6 +4552,96 @@ def run_benchmark(name, argv, counters, want, n_calls, smi):
     return report, total
 
 
+OVERFIT_ARGV = ["--eval-every", "250", "--max-iters", "4000"]
+
+
+def overfit_proof_process(argv) -> int:
+    """``chip_smoke.py --overfit-proof OUT WORK_DIR``: the overfit proof
+    (``tools/overfit_proof.py`` through its ``main``, ``OVERFIT_ARGV``) in a
+    process of its own, every count at 0 just before it; its result, the
+    launches, the seconds and its markdown log written to OUT as JSON."""
+    from rscotr_tpu_torch.tools import overfit_proof
+    out, work = argv
+    counters = kernel_counters()
+    zero_counts(counters)
+    t0 = time.perf_counter()
+    proof = overfit_proof.main(["--work-dir", work, *OVERFIT_ARGV,
+                                "--device", "cuda"])
+    rec = dict(proof=proof, launches=launch_counts(counters),
+               seconds=time.perf_counter() - t0)
+    with open(os.path.join(work, "proof.md")) as f:
+        rec["log"] = f.read()
+    with open(out, "w") as f:
+        json.dump(rec, f)
+    return 0
+
+
+def start_overfit_proof():
+    """Start the overfit proof in a process of its own (it is host-bound:
+    tiny steps, ~60-130 ms an iteration on the card's host), so that it runs
+    beside the scale-out phase's untimed runs and checks and the devaug
+    ``--deterministic`` runs; ``finish_overfit_proof`` waits for it."""
+    import tempfile
+    work = tempfile.mkdtemp(prefix="rscotr_overfit_")
+    run = dict(work=work, out=os.path.join(work, "proof.json"),
+               t0=time.perf_counter())
+    run["logf"] = open(os.path.join(work, "proof.log"), "w")
+    cmd = [sys.executable, os.path.abspath(__file__), "--overfit-proof",
+           run["out"], os.path.join(work, "overfit")]
+    log(f"overfit proof: rscotr_tpu_torch.tools.overfit_proof "
+        f"{' '.join(OVERFIT_ARGV)} in a process of its own (chip_smoke.py "
+        "--overfit-proof), beside the scale-out phase's untimed rest and "
+        "the devaug --deterministic runs")
+    run["proc"] = subprocess.Popen(cmd, cwd=ROOT, stdout=run["logf"],
+                                   stderr=subprocess.STDOUT)
+    return run
+
+
+def stop_overfit_proof(run) -> None:
+    """End the proof's process if it still runs, and remove its files."""
+    import shutil
+    if run["proc"].poll() is None:
+        run["proc"].kill()
+        run["proc"].wait()
+    run["logf"].close()
+    shutil.rmtree(run["work"], ignore_errors=True)
+
+
+def finish_overfit_proof(run, smi, timeout=900):
+    """Wait for the proof's process and hold its result: every target met
+    (cls top-1 100, det mAP_50 >= 0.9, seg mIoU >= 90) within 4000
+    iterations, K1 / K1b / K2 / K2b launched, no quad-path kernel. Returns
+    its launches and its result."""
+    t0 = time.perf_counter()
+    try:
+        rc = run["proc"].wait(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        fail(f"overfit proof: still running after {timeout} s of waiting")
+    run["logf"].flush()
+    if rc:
+        with open(os.path.join(run["work"], "proof.log")) as f:
+            print(f.read()[-8000:], file=sys.stderr)
+        fail(f"overfit proof: its process exited {rc}")
+    with open(run["out"]) as f:
+        rec = json.load(f)
+    proof, total, secs = rec["proof"], rec["launches"], rec["seconds"]
+    log("  " + "\n  ".join(rec["log"].splitlines()))
+    log(f"  overfit proof: first met {proof['first_met']}, final "
+        f"{proof['final']}, {secs:.1f} s in its process (waited "
+        f"{time.perf_counter() - t0:.1f} s after the devaug runs); "
+        "launches " + ", ".join(f"{k} {total[k]}" for k in K4)
+        + f" (K1 vector body {total['K1 vec']}, K1b {total['K1b vec']})  "
+        f"[{smi}]")
+    if not proof["ok"]:
+        fail(f"overfit proof: targets not met within 4000 iterations: "
+             f"{proof}")
+    # the tiny model's decoder heads are narrower than the vector body's
+    # widths: part of K1 / K1b takes the lane body there
+    if any(total[k] == 0 for k in K4) or any(total[k] for k in QUAD):
+        fail(f"overfit proof: launches {total}")
+    return {k: total[k] for k in K4}, dict(proof, seconds=secs)
+
+
 def tools_phase(smi, kept):
     """The port's user tools on the card (``rscotr_tpu_torch/tools``), each
     through its ``main`` with every count set to 0 just before it and read
@@ -4043,7 +4652,8 @@ def tools_phase(smi, kept):
     call the launches (``TOOL_WANT``, ``CP_WANT``) and FlopCounterMode's
     operator counts equal to the formulas over the launches, the with_cp
     det step's ``train_temp_mb`` below the plain one; (2) the overfit proof
-    (``--eval-every 250 --max-iters 4000``): every target met; (3) the
+    runs in a process of its own beside the scale-out phase's untimed rest
+    (``start_overfit_proof``); (3) the
     parity dump of the tiny config's seeded init on the card and on the
     CPU (float32, TF32 off), then ``compare``: cls and seg within
     SLICE_TOL, det boxes within SLICE_TOL x the image size, labels equal,
@@ -4066,7 +4676,7 @@ def tools_phase(smi, kept):
     from rscotr_tpu_torch.data.build import load_data_cfg
     from rscotr_tpu_torch.engine import make_infer_steps, save_checkpoint
     from rscotr_tpu_torch.models import build_model
-    from rscotr_tpu_torch.tools import overfit_proof, parity_check
+    from rscotr_tpu_torch.tools import parity_check
     from rscotr_tpu_torch.tools.confusion_matrix import (
         get_cls_confusion_matrix)
     from rscotr_tpu_torch.tools.featmap_vis import (_common,
@@ -4076,8 +4686,8 @@ def tools_phase(smi, kept):
     t_phase = time.perf_counter()
     work = kept["work_dir"]
     res, paths = {"seconds": {}}, {}
-    log("tools phase: the port's benchmark, overfit proof, parity dump, "
-        "featmap and confusion-matrix tools on the card")
+    log("tools phase: the port's benchmark, parity dump, featmap and "
+        "confusion-matrix tools on the card")
     try:
         # -- 1. benchmark ------------------------------------------------
         t0 = time.perf_counter()
@@ -4115,34 +4725,6 @@ def tools_phase(smi, kept):
                                 eval_loop=ev["eval_loop"])
         res["seconds"]["benchmark"] = time.perf_counter() - t0
         torch.cuda.empty_cache()
-
-        # -- 2. overfit proof --------------------------------------------
-        t0 = time.perf_counter()
-        argv = ["--work-dir", os.path.join(work, "overfit"),
-                "--eval-every", "250", "--max-iters", "4000",
-                "--device", "cuda"]
-        log(f"  rscotr_tpu_torch.tools.overfit_proof {' '.join(argv)}")
-        zero_counts(counters)
-        proof = overfit_proof.main(argv)
-        total = launch_counts(counters)
-        secs = time.perf_counter() - t0
-        with open(os.path.join(work, "overfit", "proof.md")) as f:
-            log("  " + "\n  ".join(f.read().splitlines()))
-        log(f"  overfit proof: first met {proof['first_met']}, final "
-            f"{proof['final']}, {secs:.1f} s; launches "
-            + ", ".join(f"{k} {total[k]}" for k in K4)
-            + f" (K1 vector body {total['K1 vec']}, K1b "
-            f"{total['K1b vec']})  [{smi}]")
-        if not proof["ok"]:
-            fail(f"overfit proof: targets not met within 4000 iterations: "
-                 f"{proof}")
-        # the tiny model's decoder heads are narrower than the vector
-        # body's widths: part of K1 / K1b takes the lane body there
-        if any(total[k] == 0 for k in K4) or any(total[k] for k in QUAD):
-            fail(f"overfit proof: launches {total}")
-        paths["overfit proof (tiny MTL, trains and evaluates)"] = total
-        res["overfit"] = dict(proof, seconds=secs)
-        res["seconds"]["overfit proof"] = secs
 
         # -- 3. parity dump ----------------------------------------------
         t0 = time.perf_counter()
@@ -4379,6 +4961,9 @@ def kernels_line(times, btimes, qtimes, err, berr, qerr, k6err, k6levels,
               fuses="scatter_add (K3') on the model path",
               vec_launches=launches["K1b vec"],
               launches_paths=launches["paths"]["K1b"],
+              ordered_ms=k1b["ordered_ms"],
+              ordered_launches_deterministic_steps=launches[
+                  "K1b ordered deterministic"],
               whole_ms=k1b["whole_ms"], whole_eager_ms=k1b["whole_eager_ms"],
               stages=stages(btimes, "K1b")),
         entry("scatter_add", "scatter_add.cu", pallas + "scatter_mm.py:168",
@@ -4399,6 +4984,9 @@ def kernels_line(times, btimes, qtimes, err, berr, qerr, k6err, k6levels,
               replaces_part="backward (JAX: autodiff of the einsum path, "
                             "rscotr_tpu/models/backbones/swin.py:130)",
               launches_paths=launches["paths"]["K2b"],
+              ordered_ms=btimes["K2b det800.s0"]["ordered_ms"],
+              ordered_launches_deterministic_steps=launches[
+                  "K2b ordered deterministic"],
               stages=stages(btimes, "K2b")),
         entry("ws_fwd", "msda_ws.cu", pallas + "msda_ws.py:110", "K4",
               qtimes["K4 det-encoder"], qerr["K4"], ws_at,
@@ -4426,8 +5014,14 @@ def main(argv) -> int:
               "False)", file=sys.stderr)
         return 1
     sys.path.insert(0, ROOT)
+    # cuBLAS takes its workspace setting when it makes a handle: set it
+    # before any, for the --deterministic runs and steps below
+    # (utils/rng.py's CUBLAS_WORKSPACE_CONFIG)
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     if argv[:1] == ["--scaleout-rank"]:
         return scaleout_rank(argv[1:])
+    if argv[:1] == ["--overfit-proof"]:
+        return overfit_proof_process(argv[1:])
     from rscotr_tpu_torch.ops import kernel_lib
 
     smi = subprocess.run(
@@ -4457,7 +5051,7 @@ def main(argv) -> int:
     slice_parity_phase()
     train_parity_phase()
     slaunches, lat = serving_phase()
-    launches, train = train_phase()
+    launches, train, det_cost = train_phase()
     stages = augment_phase()
     zlaunches, zoo = zoo_phase()
     elaunches, evals, det_results, kept = eval_phase(smi)
@@ -4465,7 +5059,21 @@ def main(argv) -> int:
     xlaunches, export = export_phase(smi, det_results)
     llaunches, loop = loop_phase(smi)
     alaunches, aug = aug_loop_phase(smi, stages)
-    scale = scaleout_phase(smi)
+    proof = {}
+    try:
+        # the proof starts once the scale-out phase's timed runs have
+        # ended, and runs beside its untimed rest and the devaug
+        # --deterministic runs, none of which prints a timing
+        scale = scaleout_phase(
+            smi, after_timed=lambda: proof.update(run=start_overfit_proof()))
+        deterministic_devaug()
+        plaunches, tools["overfit"] = finish_overfit_proof(proof["run"], smi)
+    finally:
+        if "run" in proof:
+            stop_overfit_proof(proof["run"])
+    tlaunches["overfit proof (tiny MTL, trains and evaluates; its own "
+              "process)"] = plaunches
+    bench = bench_phase(smi)
     library_phase(times, btimes)
     # K3' is launched by the quad-gather path; the training run launches it
     # 0 times (train_phase checks every step), K1b doing its work there
@@ -4537,7 +5145,14 @@ def main(argv) -> int:
         + "; featmap card vs CPU " + ", ".join(
             f"{s}^2 {v:.2e}" for s, v in tools["featmap"].items())
         + f"; confusion accuracy {tools['confusion']['accuracy']:.4f}; "
-        f"tools phase {tools['phase_s']:.1f} s")
+        f"tools phase {tools['phase_s']:.1f} s; " + "; ".join(
+            f"train {t} step {r['on_ms'][1]:.2f} ms under --deterministic "
+            f"against {r['off_ms'][1]:.2f} ms (medians)"
+            for t, r in det_cost.items())
+        + f"; bench {bench['value']} img/s training, "
+        f"{bench['train_s_per_iter']} s/iter, inference "
+        f"{bench['infer_img_s']} img/s, mfu {bench['mfu']}; bench phase "
+        f"{bench['phase_s']:.1f} s")
     log(smi)
     print(json.dumps(kernels_line(times, btimes, qtimes, err, berr, qerr,
                                   k6err, k6levels, launches)), flush=True)

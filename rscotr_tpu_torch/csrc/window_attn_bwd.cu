@@ -49,6 +49,13 @@
 // d_rel_bias is reproducible only to f32 rounding of a sum of BW terms; the
 // comparison against the plain version scales its bound by the largest
 // entry for that reason (BTOL in chip_smoke.py).
+//
+// The ordered body (the caller passes a partials buffer; the wrapper does
+// so under torch.use_deterministic_algorithms): each block writes its f32
+// sum of dS, the same values it would add with atomics, to its own slice of
+// a (blocks per head, H, n, n) buffer, and a second launch,
+// bias_sum_kernel, adds the slices in block order, one thread per entry of
+// d_rel_bias. dQ, dK and dV have one writer each in both bodies.
 #include "common.cuh"
 #include "window_attn_tc.cuh"
 
@@ -65,6 +72,7 @@ __global__ void __launch_bounds__(WAB_THREADS) window_attn_bwd_kernel(
     const T* __restrict__ d_out,         // (B * nW, H, n, hd)
     T* __restrict__ dq, T* __restrict__ dk, T* __restrict__ dv,
     float* __restrict__ d_bias,          // (H, n, n), zeroed by the caller
+    float* __restrict__ partials,        // (BW, H, n, n) or nullptr
     int H, int nW, int n, int hd, float scale) {
   extern __shared__ float smem[];
   const int kst = hd + 1;
@@ -156,9 +164,49 @@ __global__ void __launch_bounds__(WAB_THREADS) window_attn_bwd_kernel(
     dvb[idx] = from_f32<T>(accv);
     dkb[idx] = from_f32<T>(acck);
   }
+  if (partials) {  // this block's slice, summed in block order later
+    float* pb = partials + (long long)blockIdx.x * n * n;
+    for (int idx = threadIdx.x; idx < n * n; idx += blockDim.x)
+      pb[idx] = sds[idx];
+    return;
+  }
   float* db = d_bias + (long long)h * n * n;
   for (int idx = threadIdx.x; idx < n * n; idx += blockDim.x)
     atomicAdd(db + idx, sds[idx]);
+}
+
+// d_bias[i] = the sum of partials[blk][i] over blk = 0, 1, ..., nblk - 1 in
+// that order (per = H n n entries a slice), the loads of UNROLL slices in
+// flight before their adds.
+#define BIAS_SUM_THREADS 256
+#define BIAS_SUM_UNROLL 8
+__global__ void __launch_bounds__(BIAS_SUM_THREADS) bias_sum_kernel(
+    const float* __restrict__ partials, int nblk, long long per,
+    float* __restrict__ d_bias) {
+  const long long i = (long long)blockIdx.x * BIAS_SUM_THREADS + threadIdx.x;
+  if (i >= per) return;
+  float acc = 0.f;
+  int blk = 0;
+  for (; blk + BIAS_SUM_UNROLL <= nblk; blk += BIAS_SUM_UNROLL) {
+    float t[BIAS_SUM_UNROLL];
+#pragma unroll
+    for (int u = 0; u < BIAS_SUM_UNROLL; ++u)
+      t[u] = __ldcs(partials + (long long)(blk + u) * per + i);
+#pragma unroll
+    for (int u = 0; u < BIAS_SUM_UNROLL; ++u) acc += t[u];
+  }
+  for (; blk < nblk; ++blk) acc += __ldcs(partials + (long long)blk * per + i);
+  d_bias[i] = acc;
+}
+
+static cudaError_t launch_bias_sum(const float* partials, int nblk, int H,
+                                   int n, float* d_bias, cudaStream_t stream) {
+  const long long per = (long long)H * n * n;
+  bias_sum_kernel<<<(unsigned)((per + BIAS_SUM_THREADS - 1) /
+                               BIAS_SUM_THREADS),
+                    BIAS_SUM_THREADS, 0, stream>>>(partials, nblk, per,
+                                                   d_bias);
+  return cudaGetLastError();
 }
 
 static size_t smem_bytes(int n, int hd) {
@@ -170,8 +218,8 @@ template <typename T>
 static cudaError_t launch(const void* q, const void* k, const void* v,
                           const long long* st, const float* rel_bias,
                           const float* mask, const void* d_out, void* dq,
-                          void* dk, void* dv, float* d_bias, int BW, int H,
-                          int nW, int n, int hd, float scale,
+                          void* dk, void* dv, float* d_bias, float* partials,
+                          int BW, int H, int nW, int n, int hd, float scale,
                           cudaStream_t stream) {
   const size_t smem = smem_bytes(n, hd);
   if (smem > 48 * 1024) {
@@ -187,8 +235,10 @@ static cudaError_t launch(const void* q, const void* k, const void* v,
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), qs, ks, vs, rel_bias, mask,
       static_cast<const T*>(d_out), static_cast<T*>(dq), static_cast<T*>(dk),
-      static_cast<T*>(dv), d_bias, H, nW, n, hd, scale);
-  return cudaGetLastError();
+      static_cast<T*>(dv), d_bias, partials, H, nW, n, hd, scale);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess || !partials) return e;
+  return launch_bias_sum(partials, BW, H, n, d_bias, stream);
 }
 
 // ---- tensor-core instantiation (bf16) -------------------------------------
@@ -205,6 +255,7 @@ __global__ void __launch_bounds__(WTC_THREADS) window_attn_bwd_tc_kernel(
     __nv_bfloat16* __restrict__ dq, __nv_bfloat16* __restrict__ dk,
     __nv_bfloat16* __restrict__ dv,
     float* __restrict__ d_bias,                // (H, n, n), zeroed by caller
+    float* __restrict__ partials,  // (gridDim.x, H, n, n) or nullptr
     int BW, int nW, int n, int run, float scale) {
   constexpr int LD = HD + 8;
   constexpr int TILE = WTC_ROWS * LD;
@@ -338,13 +389,20 @@ __global__ void __launch_bounds__(WTC_THREADS) window_attn_bwd_tc_kernel(
     __syncthreads();
   }
 
-  float* db = d_bias + (long long)h * n * n;
+  // this block's slice (summed in block order by bias_sum_kernel), else
+  // the atomics
+  float* db = partials ? partials + ((long long)blockIdx.x * H + h) * n * n
+                       : d_bias + (long long)h * n * n;
 #pragma unroll
   for (int nt = 0; nt < 8; ++nt)
 #pragma unroll
     for (int c = 0; c < 4; ++c) {
       const int row = r0 + 8 * (c >> 1), col = nt * 8 + 2 * t + (c & 1);
-      if (row < n && col < n) atomicAdd(db + row * n + col, dsum[nt][c]);
+      if (row >= n || col >= n) continue;
+      if (partials)
+        db[row * n + col] = dsum[nt][c];
+      else
+        atomicAdd(db + row * n + col, dsum[nt][c]);
     }
 }
 
@@ -352,9 +410,9 @@ template <int HD>
 static cudaError_t launch_tc(const void* q, const void* k, const void* v,
                              const long long* st, const float* rel_bias,
                              const float* mask, const void* d_out, void* dq,
-                             void* dk, void* dv, float* d_bias, int BW, int H,
-                             int nW, int n, int run, float scale,
-                             cudaStream_t stream) {
+                             void* dk, void* dv, float* d_bias,
+                             float* partials, int BW, int H, int nW, int n,
+                             int run, float scale, cudaStream_t stream) {
   const size_t smem = (2 * 4 * WTC_ROWS * (HD + 8) + 2 * WTC_ROWS * WTC_PLD) *
                           sizeof(__nv_bfloat16) +
                       (mask ? 2 * mask_stage_floats(n) * sizeof(float) : 0);
@@ -370,9 +428,11 @@ static cudaError_t launch_tc(const void* q, const void* k, const void* v,
       static_cast<const bf*>(q), static_cast<const bf*>(k),
       static_cast<const bf*>(v), qs, ks, vs, rel_bias, mask,
       static_cast<const bf*>(d_out), static_cast<bf*>(dq),
-      static_cast<bf*>(dk), static_cast<bf*>(dv), d_bias, BW, nW, n, run,
-      scale);
-  return cudaGetLastError();
+      static_cast<bf*>(dk), static_cast<bf*>(dv), d_bias, partials, BW, nW,
+      n, run, scale);
+  e = cudaGetLastError();
+  if (e != cudaSuccess || !partials) return e;
+  return launch_bias_sum(partials, (int)grid.x, H, n, d_bias, stream);
 }
 
 // strides: host array of 9 element strides, (image * window, head, token)
@@ -381,14 +441,17 @@ static cudaError_t launch_tc(const void* q, const void* k, const void* v,
 // must be zeroed. run > 0: the tensor-core kernel, each block walking `run`
 // consecutive (image * window) tiles of one head (bf16, n <= 64, hd 32 or
 // 64, bases and strides multiples of 16 bytes: the wrapper checks);
-// run == 0: the CUDA-core kernel. Returns a cudaError_t code.
+// run == 0: the CUDA-core kernel. partials: null for the atomics, else the
+// ordered body's f32 buffer of (blocks per head, H, n, n), blocks per head
+// being ceil(BW / run) for run > 0 and BW for run == 0; d_rel_bias is then
+// written, not added to. Returns a cudaError_t code.
 extern "C" int window_attn_bwd(const void* q, const void* k, const void* v,
                                int dtype, const long long* strides,
                                const float* rel_bias, const float* mask,
                                const void* d_out, void* dq, void* dk,
                                void* dv, float* d_bias, int BW, int H, int nW,
                                int n, int hd, float scale, int run,
-                               void* stream) {
+                               float* partials, void* stream) {
   if (BW < 1 || H < 1 || nW < 1 || n < 1 || hd < 1 || BW % nW != 0 || run < 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -397,18 +460,21 @@ extern "C" int window_attn_bwd(const void* q, const void* k, const void* v,
       return (int)cudaErrorInvalidValue;
     if (hd == 32)
       return (int)launch_tc<32>(q, k, v, strides, rel_bias, mask, d_out, dq,
-                                dk, dv, d_bias, BW, H, nW, n, run, scale, s);
+                                dk, dv, d_bias, partials, BW, H, nW, n, run,
+                                scale, s);
     if (hd == 64)
       return (int)launch_tc<64>(q, k, v, strides, rel_bias, mask, d_out, dq,
-                                dk, dv, d_bias, BW, H, nW, n, run, scale, s);
+                                dk, dv, d_bias, partials, BW, H, nW, n, run,
+                                scale, s);
     return (int)cudaErrorInvalidValue;
   }
   if (dtype == kF32)
     return (int)launch<float>(q, k, v, strides, rel_bias, mask, d_out, dq, dk,
-                              dv, d_bias, BW, H, nW, n, hd, scale, s);
+                              dv, d_bias, partials, BW, H, nW, n, hd, scale,
+                              s);
   if (dtype == kBF16)
     return (int)launch<__nv_bfloat16>(q, k, v, strides, rel_bias, mask, d_out,
-                                      dq, dk, dv, d_bias, BW, H, nW, n, hd,
-                                      scale, s);
+                                      dq, dk, dv, d_bias, partials, BW, H,
+                                      nW, n, hd, scale, s);
   return (int)cudaErrorInvalidValue;
 }

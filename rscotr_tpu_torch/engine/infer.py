@@ -16,6 +16,7 @@ import torch.nn.functional as F
 
 from rscotr_tpu_torch.models.heads.dino_loss import dino_get_bboxes
 from rscotr_tpu_torch.models.heads.pixel_decoders import _resize_bilinear
+from rscotr_tpu_torch.ops import resize
 
 _DEFAULT_NORM = ((123.675, 116.28, 103.53), (58.395, 57.12, 57.375))
 
@@ -59,11 +60,17 @@ def resize_linear(x: torch.Tensor, hw) -> torch.Tensor:
     centres, widened by in/out on an axis that shrinks and normalised per
     output. That is ``F.interpolate``'s bilinear mode with antialiasing,
     which is taken when an axis shrinks; when none does, the widening is
-    void and the plain bilinear grid (``_resize_bilinear``) is the same."""
+    void and the plain bilinear grid (``_resize_bilinear``) is the same.
+    Under ``torch.use_deterministic_algorithms(True)`` the same function
+    as two products (``ops.resize.resize_matmul``), whose backward has no
+    atomics."""
     H, W = int(hw[0]), int(hw[1])
     x = x.float()
     if H >= x.shape[1] and W >= x.shape[2]:
         return _resize_bilinear(x, (H, W))
+    if torch.are_deterministic_algorithms_enabled():
+        return resize.resize_matmul(x.permute(0, 3, 1, 2), (H, W)
+                                    ).permute(0, 2, 3, 1)
     return F.interpolate(x.permute(0, 3, 1, 2), size=(H, W), mode="bilinear",
                          align_corners=False, antialias=True
                          ).permute(0, 2, 3, 1)

@@ -34,6 +34,10 @@ DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # channel with 2- or 4-byte accesses, and a vector body in which a lane owns
 # 4 consecutive channels (8- or 16-byte accesses).
 BODY_LANE, BODY_VEC = 0, 1
+# A flag on K1b's body: its value gradient summed in an order that the data
+# fixes (sorted corners, a warp per row) instead of by f32 atomics, whose
+# order changes from run to run. K2b's d_rel_bias has the same choice.
+ORDERED = 2
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -126,9 +130,18 @@ def _bind(path: Path) -> ctypes.CDLL:
     lib.msda_bwd.restype = _I
     lib.scatter_add.argtypes = [_P, _I, _P, _P, _I, _I, _I, _I, _I, _P]
     lib.scatter_add.restype = _I
+    lib.msda_bwd_keys.argtypes = [_P, _I, _I, _I, _I, _I, _I,
+                                  ctypes.POINTER(ctypes.c_int), _P, _P]
+    lib.msda_bwd_keys.restype = _I
+    lib.msda_bwd_bounds.argtypes = [_P, _L, _P, _P, _P]
+    lib.msda_bwd_bounds.restype = _I
+    lib.msda_bwd_walk.argtypes = [_I, _P, _P, _I, _P, _P, _P, _P, _P, _I,
+                                  _I, _I, _I, _I, _I, _I,
+                                  ctypes.POINTER(ctypes.c_int), _I, _P]
+    lib.msda_bwd_walk.restype = _I
     lib.window_attn_bwd.argtypes = [
         _P, _P, _P, _I, ctypes.POINTER(ctypes.c_longlong), _P, _P, _P,
-        _P, _P, _P, _P, _I, _I, _I, _I, _I, ctypes.c_float, _I, _P]
+        _P, _P, _P, _P, _I, _I, _I, _I, _I, ctypes.c_float, _I, _P, _P]
     lib.window_attn_bwd.restype = _I
     lib.ws_fwd.argtypes = [_P, _P, _I, _P, _L, _I, _I, _I, _P]
     lib.ws_fwd.restype = _I
@@ -140,16 +153,36 @@ def _bind(path: Path) -> ctypes.CDLL:
     return lib
 
 
+def ordered_sums() -> bool:
+    """Whether K1b and K2b take their ordered bodies:
+    ``torch.are_deterministic_algorithms_enabled()``
+    (``torch.use_deterministic_algorithms(True)``, which ``tools/train.py
+    --deterministic`` sets). The operators read it at call time, so the
+    flag needs no argument on their schemas."""
+    return torch.are_deterministic_algorithms_enabled()
+
+
 def take_body(name: str, body, pick: int, what: str) -> int:
     """The body a launch takes: ``pick`` unless the caller asks for the
     lane body; the vector body is never forced where ``pick`` refuses it
-    (``what``: the shape the pick was made for, for the message)."""
+    (``what``: the shape the pick was made for, for the message). The
+    ``ORDERED`` flag is ``pick``'s whatever ``body`` says."""
     if body is None:
         return pick
-    if body not in (BODY_LANE, pick):
+    if body not in (BODY_LANE, pick & BODY_VEC):
         raise ValueError(f"{name}: body {body} does not take {what} at these "
                          "base addresses")
-    return body
+    return body | (pick & ORDERED)
+
+
+def refuse_nondeterministic(name: str) -> None:
+    """Raise under ``torch.use_deterministic_algorithms(True)`` for a
+    kernel whose f32 atomics have no ordered body (K3'), as torch's own
+    operators without a deterministic implementation do."""
+    if torch.are_deterministic_algorithms_enabled():
+        raise RuntimeError(
+            f"{name} adds with f32 atomics and has no deterministic body, "
+            "but torch.use_deterministic_algorithms(True) is set")
 
 
 def check(err: int, name: str) -> None:

@@ -17,7 +17,13 @@ and the backward is one launch of ``csrc/msda_bwd.cu`` (K1b,
 it writes the attention-weight and location gradients and adds every valid
 corner's term, the corner weight times ``d_out`` rounded to value's dtype,
 straight into a zeroed float32 accumulator of value's layout with atomics;
-one cast to value's dtype makes ``d_value``. That is the JAX decomposition
+one cast to value's dtype makes ``d_value``. Under
+``torch.use_deterministic_algorithms(True)`` the launch takes its ordered
+body instead (``msda_bwd_body`` adds ``ORDERED``): the kernel writes the
+attention-weight and location gradients only, and the value gradient is
+added row by row in an order that the data fixes (the corners' target rows
+as keys, a stable sort, a warp per row; ``_ordered_value_grad``), so two
+runs give the same bits. That is the JAX decomposition
 (``_quad_gather_bwd`` and ``_corner_weighted_sum_bwd`` of the JAX module)
 with its detour taken out: JAX writes each sampling point's quad-row update
 ``d_g``, scatters the rows into a quad-table gradient (Pallas K3) and folds
@@ -50,7 +56,7 @@ import torch
 import torch.nn.functional as F
 
 from rscotr_tpu_torch.ops import kernel_lib
-from rscotr_tpu_torch.ops.kernel_lib import BODY_LANE, BODY_VEC
+from rscotr_tpu_torch.ops.kernel_lib import BODY_LANE, BODY_VEC, ORDERED
 from rscotr_tpu_torch.ops.msda_ws import corner_weighted_sum
 from rscotr_tpu_torch.ops.scatter_mm import (scatter_add_mm,
                                              scatter_add_mm_torch)
@@ -236,8 +242,12 @@ def msda_bwd_body(head_dim: int, data_ptrs=()) -> int:
     reduction per lane into the value gradient) for a head width in
     ``VEC_HEAD_DIMS`` when every base address in ``data_ptrs`` (value, loc,
     d_out, d_loc and the accumulator) is 16-byte aligned, else ``BODY_LANE``
-    (a lane per channel, scalar atomics; any head width up to 128)."""
-    return _pick_body(head_dim, data_ptrs)
+    (a lane per channel, scalar atomics; any head width up to 128). Plus
+    ``ORDERED`` where ``kernel_lib.ordered_sums()`` holds (under
+    ``torch.use_deterministic_algorithms(True)``): no atomics, the value gradient from ``_ordered_value_grad``, its walk
+    on the same lane or vector layout."""
+    return _pick_body(head_dim, data_ptrs) | (
+        ORDERED if kernel_lib.ordered_sums() else 0)
 
 
 def ms_deform_attn_bwd(value: torch.Tensor,
@@ -296,6 +306,7 @@ def _msda_bwd_fake(value, spatial_shapes, sampling_locations,
 
 ms_deform_attn_bwd.launches = 0
 ms_deform_attn_bwd.vec_launches = 0   # those of them that took the vector body
+ms_deform_attn_bwd.ordered_launches = 0   # ... and the ordered body
 
 
 def _msda_bwd_cuda(value, shapes, loc, attn, d_out, acc=None, body=None):
@@ -334,10 +345,46 @@ def _msda_bwd_cuda(value, shapes, loc, attn, d_out, acc=None, body=None):
             d_out.data_ptr(), d_attn.data_ptr(), d_loc.data_ptr(),
             acc.data_ptr(), B, Nv, Q, H, D, L, P, _levels_arg(shapes), body,
             kernel_lib.stream_ptr(dev))
-    kernel_lib.check(err, "msda_bwd")
+        kernel_lib.check(err, "msda_bwd")
+        if body & ORDERED:
+            _ordered_value_grad(lib, value, shapes, loc, attn, d_out, acc,
+                                body)
     ms_deform_attn_bwd.launches += 1
-    ms_deform_attn_bwd.vec_launches += body == BODY_VEC
+    ms_deform_attn_bwd.vec_launches += bool(body & BODY_VEC)
+    ms_deform_attn_bwd.ordered_launches += bool(body & ORDERED)
     return acc, d_loc, d_attn
+
+
+def _ordered_value_grad(lib, value, shapes, loc, attn, d_out, acc, body):
+    """K1b's ordered value gradient, after the body ran with its reduction
+    off: ``msda_bwd_keys`` gives each corner of each sampling point its
+    target row of ``acc`` (a sentinel off the map), ``torch.sort(stable=
+    True)`` orders the corner indices by row (it only orders indices: a
+    row's corners stay in (q, l, p, c) order), ``msda_bwd_bounds`` marks
+    each row's run and ``msda_bwd_walk`` adds each row's terms, the same
+    rounded terms as the atomics, into ``acc`` with one writer per row."""
+    B, Nv, H, D = value.shape
+    _, Q, _, L, P, _ = loc.shape
+    dev, stream = value.device, kernel_lib.stream_ptr(value.device)
+    levels = _levels_arg(shapes)
+    keys = torch.empty(B * Q * H * L * P * 4, dtype=torch.int32, device=dev)
+    kernel_lib.check(lib.msda_bwd_keys(loc.data_ptr(), B, Nv, Q, H, L, P,
+                                       levels, keys.data_ptr(), stream),
+                     "msda_bwd_keys")
+    sorted_keys, perm = torch.sort(keys, stable=True)
+    del keys
+    start = torch.zeros(B * Nv * H, dtype=torch.int64, device=dev)
+    end = torch.zeros_like(start)
+    kernel_lib.check(lib.msda_bwd_bounds(sorted_keys.data_ptr(),
+                                         sorted_keys.numel(),
+                                         start.data_ptr(), end.data_ptr(),
+                                         stream), "msda_bwd_bounds")
+    kernel_lib.check(lib.msda_bwd_walk(
+        kernel_lib.dtype_code(value, "value"), loc.data_ptr(),
+        attn.data_ptr(), kernel_lib.dtype_code(attn, "attention_weights"),
+        d_out.data_ptr(), perm.data_ptr(), start.data_ptr(), end.data_ptr(),
+        acc.data_ptr(), B, Nv, Q, H, D, L, P, levels, body, stream),
+        "msda_bwd_walk")
 
 
 def _fold_quad_grad(d_qt, shapes, B, H, D, dtype):

@@ -88,6 +88,7 @@ def _scatter_add_cuda(updates, idx, out, body=None):
         return out
     body = kernel_lib.take_body("scatter_add_mm", body, scatter_add_body(
         C, [updates.data_ptr(), out.data_ptr()], updates.numel()), f"C={C}")
+    kernel_lib.refuse_nondeterministic("scatter_add_mm (K3')")
     lib = kernel_lib.load()
     with torch.cuda.device(updates.device):
         err = lib.scatter_add(

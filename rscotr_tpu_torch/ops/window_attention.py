@@ -28,6 +28,13 @@ block walks a run of consecutive windows of one head; float32 inputs, and
 bf16 inputs outside those shapes, take the CUDA-core kernel (one block per
 window and head, float32 arithmetic on operands staged as float32).
 ``launches`` counts both.
+
+K2b sums d_rel_bias over images and windows in float32 with atomics, in an
+order that changes from run to run. Under
+``torch.use_deterministic_algorithms(True)`` it takes its ordered body
+(``bias_partials``): each block writes its partial sum to a buffer of its
+own and a second launch adds the buffer in block order, so two runs give
+the same bits. ``ordered_launches`` counts those launches.
 """
 
 from __future__ import annotations
@@ -281,6 +288,19 @@ def _window_attn_bwd_fake(q, k, v, rel_bias, shift_mask, scale, d_out):
             q.new_empty((H, n, n), dtype=torch.float32))
 
 
+def bias_partials(shape, run: int) -> int:
+    """How K2b sums d_rel_bias: 0 for today's f32 atomics, else (the
+    ordered body, where ``kernel_lib.ordered_sums()`` holds) the
+    number of partial sums per head that the second launch adds in block
+    order: one per block, ceil(B * nW / run) blocks per head for the
+    tensor-core instantiation (``run`` from ``tensor_core_plan``) and B * nW
+    for the CUDA-core one (``run`` 0)."""
+    if not kernel_lib.ordered_sums():
+        return 0
+    B, nW = shape[:2]
+    return -(-B * nW // run) if run else B * nW
+
+
 def _window_attention_bwd_cuda(q, k, v, rel_bias, shift_mask, scale, d_out):
     """Kernel K2b on CUDA tensors."""
     B, nW, H, n, hd = q.shape
@@ -303,6 +323,9 @@ def _window_attention_bwd_cuda(q, k, v, rel_bias, shift_mask, scale, d_out):
     d_bias = torch.zeros((H, n, n), dtype=torch.float32, device=q.device)
     if dq.numel() == 0:
         return dq, dk, dv, d_bias
+    nblk = bias_partials(q.shape, run)
+    partials = torch.empty((nblk, H, n, n), dtype=torch.float32,
+                           device=q.device) if nblk else None
     lib = kernel_lib.load()
     with torch.cuda.device(q.device):
         err = lib.window_attn_bwd(
@@ -311,13 +334,16 @@ def _window_attention_bwd_cuda(q, k, v, rel_bias, shift_mask, scale, d_out):
             shift_mask.data_ptr() if shift_mask is not None else None,
             d_out.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
             d_bias.data_ptr(), B * nW, H, nW, n, hd, float(scale), run,
+            partials.data_ptr() if nblk else None,
             kernel_lib.stream_ptr(q.device))
     kernel_lib.check(err, "window_attn_bwd")
     window_attention_bwd.launches += 1
+    window_attention_bwd.ordered_launches += bool(nblk)
     return dq, dk, dv, d_bias
 
 
 window_attention_bwd.launches = 0
+window_attention_bwd.ordered_launches = 0
 
 
 def _probs(q, k, rel_bias, shift_mask, scale):

@@ -13,8 +13,11 @@ file inlined), writes it to the work dir (default
 the last step, ``best_checkpoint.pth`` on a better save-best score,
 ``train.log`` and ``metrics.jsonl``. ``--steps-per-dispatch K`` sets the
 grouped order of K same-task steps (``runner.steps_per_dispatch``).
-``--deterministic`` makes cuDNN deterministic and turns off its benchmark
-search. ``--diff-seed`` adds the process rank to the seed (0: one process).
+``--deterministic`` makes a run repeat bit for bit on the card
+(``utils.rng.set_random_seed``: ``torch.use_deterministic_algorithms``,
+under which K1b and K2b sum in a fixed order, cuDNN's deterministic
+algorithms, ``CUBLAS_WORKSPACE_CONFIG``, set first thing). ``--diff-seed``
+adds the process rank to the seed (0: one process).
 
 ``--launcher pytorch`` (or ``slurm`` / ``mpi``) joins the process group
 its launcher set up, on the backend of ``dist_params.backend`` (default
@@ -63,8 +66,9 @@ def parse_args(argv=None):
     p.add_argument("--diff-seed", action="store_true",
                    help="add the process rank to the seed")
     p.add_argument("--deterministic", action="store_true",
-                   help="deterministic cuDNN algorithms, no benchmark "
-                        "search")
+                   help="a run that repeats bit for bit: deterministic "
+                        "algorithms (K1b / K2b ordered sums), cuDNN's "
+                        "without benchmark search")
     p.add_argument("--options", nargs="+", action=DictAction,
                    help="deprecated alias of --cfg-options")
     p.add_argument("--cfg-options", nargs="+", action=DictAction)
@@ -91,6 +95,10 @@ def main(argv=None, hooks: Sequence = (),
     registered after the config's; ``train_fn``: the training API
     (``apis.train_model`` unless given)."""
     args = parse_args(argv)
+    if args.deterministic:
+        # before anything can make a cuBLAS handle
+        from rscotr_tpu_torch.utils.rng import deterministic_cublas
+        deterministic_cublas()
 
     from rscotr_tpu_torch import apis
     from rscotr_tpu_torch.data.build import load_data_cfg

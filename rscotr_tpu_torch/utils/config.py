@@ -160,7 +160,8 @@ def load_model_cfg(path: str) -> dict:
     return load_cfg(path)["model"]
 
 
-def merge_from_dict(cfg: dict, options: Dict[str, Any]) -> dict:
+def merge_from_dict(cfg: dict, options: Dict[str, Any],
+                    allow_list_keys: bool = True) -> dict:
     """``cfg`` with dotted-key overrides merged in, e.g.
     ``{"model.backbone.depth": 50}``; a digit key indexes into a list
     (``Config.merge_from_dict``)."""
@@ -171,7 +172,7 @@ def merge_from_dict(cfg: dict, options: Dict[str, Any]) -> dict:
         for part in parts[:-1]:
             d = d.setdefault(part, {})
         d[parts[-1]] = v
-    return deep_merge(cfg, nested, allow_list_keys=True)
+    return deep_merge(cfg, nested, allow_list_keys=allow_list_keys)
 
 
 def parse_cfg_option_value(raw: str) -> Any:
@@ -203,3 +204,9 @@ class DictAction(argparse.Action):
             key, _, val = kv.partition("=")
             opts[key] = parse_cfg_option_value(val)
         setattr(namespace, self.dest, opts)
+
+    @staticmethod
+    def action():
+        """This class, for the JAX package's usage
+        ``action=DictAction.action()``."""
+        return DictAction

@@ -12,28 +12,50 @@ from typing import Any, Callable, Dict, Optional
 
 
 class Registry:
-    def __init__(self, name: str):
+    """Names to classes. A child registry (``parent=``) is searched from its
+    parent, and the parent's names from the child, as JAX's."""
+
+    def __init__(self, name: str, parent: Optional["Registry"] = None):
         self.name = name
         self._modules: Dict[str, Any] = {}
+        self.parent = parent
+        self.children: Dict[str, "Registry"] = {}
+        if parent is not None:
+            parent.children[name] = self
 
     def __contains__(self, key: str) -> bool:
         return key in self._modules
 
-    def get(self, key: str) -> Any:
-        if key not in self._modules:
-            raise KeyError(f"'{key}' not registered in registry "
-                           f"'{self.name}' (known: {sorted(self._modules)})")
-        return self._modules[key]
+    def __len__(self) -> int:
+        return len(self._modules)
 
-    def register_module(self, name: Optional[str] = None) -> Callable:
-        def deco(cls):
-            key = name or cls.__name__
+    def keys(self):
+        return self._modules.keys()
+
+    def get(self, key: str) -> Any:
+        if key in self._modules:
+            return self._modules[key]
+        for child in self.children.values():
+            if key in child._modules:
+                return child._modules[key]
+        if self.parent is not None and key in self.parent._modules:
+            return self.parent._modules[key]
+        raise KeyError(f"'{key}' not registered in registry "
+                       f"'{self.name}' (known: {sorted(self._modules)})")
+
+    def register_module(self, name: Optional[str] = None,
+                        module: Optional[Any] = None) -> Callable:
+        """A decorator, or with ``module`` a direct registration."""
+        def add(obj):
+            key = name or obj.__name__
             if key in self._modules:
                 raise KeyError(f"'{key}' already registered in "
                                f"'{self.name}'")
-            self._modules[key] = cls
-            return cls
-        return deco
+            self._modules[key] = obj
+            return obj
+        if module is not None:
+            return add(module)
+        return add
 
     def build(self, cfg: dict, **default_args: Any) -> Any:
         """Instantiate from ``{"type": Name, **kwargs}``."""

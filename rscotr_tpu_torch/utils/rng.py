@@ -22,6 +22,7 @@ the one process's does) and keeps this rank's rows.
 from __future__ import annotations
 
 import contextlib
+import os
 from typing import Callable, Optional, TypeVar
 
 import numpy as np
@@ -99,13 +100,32 @@ class RngPool:
         return torch.Generator().manual_seed(mix_seed(*ints))
 
 
+# cuBLAS's fixed workspace: torch's deterministic mode refuses a CUDA
+# matmul without it; cuBLAS reads it when it makes a handle
+CUBLAS_WORKSPACE_CONFIG = ":4096:8"
+
+
+def deterministic_cublas() -> None:
+    """Set ``CUBLAS_WORKSPACE_CONFIG`` unless the caller has set it (before
+    the process's first CUDA matmul, for cuBLAS to take it)."""
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", CUBLAS_WORKSPACE_CONFIG)
+
+
 def set_random_seed(seed: int, deterministic: bool = False) -> RngPool:
     """Seed numpy's and torch's global generators (mmcv
-    ``set_random_seed``); ``deterministic`` makes cuDNN pick deterministic
-    algorithms and turns off its benchmark search."""
+    ``set_random_seed``). ``deterministic``: a training run on the card that
+    repeats bit for bit, as JAX's does by default.
+    ``torch.use_deterministic_algorithms(True)``, with which K1b and K2b
+    take their ordered bodies (``ops.kernel_lib.ordered_sums``), the seg
+    loss's antialiased shrink its matrix products (``ops.resize``), and any aten
+    op without a deterministic implementation raises; cuDNN's
+    deterministic algorithms without its benchmark search; and
+    ``CUBLAS_WORKSPACE_CONFIG`` (``deterministic_cublas``)."""
     np.random.seed(seed)
     torch.manual_seed(seed)
     if deterministic:
+        deterministic_cublas()
+        torch.use_deterministic_algorithms(True)
         torch.backends.cudnn.deterministic = True
         torch.backends.cudnn.benchmark = False
     return RngPool(seed)

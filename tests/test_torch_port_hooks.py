@@ -481,9 +481,12 @@ def test_rng_streams_are_pure_functions_of_the_seed():
     assert mix_seed(3, 7) == mix_seed(3, 7) != mix_seed(7, 3)
 
 
-def test_deterministic_seed_sets_cudnn_flags():
+def test_deterministic_seed_sets_cudnn_flags(monkeypatch):
     flags = (torch.backends.cudnn.deterministic,
              torch.backends.cudnn.benchmark)
+    algorithms = torch.are_deterministic_algorithms_enabled()
+    # set_random_seed sets the variable unless it is set: undone after
+    monkeypatch.delenv("CUBLAS_WORKSPACE_CONFIG", raising=False)
     try:
         torch.backends.cudnn.benchmark = True
         set_random_seed(5, deterministic=True)
@@ -495,6 +498,7 @@ def test_deterministic_seed_sets_cudnn_flags():
     finally:
         (torch.backends.cudnn.deterministic,
          torch.backends.cudnn.benchmark) = flags
+        torch.use_deterministic_algorithms(algorithms)
 
 
 def test_profile_cfg_writes_a_trace(tmp_path):
