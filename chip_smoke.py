@@ -44,6 +44,16 @@ Phases, each of which raises on failure (exit code 1, no result line):
    and [-0.2, 1.2]) and the train decoder, its vector body and its scalar
    body forced on the same tensors, timed at the det encoder beside one
    ``index_add_`` call, its library yardstick;
+4b. attention dropout (``dropout_phase``): K2 / K2b's DROP bodies at det
+   800^2 stage 0 with p = 0.1, float32 (CUDA-core) and bfloat16 (tensor
+   cores), without and with the shift mask: the keep bits of both
+   kernels, read through an identity v and a one-hot dO, equal
+   ``ops.philox.keep_mask``'s bit for bit (the plain versions' bits), the
+   keep fraction within 5 binomial sigma of 0.9, the values within K2's
+   and K2b's tolerances of the plain versions, the same seed bit-equal
+   and another seed not, K2b's ordered body twice bit-equal; the DROP
+   bodies' device time beside the p = 0 bodies' on the timed stage's own
+   tensors, in turns (``dropout_ms``);
 5. quad-gather MSDA at the det encoder: ``ms_deform_attn(impl="quad")``
    forward + backward once (K4, K5 and K3' launches counted; K4, K5 and
    K3' must take their vector bodies), K4 (corner-weighted sum) and K5 (its
@@ -78,12 +88,17 @@ Phases, each of which raises on failure (exit code 1, no result line):
     whole step, host matcher included), the host matcher's time and peak
     memory reported; then ``--deterministic``'s cost: the three steps with
     ``torch.use_deterministic_algorithms`` off, on, and on with torch's
-    fill of new tensors off, 24 each in turns, their medians and quartiles
+    fill of new tensors off, 16 each in turns, their medians and quartiles
     (every K1b / K2b launch on its ordered body under it, none refusing
     it; the fill's share of the cost named only where the no-fill mode's
     quartiles are apart from both others'), and what the flag refuses:
     ``F.interpolate``'s antialiased bilinear backward must raise, and
-    ``resize_linear``'s products there equal it;
+    ``resize_linear``'s products there equal it; then the cls and det
+    steps of a model built with Swin's ``attn_drop_rate``, the encoder's
+    ``dropout`` and ``ffn_drop`` at 0.1 against the same steps at 0, in
+    turns: the launches of the main path's steps (every window attention a
+    K2 / K2b launch, the plain versions failing if called), median step
+    time and peak memory of each;
 11. on-device augmentation (``augment_phase``): the stages of
     ``ops/device_augment.py`` on the card against the same stages on the
     CPU, on records the port's planners drew for
@@ -257,6 +272,17 @@ Phases, each of which raises on failure (exit code 1, no result line):
     no ``train_bench_error``, 0 < mfu <= 1, the K1 / K2 launches per
     inference call the serving phase's (cls 0 / 12, det 12 / 12, seg 6 /
     12); the headline img/s and ``train_s_per_iter`` beside the card;
+17c. the driver entry (``graft_phase``): ``graft_entry.entry()`` on the
+    card (the paper MTL, bf16, det 256^2): 12 K1 launches a call on the
+    vector body and 12 K2 on the tensor cores, the median of 20 calls
+    (CUDA events); the same function in float32 on the card against the
+    CPU (TF32 off): the encoder memory, the picked proposals' scores
+    sorted, and the outputs where the top-k picks the same proposals,
+    within ``GRAFT_TOL``; and ``python -m rscotr_tpu_torch.graft_entry 4``
+    (``dryrun_multichip(4)``: four ranks sharing the card over gloo), run
+    in its own session beside the overfit proof (started with it after the
+    scale-out phase's timed runs, waited for after it): exit 0, every
+    leg's line and ``OK``, its seconds (no scaling figure);
 18. library yardsticks of K2 and K2b, last because cuDNN keeps workspace
     once it has run under graph capture: ``scaled_dot_product_attention``
     with the additive bias + mask, and its autograd backward, on the timed
@@ -269,7 +295,8 @@ and K2b also ``launches_paths`` (each zoo path's, each flagship task's,
 the flagship eval's run, each tool's run in the tools phase, each
 artifact request's, each loop step's per
 task and the loop's whole run, the same for the first devaug and hostaug
-runs, counted from 0), ``max_abs_err``, ``ms`` and ``plain_ms``
+runs, an ``entry()`` call's, a flagship cls and det step's with dropout,
+counted from 0), ``max_abs_err``, ``ms`` and ``plain_ms``
 (kernel and plain version, same inputs), ``bound_ms`` / ``bound_by`` (the
 least time the card could take, computed from this run's tensors),
 ``library_ms`` / ``library`` (the one-call yardstick, null where there is
@@ -288,7 +315,9 @@ fill, kernel, cast) and ``ordered_ms`` (its ordered body on the same
 tensors, with ``ordered_parts``), timed at locations in [0, 1], as a
 model's are; K1b's and K2b's ``ordered_launches_deterministic_steps`` are
 those of the training phase's steps under the flag; K2b's ``ordered_ms``
-is its ordered body on the same tensors; K1b's
+is its ordered body on the same tensors; K2's and K2b's ``dropout_ms``
+are their DROP bodies at p = ``dropout_p`` on the timed stage's tensors,
+beside ``dropout_p0_ms``, the p = 0 bodies in the same turns; K1b's
 ``stages`` also hold the time at the [-0.2, 1.2] locations of the other
 kernel cases, where half the corners are off the map and skipped. K4's and
 K5's ``ms`` are device times too, beside ``eager_ms``, ``row_ms`` (the
@@ -525,10 +554,14 @@ def library_phase(times, btimes) -> None:
                if k.startswith("K2")})
 
 
-def k2_ulp_slack(q, k, v, bias, mask, scale, d_out=None):
+def k2_ulp_slack(q, k, v, bias, mask, scale, d_out=None, drop=None):
     """What P_FLIPS entries of P (and dS), one bf16 ulp off, may move the
     bf16 kernels' results by (see P_ULP): a tensor for the forward output,
-    or, given ``d_out``, one per gradient (dq, dk, dv, d_rel_bias)."""
+    or, given ``d_out``, one per gradient (dq, dk, dv, d_rel_bias).
+    ``drop`` (rate, seed): the attention dropout's, whose P' = P keep /
+    (1 - p) is then the rounded operand of P' v and P'^T dO, and whose
+    dP = (dO v^T) keep / (1 - p) enters dS."""
+    from rscotr_tpu_torch.ops import philox
     from rscotr_tpu_torch.ops.window_attention import _probs
 
     def largest_term(operand, factor, over_rows=False):
@@ -540,14 +573,20 @@ def k2_ulp_slack(q, k, v, bias, mask, scale, d_out=None):
 
     allow = P_FLIPS * P_ULP
     p = _probs(q, k, bias, mask, scale)
+    m = None if drop is None else philox.keep_mask(
+        p.shape, drop[0], drop[1], p.device).float() * \
+        philox.keep_scale(drop[0])
+    pd = p if m is None else p * m
     if d_out is None:
-        return allow * largest_term(p, v.float().abs())
+        return allow * largest_term(pd, v.float().abs())
     do = d_out.float()
     dp = torch.einsum("bwhqd,bwhkd->bwhqk", do, v.float())
+    if m is not None:
+        dp = dp * m
     ds = (p * (dp - (p * dp).sum(-1, keepdim=True))).abs()
     return (allow * scale * largest_term(ds, k.float().abs()),
             allow * scale * largest_term(ds, q.float().abs(), True),
-            allow * largest_term(p, do.abs(), True), None)
+            allow * largest_term(pd, do.abs(), True), None)
 
 
 def k2_cases():
@@ -1563,6 +1602,125 @@ def backward_phase():
     return err, times
 
 
+# K2 / K2b with attention dropout (Swin's attn_drop_rate in training): the
+# rate and seed of every dropout case, and the stage they run at
+DROP_P, DROP_SEED = 0.1, 20261018
+DROP_STAGE = "det800.s0"
+
+
+def keep_pattern(B, nW, H, dtype, p, seed, n=49):
+    """The keep bits K2 and K2b applied at (B, nW, H, n, n), read back: K2
+    with q, k random and v the identity (head width 64 >= n, so output row
+    i is P'_i, zero exactly where dropped; no bias or mask, so every P is
+    above 0), K2b's dV = P'^T dO with a one-hot dO. f32 takes the CUDA-core
+    bodies, bf16 the tensor-core ones."""
+    from rscotr_tpu_torch.ops.window_attention import (window_attention,
+                                                       window_attention_bwd)
+    g = torch.Generator(device="cuda").manual_seed(3)
+    q, k = (torch.randn(B, nW, H, n, 64, device="cuda", generator=g
+                        ).to(dtype) for _ in range(2))
+    eye = torch.eye(n, 64, device="cuda", dtype=dtype).expand(
+        B, nW, H, n, 64).contiguous()
+    bias = torch.zeros(H, n, n, device="cuda")
+    fwd = window_attention(q, k, eye, bias, None, 0.125, p, seed)
+    dv = window_attention_bwd(q, k, eye, bias, None, 0.125, eye, p, seed)[2]
+    torch.cuda.synchronize()
+    return fwd[..., :n] != 0, dv[..., :n].transpose(-1, -2) != 0
+
+
+def dropout_phase(times, btimes):
+    """K2 / K2b's DROP bodies at det 800^2 stage 0 with p = 0.1, f32 and
+    bf16, without and with the shift mask: the keep bits bit for bit
+    against ``ops.philox.keep_mask`` (which the plain versions use), the
+    keep fraction within 5 binomial sigma of 0.9, the values within K2's
+    and K2b's tolerances of the plain versions on the same bits, the same
+    seed bit-equal and another seed not, K2b's ordered body twice
+    bit-equal; then the DROP bodies' device time beside the p = 0 bodies'
+    on the timed stage's own tensors (``dropout_ms``, in turns)."""
+    from rscotr_tpu_torch.ops import philox
+    from rscotr_tpu_torch.ops.window_attention import (
+        _window_attention_bwd_cuda, window_attention, window_attention_bwd,
+        window_attention_bwd_torch, window_attention_torch)
+    log(f"dropout phase: K2 / K2b with attention dropout p = {DROP_P} (the "
+        "DROP bodies) vs the plain versions on the same Philox bits, "
+        f"{DROP_STAGE}")
+    B, nW, H, _ = K2_SHAPES[DROP_STAGE]
+    want = philox.keep_mask((B, nW, H, 49, 49), DROP_P, DROP_SEED, "cuda")
+    N = want.numel()
+    frac = want.float().mean().item()
+    sigma = (DROP_P * (1 - DROP_P) / N) ** 0.5
+    log(f"  keep fraction {frac:.6f} of {N} entries (expected "
+        f"{1 - DROP_P}, {abs(frac - 1 + DROP_P) / sigma:.2f} sigma)")
+    if abs(frac - (1 - DROP_P)) > 5 * sigma:
+        fail("dropout: keep fraction beyond 5 sigma")
+    g = torch.Generator(device="cuda").manual_seed(11)
+    names = ("dq", "dk", "dv", "d_rel_bias")
+    drop = (DROP_P, DROP_SEED)
+    for dtype in (torch.float32, torch.bfloat16):
+        bf = dtype == torch.bfloat16
+        fwd_bits, bwd_bits = keep_pattern(B, nW, H, dtype, *drop)
+        for what, bits in (("K2", fwd_bits), ("K2b", bwd_bits)):
+            if not torch.equal(bits, want):
+                fail(f"{what} dropout {str(dtype)[6:]}: "
+                     f"{(bits != want).sum().item()} keep bits differ from "
+                     "the plain version's")
+        log(f"  keep bits {str(dtype)[6:]}: K2 and K2b equal the plain "
+            f"version's on all {N} entries")
+        for masked in (False, True):
+            tag = f"{DROP_STAGE} dropout{' masked' if masked else ''}"
+            q, k, v, bias, mask, scale = wa_inputs(B, nW, H, masked, dtype,
+                                                   g)
+            got = window_attention(q, k, v, bias, mask, scale, *drop)
+            ref = window_attention_torch(q, k, v, bias, mask, scale, *drop)
+            check_close(f"K2 {tag}", got, ref.float(), dtype,
+                        k2_ulp_slack(q, k, v, bias, mask, scale, drop=drop)
+                        if bf else None)
+            if not torch.equal(got, window_attention(
+                    q, k, v, bias, mask, scale, *drop)):
+                fail(f"K2 {tag}: the same seed gave other bits")
+            if torch.equal(got, window_attention(
+                    q, k, v, bias, mask, scale, DROP_P, DROP_SEED + 1)):
+                fail(f"K2 {tag}: another seed gave the same output")
+            d_out = torch.randn(q.shape, device="cuda", generator=g).to(dtype)
+            leaves = [t.detach().requires_grad_() for t in (q, k, v, bias)]
+            out = window_attention(*leaves[:3], leaves[3], mask, scale, *drop)
+            grads = torch.autograd.grad(out, leaves, d_out)
+            refs = window_attention_bwd_torch(q, k, v, bias, mask, scale,
+                                              d_out, *drop)
+            slacks = k2_ulp_slack(q, k, v, bias, mask, scale, d_out,
+                                  drop) if bf else None
+            check_grads(f"K2b {tag}", grads, refs, names, dtype,
+                        slacks=slacks)
+            check_ordered(f"K2b {tag}", lambda: ordered(
+                _window_attention_bwd_cuda)(q, k, v, bias, mask, scale,
+                                            d_out, *drop),
+                lambda r: r, refs, names, dtype, slacks=slacks)
+    # the DROP bodies beside the p = 0 ones on the timed stage's tensors
+    q, k, v, bias, mask, scale, d_out = timed_wa_inputs(DROP_STAGE)
+    runs = {"fwd": (lambda: window_attention(q, k, v, bias, mask, scale),
+                    lambda: window_attention(q, k, v, bias, mask, scale,
+                                             *drop)),
+            "bwd": (lambda: window_attention_bwd(q, k, v, bias, mask, scale,
+                                                 d_out),
+                    lambda: window_attention_bwd(q, k, v, bias, mask, scale,
+                                                 d_out, *drop))}
+    for kind, (plain0, dropped) in runs.items():
+        t0, t1 = [], []
+        for _ in range(2):   # in turns: p = 0, dropout, dropout, p = 0
+            t0.append(graph_ms(plain0))
+            t1.append(graph_ms(dropped))
+            t1.append(graph_ms(dropped))
+            t0.append(graph_ms(plain0))
+        rec = (times if kind == "fwd" else btimes)[
+            f"{'K2' if kind == 'fwd' else 'K2b'} {DROP_STAGE}"]
+        rec.update(dropout_ms=float(np.median(t1)),
+                   dropout_p0_ms=float(np.median(t0)), dropout_p=DROP_P)
+        log(f"  time bf16 {'K2' if kind == 'fwd' else 'K2b'} {DROP_STAGE} "
+            f"p = {DROP_P}: {np.median(t1):.4f} ms against p = 0 "
+            f"{np.median(t0):.4f} ms on the same tensors (graph replay, "
+            f"median of 4 each, in turns)")
+
+
 def tiny_train_batches(cdn):
     rng = np.random.default_rng(5)
     cls = dict(img=rng.integers(0, 256, (2, 64, 64, 3)).astype(np.uint8),
@@ -1829,7 +1987,7 @@ def seg_train_batch(rng, B, hw=512):
 # host-bound det and seg steps (the matcher, the loss's host work) are
 # narrower than the flag's effect (4 each read 1.05x and 1.26x for det in
 # two runs)
-DET_REPS = 24
+DET_REPS = 16
 
 
 def deterministic_refusals():
@@ -2092,6 +2250,8 @@ def train_phase():
         f"{launches}")
     det_cost, ordered = deterministic_cost(steps, batches, gen, want,
                                            counters)
+    drop = dropout_train_steps(cfg, model, step_cfg, masks, batches, want,
+                               counters)
     deterministic_refusals()
     launches.update({f"{k} ordered deterministic": n
                      for k, n in ordered.items()})
@@ -2112,6 +2272,7 @@ def train_phase():
         log(f"  train step {task}: median {med:.2f} ms over "
             f"{len(times[task])} steps (min {min(times[task]):.2f}, max "
             f"{max(times[task]):.2f}); peak memory {peak[task]:.0f} MiB")
+    res["dropout"] = drop
     lap_med = float(np.median(lap[4:]))
     res["det"]["lap_ms"] = lap_med
     res["det"]["cost_copy_ms"] = float(np.median(copy_ms))
@@ -2120,6 +2281,103 @@ def train_phase():
         f"{np.median(copy_ms):.3f} ms (1.68 MB); "
         f"{100 * lap_med / res['det']['median_ms']:.1f}% of the det step")
     return launches, res, det_cost
+
+
+# rounds of the dropout steps (cls and det, p = 0 and p = DROP_P in turns),
+# the first DROP_WARMUP of them untimed
+DROP_ROUNDS, DROP_WARMUP = 5, 1
+
+
+def dropout_train_steps(cfg, model, step_cfg, masks, batches, want,
+                        counters):
+    """The flagship's cls and det steps with Swin ``attn_drop_rate``, the
+    shared encoder's ``dropout`` and ``ffn_drop`` at DROP_P (a model built
+    from the config with them, the training phase's weights loaded)
+    against the same steps at 0, each with an optimizer of its own, in
+    turns: every K2 / K2b launch is a kernel launch (the counts of the main
+    path's steps), and no plain window attention runs (its functions fail
+    if called); median step ms (CUDA events) and peak MiB of each."""
+    import copy
+
+    import rscotr_tpu_torch.ops.window_attention as wa
+    from rscotr_tpu_torch.engine.optimizer import build_optimizer
+    from rscotr_tpu_torch.engine.train_step import make_train_step
+    from rscotr_tpu_torch.models import build_model
+    from rscotr_tpu_torch.models.backbones.swin import WindowMSA
+    mc = copy.deepcopy(cfg["model"])
+    mc["backbone"]["attn_drop_rate"] = DROP_P
+    layers = mc["shared_encoder"]["transformerlayers"]
+    layers["attn_cfgs"]["dropout"] = layers["ffn_cfgs"]["ffn_drop"] = DROP_P
+    dmodel = build_model(mc, device="cuda")
+    dmodel.load_state_dict(model.state_dict())
+    rates = sorted({m.attn_drop for m in dmodel.modules()
+                    if isinstance(m, WindowMSA)} |
+                   {m.rate for n, m in dmodel.shared_encoder.named_modules()
+                    if type(m).__name__ == "Dropout"})
+    if rates != [DROP_P]:
+        fail(f"dropout steps: the built model's rates are {rates}")
+    settings = {}
+    for name, m in (("0", model), (str(DROP_P), dmodel)):
+        opt = build_optimizer(cfg["optimizer"], m.named_parameters(),
+                              lr_config=cfg["lr_config"],
+                              grad_clip=cfg["optimizer_config"]["grad_clip"])
+        settings[name] = {t: make_train_step(m, opt, t, step_cfg, masks[t])
+                          for t in ("cls", "det")}
+    log(f"  dropout steps: cls and det with attn_drop_rate, the encoder's "
+        f"dropout and ffn_drop at {DROP_P} against 0, {DROP_ROUNDS} rounds "
+        f"in turns ({DROP_WARMUP} untimed)")
+
+    def refuse(*a, **kw):
+        fail("dropout steps: a plain window attention ran")
+
+    plain = (wa.window_attention_torch, wa.window_attention_bwd_torch)
+    wa.window_attention_torch = wa.window_attention_bwd_torch = refuse
+    times = {(s, t): [] for s in settings for t in ("cls", "det")}
+    peak = {k: 0.0 for k in times}
+    gen = torch.Generator().manual_seed(1)
+    try:
+        for r in range(DROP_ROUNDS):
+            order = list(settings)[::1 if r % 2 == 0 else -1]
+            for setting in order:
+                for task in ("cls", "det"):
+                    before = launch_counts(counters)
+                    torch.cuda.reset_peak_memory_stats()
+                    start = torch.cuda.Event(enable_timing=True)
+                    end = torch.cuda.Event(enable_timing=True)
+                    start.record()
+                    lv = settings[setting][task](batches[task], gen)
+                    end.record()
+                    torch.cuda.synchronize()
+                    now = launch_counts(counters)
+                    got = {k: now[k] - before[k] for k in counters}
+                    if got != want[task]:
+                        fail(f"dropout {setting} {task} step: launches "
+                             f"{got} != {want[task]}")
+                    if not all(np.isfinite(float(v)) for v in lv.values()):
+                        fail(f"dropout {setting} {task} step: non-finite "
+                             "loss terms")
+                    if r >= DROP_WARMUP:
+                        times[(setting, task)].append(
+                            start.elapsed_time(end))
+                        peak[(setting, task)] = max(
+                            peak[(setting, task)],
+                            torch.cuda.max_memory_allocated() / 2 ** 20)
+    finally:
+        wa.window_attention_torch, wa.window_attention_bwd_torch = plain
+    out = {}
+    for (setting, task), ts in times.items():
+        out[f"{task} p={setting}"] = dict(median_ms=float(np.median(ts)),
+                                          peak_mib=peak[(setting, task)],
+                                          launches=want[task])
+    for task in ("cls", "det"):
+        a, b = out[f"{task} p=0"], out[f"{task} p={DROP_P}"]
+        log(f"  train step {task} with dropout {DROP_P}: median "
+            f"{b['median_ms']:.2f} ms, peak {b['peak_mib']:.0f} MiB; at 0: "
+            f"{a['median_ms']:.2f} ms, peak {a['peak_mib']:.0f} MiB "
+            f"({DROP_ROUNDS - DROP_WARMUP} steps each, in turns; launches "
+            f"{want[task]} a step in both)")
+    del dmodel, settings
+    return out
 
 
 @contextlib.contextmanager
@@ -4355,6 +4613,218 @@ BENCH_LINE_KEYS = {
     "value", "vs_baseline", "train_s_per_iter"}
 
 
+# the graft phase: timed entry() calls (after GRAFT_WARMUP untimed), and
+# entry()'s f32 output on the card against its f32 output on the CPU (the
+# same seed's weights and image; TF32 off): 6 encoder and 6 decoder layers
+# of f32 sums in another order, K1 / K2 against their plain versions
+GRAFT_CALLS, GRAFT_WARMUP = 20, 3
+GRAFT_TOL = 1e-3
+# the dry run's ranks and its time limit in this script
+GRAFT_RANKS, GRAFT_TIMEOUT = 4, 480
+
+
+class _EncoderTap:
+    """A global forward hook keeping the shared encoder's output (the
+    memory the two-stage top-k reads)."""
+
+    def __init__(self):
+        from rscotr_tpu_torch.models.layers.transformer import \
+            DeformableEncoder
+        self.cls, self.out = DeformableEncoder, None
+        self.handle = torch.nn.modules.module.register_module_forward_hook(
+            self)
+
+    def __call__(self, module, args, output):
+        if isinstance(module, self.cls):
+            self.out = output.detach()
+
+
+def graft_phase(smi, dryrun):
+    """The driver entry (``rscotr_tpu_torch/graft_entry.py``): ``entry()`` on
+    the card at full width (the paper MTL, bf16, det 256^2), K1 and K2 12
+    launches a call, all on the vector / tensor-core bodies, the median of
+    GRAFT_CALLS calls (CUDA events); the same fn in float32 on the card
+    against the CPU (a config that sets ``compute_dtype`` float32 over the
+    paper MTL; the encoder memory and, where the top-k picks the same
+    proposals, every output within GRAFT_TOL; the picked proposals'
+    scores, sorted, always); beside it ``dryrun``, what ``finish_dryrun``
+    held of the dry run's process."""
+    import tempfile
+
+    from rscotr_tpu_torch import graft_entry
+    t_phase = time.perf_counter()
+    log("graft phase: rscotr_tpu_torch.graft_entry.entry() (the paper MTL, "
+        "bf16, det 256^2)")
+    counters = kernel_counters()
+    fn, (params, img, hw) = graft_entry.entry()
+    for _ in range(GRAFT_WARMUP):
+        fn(params, img, hw)
+    torch.cuda.synchronize()
+    want = {"K1": 12, "K1b": 0, "K2": 12, "K2b": 0, "K3'": 0, "K4": 0,
+            "K5": 0, "K1 vec": 12, "K2 tc": 12}
+    ms, per_call = [], None
+
+    def counts():
+        # K2's tensor-core launches beside the rest
+        return dict(launch_counts(counters),
+                    **{"K2 tc": counters["K2"].tc_launches})
+
+    for i in range(GRAFT_CALLS):
+        before = counts()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fn(params, img, hw)
+        end.record()
+        torch.cuda.synchronize()
+        now = counts()
+        got = {k: now[k] - before[k] for k in want}
+        if got != want:
+            fail(f"entry() call {i}: launches {got} != {want}")
+        if not all(torch.isfinite(o).all() for o in out):
+            fail(f"entry() call {i}: non-finite outputs")
+        ms.append(start.elapsed_time(end))
+        per_call = got
+    res = dict(entry_ms=float(np.median(ms)), entry_launches=per_call)
+    log(f"  entry(): outputs {[tuple(o.shape) for o in out]}, launches a "
+        f"call {per_call}; median {res['entry_ms']:.2f} ms over "
+        f"{GRAFT_CALLS} calls (CUDA events, {GRAFT_WARMUP} untimed first) "
+        f"[{smi}]")
+    del fn, params, out
+    # float32 on the card against the CPU
+    prev = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    tap = _EncoderTap()
+    try:
+        with tempfile.TemporaryDirectory(prefix="graft_f32_") as td:
+            path = os.path.join(td, "paper_f32.py")
+            with open(path, "w") as f:
+                f.write(f"_base_ = {graft_entry.FLAGSHIP_CFG!r}\n"
+                        "model = dict(compute_dtype='float32')\n")
+            x = torch.from_numpy(np.random.default_rng(8).normal(
+                size=(1, 256, 256, 3)).astype(np.float32))
+            outs, mem = {}, {}
+            for dev in ("cuda", "cpu"):
+                fn, (params, _, hw) = graft_entry.entry(device=dev,
+                                                        config=path)
+                outs[dev] = [o.float().cpu() for o in fn(params, x.to(dev),
+                                                         hw)]
+                mem[dev] = tap.out.float().cpu()
+                del fn, params
+    finally:
+        tap.handle.remove()
+        torch.backends.cudnn.allow_tf32 = prev
+
+    def err(a, b):
+        return ((a - b).abs() - GRAFT_TOL * b.abs()).max().item()
+
+    m_err = (mem["cuda"] - mem["cpu"]).abs().max().item()
+    if err(mem["cuda"], mem["cpu"]) > GRAFT_TOL:
+        fail(f"entry() f32 card vs CPU: encoder memory max abs error "
+             f"{m_err:.3e}")
+    same_pick = err(outs["cuda"][3], outs["cpu"][3]) <= GRAFT_TOL
+    o_err = [(a - b).abs().max().item()
+             for a, b in zip(outs["cuda"], outs["cpu"])]
+    # order-free: the picked proposals' best class scores, sorted (near-tied
+    # random-init scores may trade places at or inside the cut)
+    picked = [o[2].max(-1).values.sort(-1, descending=True).values
+              for o in (outs["cuda"], outs["cpu"])]
+    s_err = (picked[0] - picked[1]).abs().max().item()
+    if err(*picked) > GRAFT_TOL:
+        fail(f"entry() f32 card vs CPU: sorted top-k scores max abs error "
+             f"{s_err:.3e}")
+    if same_pick:
+        for name, a, b in zip(("all_cls", "all_coords", "topk_score",
+                               "topk_anchor"), outs["cuda"], outs["cpu"]):
+            if err(a, b) > GRAFT_TOL:
+                fail(f"entry() f32 card vs CPU: {name} max abs error "
+                     f"{(a - b).abs().max().item():.3e}")
+    log(f"  entry() float32, card vs CPU (TF32 off): encoder memory max abs "
+        f"error {m_err:.2e}; the picked proposals' scores, sorted, "
+        f"{s_err:.2e}; "
+        + ("the top-k picks the same proposals; outputs max abs error "
+           + ", ".join(f"{e:.2e}" for e in o_err) if same_pick else
+           "the top-k's random-init scores pick other proposals at the cut: "
+           "outputs not compared")
+        + f" (tol {GRAFT_TOL:g} + {GRAFT_TOL:g}*|ref|)")
+    res.update(f32_memory_err=m_err, f32_same_pick=same_pick,
+               f32_output_err=o_err, f32_sorted_score_err=s_err)
+    res.update(dryrun)
+    res["phase_s"] = time.perf_counter() - t_phase
+    log(f"  graft phase {res['phase_s']:.1f} s; dryrun_multichip("
+        f"{GRAFT_RANKS}) {dryrun['dryrun_s']:.1f} s beside the overfit "
+        "proof and the devaug --deterministic runs, four ranks sharing one "
+        f"card over gloo (no scaling figure) [{smi}]")
+    return res
+
+
+def start_dryrun():
+    """``python -m rscotr_tpu_torch.graft_entry 4`` (the driver entry's dry
+    run, four ranks sharing the card over gloo) in a session of its own,
+    so that it runs beside the overfit proof and the devaug
+    ``--deterministic`` runs, none of which prints a timing it would move
+    but the proof's seconds; ``finish_dryrun`` waits for it."""
+    import tempfile
+    work = tempfile.mkdtemp(prefix="rscotr_dryrun_")
+    run = dict(work=work, t0=time.time())
+    run["logf"] = open(os.path.join(work, "dryrun.log"), "w")
+    log(f"graft dry run: python -m rscotr_tpu_torch.graft_entry "
+        f"{GRAFT_RANKS} in a process of its own, beside the overfit proof")
+    run["proc"] = subprocess.Popen(
+        [sys.executable, "-m", "rscotr_tpu_torch.graft_entry",
+         str(GRAFT_RANKS)], cwd=ROOT, stdout=run["logf"],
+        stderr=subprocess.STDOUT, start_new_session=True)
+    return run
+
+
+def stop_dryrun(run) -> None:
+    """End the dry run's session (the CLI and its ranks) if it still runs,
+    and remove its files."""
+    import shutil
+    import signal
+    if run["proc"].poll() is None:
+        os.killpg(run["proc"].pid, signal.SIGKILL)
+        run["proc"].wait()
+    run["logf"].close()
+    shutil.rmtree(run["work"], ignore_errors=True)
+
+
+def finish_dryrun(run, timeout=GRAFT_TIMEOUT) -> dict:
+    """Wait for the dry run and hold it: exit 0, every leg's line (the
+    data-parallel steps, the grouped cls steps, the three device-augment
+    steps, the eval, FSDP's step and checkpoint, the 2 x 2 mesh, the
+    trajectory) over gloo on the card, ``dryrun_multichip(4) OK`` last."""
+    try:
+        rc = run["proc"].wait(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        fail(f"dryrun_multichip({GRAFT_RANKS}): still running after "
+             f"{timeout} s of waiting")
+    run["logf"].flush()
+    # its own seconds: to its log's last write (it ends while the overfit
+    # proof is waited for)
+    secs = os.path.getmtime(run["logf"].name) - run["t0"]
+    with open(run["logf"].name) as f:
+        text = f.read()
+    lines = [ln for ln in text.splitlines()
+             if ln.startswith(("dryrun_multichip", "FSDP over", "TP over"))]
+    legs = ("] cls: loss=", "] det: loss=", "] seg: loss=",
+            "cls group K=2: loss=", "cls devaug: loss=", "det devaug: loss=",
+            "seg devaug: loss=", "] eval: ", "fsdp] det: loss=",
+            "fsdp] checkpoint gather/save/restore", "dp*tp] cls: loss=",
+            "trajectory == 1 process")
+    missing = [leg for leg in legs if not any(leg in ln for ln in lines)]
+    if rc != 0 or missing or not lines or "over gloo" not in lines[0] or \
+            lines[-1] != f"dryrun_multichip({GRAFT_RANKS}) OK":
+        fail(f"dryrun_multichip({GRAFT_RANKS}): exit {rc}, missing "
+             f"{missing}:\n{text[-3000:]}")
+    log(f"graft dry run: python -m rscotr_tpu_torch.graft_entry "
+        f"{GRAFT_RANKS}, exit 0, {secs:.1f} s from its start to its last "
+        "line")
+    for ln in lines:
+        log(f"  {ln}")
+    return dict(dryrun_s=secs, dryrun_lines=lines)
+
+
 def bench_phase(smi):
     """``python -m rscotr_tpu_torch.bench`` in a process of its own, as the
     driver would run a harness (``RSCOTR_BENCH_TRAIN_ITERS`` at its
@@ -4902,6 +5372,13 @@ def tools_phase(smi, kept):
     return {k: {kk: v[kk] for kk in K4} for k, v in paths.items()}, res
 
 
+def dropout_fields(r):
+    """K2's and K2b's DROP bodies at the timed stage: their time, the p = 0
+    bodies' on the same tensors in the same turns, the rate."""
+    return dict(dropout_ms=r["dropout_ms"], dropout_p0_ms=r["dropout_p0_ms"],
+                dropout_p=r["dropout_p"])
+
+
 def kernels_line(times, btimes, qtimes, err, berr, qerr, k6err, k6levels,
                  launches):
     """The ``{"kernels": [...]}`` object: eight kernels, each with its
@@ -4952,6 +5429,7 @@ def kernels_line(times, btimes, qtimes, err, berr, qerr, k6err, k6levels,
               times["K2 det800.s0"], err["K2"], det_s0, library=sdpa,
               launches_serving=launches["K2 serving"],
               launches_paths=launches["paths"]["K2"],
+              **dropout_fields(times["K2 det800.s0"]),
               stages=stages(times, "K2")),
         entry("msda_bwd", "msda_bwd.cu",
               pallas + "ms_deform_attn_kernel.py:138", "K1b",
@@ -4987,6 +5465,7 @@ def kernels_line(times, btimes, qtimes, err, berr, qerr, k6err, k6levels,
               ordered_ms=btimes["K2b det800.s0"]["ordered_ms"],
               ordered_launches_deterministic_steps=launches[
                   "K2b ordered deterministic"],
+              **dropout_fields(btimes["K2b det800.s0"]),
               stages=stages(btimes, "K2b")),
         entry("ws_fwd", "msda_ws.cu", pallas + "msda_ws.py:110", "K4",
               qtimes["K4 det-encoder"], qerr["K4"], ws_at,
@@ -5046,6 +5525,7 @@ def main(argv) -> int:
 
     err, times = kernel_phase()
     berr, btimes = backward_phase()
+    dropout_phase(times, btimes)
     qerr, qtimes, qlaunches = quad_phase()
     k6err, k6levels, k6launches = k6_phase()
     slice_parity_phase()
@@ -5059,21 +5539,30 @@ def main(argv) -> int:
     xlaunches, export = export_phase(smi, det_results)
     llaunches, loop = loop_phase(smi)
     alaunches, aug = aug_loop_phase(smi, stages)
-    proof = {}
+    proof, dry = {}, {}
+
+    def after_timed():
+        proof.update(run=start_overfit_proof())
+        dry.update(run=start_dryrun())
+
     try:
-        # the proof starts once the scale-out phase's timed runs have
-        # ended, and runs beside its untimed rest and the devaug
-        # --deterministic runs, none of which prints a timing
-        scale = scaleout_phase(
-            smi, after_timed=lambda: proof.update(run=start_overfit_proof()))
+        # the proof and the driver entry's dry run start once the scale-out
+        # phase's timed runs have ended, and run beside its untimed rest
+        # and the devaug --deterministic runs, none of which prints a
+        # timing
+        scale = scaleout_phase(smi, after_timed=after_timed)
         deterministic_devaug()
         plaunches, tools["overfit"] = finish_overfit_proof(proof["run"], smi)
+        dryrun = finish_dryrun(dry["run"])
     finally:
         if "run" in proof:
             stop_overfit_proof(proof["run"])
+        if "run" in dry:
+            stop_dryrun(dry["run"])
     tlaunches["overfit proof (tiny MTL, trains and evaluates; its own "
               "process)"] = plaunches
     bench = bench_phase(smi)
+    graft = graft_phase(smi, dryrun)
     library_phase(times, btimes)
     # K3' is launched by the quad-gather path; the training run launches it
     # 0 times (train_phase checks every step), K1b doing its work there
@@ -5089,6 +5578,11 @@ def main(argv) -> int:
     zlaunches.update(xlaunches)
     zlaunches.update(llaunches)
     zlaunches.update(alaunches)
+    zlaunches["graft entry() call (paper MTL det 256^2)"] = \
+        graft["entry_launches"]
+    for t in ("cls", "det"):
+        zlaunches[f"flagship {t} step, dropout {DROP_P}"] = \
+            train["dropout"][f"{t} p={DROP_P}"]["launches"]
     launches["paths"] = {k: {path: n[k] for path, n in zlaunches.items()}
                          for k in ("K1", "K1b", "K2", "K2b")}
 
@@ -5097,7 +5591,7 @@ def main(argv) -> int:
         f"serve {n} {ms:.3f} ms, peak {mb:.0f} MiB"
         for n, (ms, mb) in lat.items()) + "; " + "; ".join(
         f"train {t} {r['median_ms']:.2f} ms, peak {r['peak_mib']:.0f} MiB"
-        for t, r in train.items()) + "; " + "; ".join(
+        for t, r in train.items() if t != "dropout") + "; " + "; ".join(
         f"{n} {r['median_ms']:.2f} ms, peak {r['peak_mib']:.0f} MiB"
         for n, r in zoo.items()) + "; " + "; ".join(
         f"eval {n} batch {r['median_batch_ms']:.2f} ms, "
@@ -5152,7 +5646,15 @@ def main(argv) -> int:
         + f"; bench {bench['value']} img/s training, "
         f"{bench['train_s_per_iter']} s/iter, inference "
         f"{bench['infer_img_s']} img/s, mfu {bench['mfu']}; bench phase "
-        f"{bench['phase_s']:.1f} s")
+        f"{bench['phase_s']:.1f} s; " + "; ".join(
+            f"train {t} step with dropout {DROP_P} "
+            f"{train['dropout'][f'{t} p={DROP_P}']['median_ms']:.2f} ms "
+            f"against {train['dropout'][f'{t} p=0']['median_ms']:.2f} ms"
+            for t in ("cls", "det"))
+        + f"; graft entry() {graft['entry_ms']:.2f} ms a call; "
+        f"dryrun_multichip({GRAFT_RANKS}) {graft['dryrun_s']:.1f} s (ranks "
+        f"sharing one card, beside the overfit proof); graft phase "
+        f"{graft['phase_s']:.1f} s")
     log(smi)
     print(json.dumps(kernels_line(times, btimes, qtimes, err, berr, qerr,
                                   k6err, k6levels, launches)), flush=True)

@@ -36,6 +36,13 @@
 //   owning whole query rows; its QK and PV loops load both FMA operands from
 //   shared memory, which caps it near 1/8 of the f32 rate (PERF.md).
 //
+// Attention dropout (Swin's attn_drop_rate in training): both bodies have a
+// DROP instantiation, taken at launch when the rate is above 0, that
+// multiplies P by keep / (1 - p) after the softmax and before P v, the keep
+// bits regenerated from the call's seed (philox.cuh); in bf16 P' = P keep /
+// (1 - p) is what is rounded to the operand. Rate 0 launches the bodies
+// above, compiled as they were.
+//
 // q, k, v may be strided views of the fused qkv projection (no copies);
 // the output is contiguous (B, nW, H, n, hd).
 #include <math.h>
@@ -47,14 +54,14 @@
 
 // ---- CUDA-core instantiation (f32, and bf16 outside the tensor-core shapes)
 
-template <typename T>
+template <typename T, bool DROP>
 __global__ void __launch_bounds__(WA_THREADS) window_attn_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     Strides qs, Strides ks, Strides vs,
     const float* __restrict__ rel_bias,  // (H, n, n)
     const float* __restrict__ mask,      // (nW, n, n) or nullptr
     T* __restrict__ out,                 // (B * nW, H, n, hd)
-    int H, int nW, int n, int hd, float scale) {
+    int H, int nW, int n, int hd, float scale, Dropout drop) {
   extern __shared__ float smem[];
   const int kst = hd + 1;
   float* sq = smem;                 // n * hd, pre-scaled
@@ -104,9 +111,13 @@ __global__ void __launch_bounds__(WA_THREADS) window_attn_kernel(
       sum += e;
     }
     sum = warp_sum(sum);
-    // P in v's dtype before P v, as the tensor-core kernel and the Pallas
-    // body round it (the identity for f32)
-    for (int j = lane; j < n; j += 32) prow[j] = round_as<T>(prow[j] / sum);
+    // P (P' under dropout) in v's dtype before P v, as the tensor-core
+    // kernel and the Pallas body round it (the identity for f32)
+    const unsigned long long row0 = ((bw * H + h) * n + i) * (long long)n;
+    for (int j = lane; j < n; j += 32) {
+      const float p = prow[j] / sum;
+      prow[j] = round_as<T>(DROP ? p * dropout_factor(drop, row0 + j) : p);
+    }
     __syncwarp();
     for (int d = lane; d < hd; d += 32) {
       float o = 0.f;
@@ -123,38 +134,52 @@ static size_t smem_bytes(int n, int hd) {
           (size_t)(WA_THREADS / 32) * n);
 }
 
-template <typename T>
+template <typename T, bool DROP>
 static cudaError_t launch(const void* q, const void* k, const void* v,
                           const long long* st, const float* rel_bias,
                           const float* mask, void* out, int BW, int H, int nW,
-                          int n, int hd, float scale, cudaStream_t stream) {
+                          int n, int hd, float scale, Dropout drop,
+                          cudaStream_t stream) {
   const size_t smem = smem_bytes(n, hd);
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
-        window_attn_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
+        window_attn_kernel<T, DROP>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return e;
   }
   Strides qs{st[0], st[1], st[2]}, ks{st[3], st[4], st[5]},
       vs{st[6], st[7], st[8]};
-  window_attn_kernel<T><<<(unsigned)((long long)BW * H), WA_THREADS, smem,
-                          stream>>>(
+  window_attn_kernel<T, DROP><<<(unsigned)((long long)BW * H), WA_THREADS,
+                                smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), qs, ks, vs, rel_bias, mask,
-      static_cast<T*>(out), H, nW, n, hd, scale);
+      static_cast<T*>(out), H, nW, n, hd, scale, drop);
   return cudaGetLastError();
+}
+
+template <typename T>
+static cudaError_t launch_any(const void* q, const void* k, const void* v,
+                              const long long* st, const float* rel_bias,
+                              const float* mask, void* out, int BW, int H,
+                              int nW, int n, int hd, float scale,
+                              Dropout drop, cudaStream_t stream) {
+  if (drop.threshold > 0)
+    return launch<T, true>(q, k, v, st, rel_bias, mask, out, BW, H, nW, n, hd,
+                           scale, drop, stream);
+  return launch<T, false>(q, k, v, st, rel_bias, mask, out, BW, H, nW, n, hd,
+                          scale, drop, stream);
 }
 
 // ---- tensor-core instantiation (bf16) -------------------------------------
 
-template <int HD>
+template <int HD, bool DROP>
 __global__ void __launch_bounds__(WTC_THREADS) window_attn_tc_kernel(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
     const __nv_bfloat16* __restrict__ v, Strides qs, Strides ks, Strides vs,
     const float* __restrict__ rel_bias,  // (H, n, n)
     const float* __restrict__ mask,      // (nW, n, n) or nullptr
     __nv_bfloat16* __restrict__ out,     // (B * nW, H, n, HD)
-    int BW, int nW, int n, int run, float scale) {
+    int BW, int nW, int n, int run, float scale, Dropout drop) {
   constexpr int TILE = WTC_ROWS * (HD + 8);
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __nv_bfloat16* sm = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [2][3]
@@ -213,6 +238,11 @@ __global__ void __launch_bounds__(WTC_THREADS) window_attn_tc_kernel(
 #pragma unroll
       for (int c = 0; c < 4; ++c) s[nt][c] = fmaf(acc[nt][c], scale, s[nt][c]);
     softmax_rows(s);
+    if (DROP)
+      apply_dropout(s,
+                    dropout_bits(drop, (bw * H + h) * (long long)n * n, n, r0,
+                                 t),
+                    drop.scale);
     uint32_t pa[4][4];
     c_to_a_frags(pa, s);
     float o[HD / 8][4] = {};
@@ -223,29 +253,42 @@ __global__ void __launch_bounds__(WTC_THREADS) window_attn_tc_kernel(
   }
 }
 
-template <int HD>
+template <int HD, bool DROP>
 static cudaError_t launch_tc(const void* q, const void* k, const void* v,
                              const long long* st, const float* rel_bias,
                              const float* mask, void* out, int BW, int H,
                              int nW, int n, int run, float scale,
-                             cudaStream_t stream) {
+                             Dropout drop, cudaStream_t stream) {
   const size_t smem = 2 * 3 * WTC_ROWS * (HD + 8) * sizeof(__nv_bfloat16) +
                       (mask ? 2 * mask_stage_floats(n) * sizeof(float) : 0);
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
-        window_attn_tc_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
+        window_attn_tc_kernel<HD, DROP>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return e;
   }
   Strides qs{st[0], st[1], st[2]}, ks{st[3], st[4], st[5]},
       vs{st[6], st[7], st[8]};
   const dim3 grid((unsigned)((BW + run - 1) / run), (unsigned)H);
-  window_attn_tc_kernel<HD><<<grid, WTC_THREADS, smem, stream>>>(
+  window_attn_tc_kernel<HD, DROP><<<grid, WTC_THREADS, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), qs, ks, vs, rel_bias, mask,
-      static_cast<__nv_bfloat16*>(out), BW, nW, n, run, scale);
+      static_cast<__nv_bfloat16*>(out), BW, nW, n, run, scale, drop);
   return cudaGetLastError();
+}
+
+template <int HD>
+static cudaError_t launch_tc_any(const void* q, const void* k, const void* v,
+                                 const long long* st, const float* rel_bias,
+                                 const float* mask, void* out, int BW, int H,
+                                 int nW, int n, int run, float scale,
+                                 Dropout drop, cudaStream_t stream) {
+  if (drop.threshold > 0)
+    return launch_tc<HD, true>(q, k, v, st, rel_bias, mask, out, BW, H, nW, n,
+                               run, scale, drop, stream);
+  return launch_tc<HD, false>(q, k, v, st, rel_bias, mask, out, BW, H, nW, n,
+                              run, scale, drop, stream);
 }
 
 // strides: host array of 9 element strides, (image * window, head, token)
@@ -253,31 +296,40 @@ static cudaError_t launch_tc(const void* q, const void* k, const void* v,
 // run > 0: the tensor-core kernel, each block walking `run` consecutive
 // (image * window) tiles of one head (bf16, n <= 64, hd 32 or 64, bases and
 // strides multiples of 16 bytes: the wrapper checks); run == 0: the
-// CUDA-core kernel. Returns a cudaError_t code.
+// CUDA-core kernel. drop_threshold 0: no dropout (the bodies without it);
+// else P is multiplied by drop_scale where word 0 of Philox(flat index,
+// drop_seed) >= drop_threshold (at most 2^32), by 0 elsewhere. Returns a
+// cudaError_t code.
 extern "C" int window_attn_fwd(const void* q, const void* k, const void* v,
                                int dtype, const long long* strides,
                                const float* rel_bias, const float* mask,
                                void* out, int BW, int H, int nW, int n, int hd,
-                               float scale, int run, void* stream) {
-  if (BW < 1 || H < 1 || nW < 1 || n < 1 || hd < 1 || BW % nW != 0 || run < 0)
+                               float scale, int run,
+                               unsigned long long drop_seed,
+                               unsigned long long drop_threshold,
+                               float drop_scale, void* stream) {
+  if (BW < 1 || H < 1 || nW < 1 || n < 1 || hd < 1 || BW % nW != 0 ||
+      run < 0 || drop_threshold > (1ull << 32))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const Dropout drop{drop_seed, drop_threshold, drop_scale};
   if (run > 0) {
     if (dtype != kBF16 || n > WTC_ROWS || H > 65535)
       return (int)cudaErrorInvalidValue;
     if (hd == 32)
-      return (int)launch_tc<32>(q, k, v, strides, rel_bias, mask, out, BW, H,
-                                nW, n, run, scale, s);
+      return (int)launch_tc_any<32>(q, k, v, strides, rel_bias, mask, out, BW,
+                                    H, nW, n, run, scale, drop, s);
     if (hd == 64)
-      return (int)launch_tc<64>(q, k, v, strides, rel_bias, mask, out, BW, H,
-                                nW, n, run, scale, s);
+      return (int)launch_tc_any<64>(q, k, v, strides, rel_bias, mask, out, BW,
+                                    H, nW, n, run, scale, drop, s);
     return (int)cudaErrorInvalidValue;
   }
   if (dtype == kF32)
-    return (int)launch<float>(q, k, v, strides, rel_bias, mask, out, BW, H, nW,
-                              n, hd, scale, s);
+    return (int)launch_any<float>(q, k, v, strides, rel_bias, mask, out, BW,
+                                  H, nW, n, hd, scale, drop, s);
   if (dtype == kBF16)
-    return (int)launch<__nv_bfloat16>(q, k, v, strides, rel_bias, mask, out,
-                                      BW, H, nW, n, hd, scale, s);
+    return (int)launch_any<__nv_bfloat16>(q, k, v, strides, rel_bias, mask,
+                                          out, BW, H, nW, n, hd, scale, drop,
+                                          s);
   return (int)cudaErrorInvalidValue;
 }

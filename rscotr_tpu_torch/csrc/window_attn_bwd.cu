@@ -56,6 +56,14 @@
 // a (blocks per head, H, n, n) buffer, and a second launch,
 // bias_sum_kernel, adds the slices in block order, one thread per entry of
 // d_rel_bias. dQ, dK and dV have one writer each in both bodies.
+//
+// Attention dropout (the DROP instantiations, taken at launch when the rate
+// is above 0, in both bodies and with or without the partials buffer): the
+// forward used P' = P M, M = keep / (1 - p) with the keep bits of the same
+// seed, regenerated here (philox.cuh). Then dV = P'^T dO, dP = (dO v^T) M,
+// and dS = P (dP - rowsum(P dP)) as before: rowsum(P dP) = rowsum(dO O)
+// with O = P' v, so the formula stays exact. In bf16 P' (not P) is the
+// operand of dV.
 #include "common.cuh"
 #include "window_attn_tc.cuh"
 
@@ -63,7 +71,7 @@
 
 // ---- CUDA-core instantiation (f32, and bf16 outside the tensor-core shapes)
 
-template <typename T>
+template <typename T, bool DROP>
 __global__ void __launch_bounds__(WAB_THREADS) window_attn_bwd_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     Strides qs, Strides ks, Strides vs,
@@ -73,7 +81,7 @@ __global__ void __launch_bounds__(WAB_THREADS) window_attn_bwd_kernel(
     T* __restrict__ dq, T* __restrict__ dk, T* __restrict__ dv,
     float* __restrict__ d_bias,          // (H, n, n), zeroed by the caller
     float* __restrict__ partials,        // (BW, H, n, n) or nullptr
-    int H, int nW, int n, int hd, float scale) {
+    int H, int nW, int n, int hd, float scale, Dropout drop) {
   extern __shared__ float smem[];
   const int kst = hd + 1;
   float* sq = smem;                 // n * hd, pre-scaled
@@ -113,6 +121,7 @@ __global__ void __launch_bounds__(WAB_THREADS) window_attn_bwd_kernel(
     const float* doi = sdo + i * hd;
     float* pi = sp + i * n;
     float* dsi = sds + i * n;
+    const unsigned long long row0 = ((bw * H + h) * n + i) * (long long)n;
     float mx = -INFINITY;
     for (int j = lane; j < n; j += 32) {
       const float* kj = sk + j * kst;
@@ -136,12 +145,17 @@ __global__ void __launch_bounds__(WAB_THREADS) window_attn_bwd_kernel(
       const float p = pi[j] / sum;
       float dp = 0.f;
       for (int d = 0; d < hd; ++d) dp += doi[d] * vj[d];
+      if (DROP) dp *= dropout_factor(drop, row0 + j);
       pi[j] = p;
       dsi[j] = dp;
       dsum += p * dp;
     }
     dsum = warp_sum(dsum);
-    for (int j = lane; j < n; j += 32) dsi[j] = pi[j] * (dsi[j] - dsum);
+    for (int j = lane; j < n; j += 32) {
+      dsi[j] = pi[j] * (dsi[j] - dsum);
+      // P' for dV (the bits drawn again rather than kept)
+      if (DROP) pi[j] *= dropout_factor(drop, row0 + j);
+    }
     __syncwarp();
     for (int d = lane; d < hd; d += 32) {
       float acc = 0.f;
@@ -214,38 +228,55 @@ static size_t smem_bytes(int n, int hd) {
          ((size_t)n * hd * 2 + (size_t)n * (hd + 1) * 2 + (size_t)n * n * 3);
 }
 
-template <typename T>
+template <typename T, bool DROP>
 static cudaError_t launch(const void* q, const void* k, const void* v,
                           const long long* st, const float* rel_bias,
                           const float* mask, const void* d_out, void* dq,
                           void* dk, void* dv, float* d_bias, float* partials,
                           int BW, int H, int nW, int n, int hd, float scale,
-                          cudaStream_t stream) {
+                          Dropout drop, cudaStream_t stream) {
   const size_t smem = smem_bytes(n, hd);
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
-        window_attn_bwd_kernel<T>,
+        window_attn_bwd_kernel<T, DROP>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return e;
   }
   Strides qs{st[0], st[1], st[2]}, ks{st[3], st[4], st[5]},
       vs{st[6], st[7], st[8]};
-  window_attn_bwd_kernel<T><<<(unsigned)((long long)BW * H), WAB_THREADS,
-                              smem, stream>>>(
+  window_attn_bwd_kernel<T, DROP><<<(unsigned)((long long)BW * H),
+                                    WAB_THREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), qs, ks, vs, rel_bias, mask,
       static_cast<const T*>(d_out), static_cast<T*>(dq), static_cast<T*>(dk),
-      static_cast<T*>(dv), d_bias, partials, H, nW, n, hd, scale);
+      static_cast<T*>(dv), d_bias, partials, H, nW, n, hd, scale, drop);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess || !partials) return e;
   return launch_bias_sum(partials, BW, H, n, d_bias, stream);
+}
+
+template <typename T>
+static cudaError_t launch_any(const void* q, const void* k, const void* v,
+                              const long long* st, const float* rel_bias,
+                              const float* mask, const void* d_out, void* dq,
+                              void* dk, void* dv, float* d_bias,
+                              float* partials, int BW, int H, int nW, int n,
+                              int hd, float scale, Dropout drop,
+                              cudaStream_t stream) {
+  if (drop.threshold > 0)
+    return launch<T, true>(q, k, v, st, rel_bias, mask, d_out, dq, dk, dv,
+                           d_bias, partials, BW, H, nW, n, hd, scale, drop,
+                           stream);
+  return launch<T, false>(q, k, v, st, rel_bias, mask, d_out, dq, dk, dv,
+                          d_bias, partials, BW, H, nW, n, hd, scale, drop,
+                          stream);
 }
 
 // ---- tensor-core instantiation (bf16) -------------------------------------
 
 #define WTC_PLD 72  // row stride of the shared P and dS tiles (64 + 8)
 
-template <int HD>
+template <int HD, bool DROP>
 __global__ void __launch_bounds__(WTC_THREADS) window_attn_bwd_tc_kernel(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
     const __nv_bfloat16* __restrict__ v, Strides qs, Strides ks, Strides vs,
@@ -256,7 +287,7 @@ __global__ void __launch_bounds__(WTC_THREADS) window_attn_bwd_tc_kernel(
     __nv_bfloat16* __restrict__ dv,
     float* __restrict__ d_bias,                // (H, n, n), zeroed by caller
     float* __restrict__ partials,  // (gridDim.x, H, n, n) or nullptr
-    int BW, int nW, int n, int run, float scale) {
+    int BW, int nW, int n, int run, float scale, Dropout drop) {
   constexpr int LD = HD + 8;
   constexpr int TILE = WTC_ROWS * LD;
   constexpr int PT = WTC_ROWS * WTC_PLD;
@@ -333,6 +364,11 @@ __global__ void __launch_bounds__(WTC_THREADS) window_attn_bwd_tc_kernel(
     softmax_rows(p);
     float ds[8][4] = {};
     mma_rows_by_rows<HD>(ds, sdo, sv, warp, lane);  // dP = dO v^T
+    uint32_t keep = 0u;
+    if (DROP) {  // dP = (dO v^T) M
+      keep = dropout_bits(drop, (bw * H + h) * (long long)n * n, n, r0, t);
+      apply_dropout(ds, keep, drop.scale);
+    }
     float d0 = 0.f, d1 = 0.f;
 #pragma unroll
     for (int nt = 0; nt < 8; ++nt) {
@@ -349,12 +385,18 @@ __global__ void __launch_bounds__(WTC_THREADS) window_attn_bwd_tc_kernel(
       ds[nt][3] = p[nt][3] * (ds[nt][3] - d1);
 #pragma unroll
       for (int c = 0; c < 4; ++c) dsum[nt][c] += ds[nt][c];
-      // bf16 copies for phase 2
+      // bf16 copies for phase 2 (P' = P M under dropout)
+      float pm[4];
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+        pm[c] = !DROP                           ? p[nt][c]
+                : (keep >> (4 * nt + c)) & 1u ? p[nt][c] * drop.scale
+                                              : 0.f;
       const int col = nt * 8 + 2 * t;
       *reinterpret_cast<uint32_t*>(sp + r0 * WTC_PLD + col) =
-          pack_bf16(p[nt][0], p[nt][1]);
+          pack_bf16(pm[0], pm[1]);
       *reinterpret_cast<uint32_t*>(sp + (r0 + 8) * WTC_PLD + col) =
-          pack_bf16(p[nt][2], p[nt][3]);
+          pack_bf16(pm[2], pm[3]);
       *reinterpret_cast<uint32_t*>(sp + PT + r0 * WTC_PLD + col) =
           pack_bf16(ds[nt][0], ds[nt][1]);
       *reinterpret_cast<uint32_t*>(sp + PT + (r0 + 8) * WTC_PLD + col) =
@@ -406,33 +448,51 @@ __global__ void __launch_bounds__(WTC_THREADS) window_attn_bwd_tc_kernel(
     }
 }
 
-template <int HD>
+template <int HD, bool DROP>
 static cudaError_t launch_tc(const void* q, const void* k, const void* v,
                              const long long* st, const float* rel_bias,
                              const float* mask, const void* d_out, void* dq,
                              void* dk, void* dv, float* d_bias,
                              float* partials, int BW, int H, int nW, int n,
-                             int run, float scale, cudaStream_t stream) {
+                             int run, float scale, Dropout drop,
+                             cudaStream_t stream) {
   const size_t smem = (2 * 4 * WTC_ROWS * (HD + 8) + 2 * WTC_ROWS * WTC_PLD) *
                           sizeof(__nv_bfloat16) +
                       (mask ? 2 * mask_stage_floats(n) * sizeof(float) : 0);
   cudaError_t e = cudaFuncSetAttribute(
-      window_attn_bwd_tc_kernel<HD>,
+      window_attn_bwd_tc_kernel<HD, DROP>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return e;
   Strides qs{st[0], st[1], st[2]}, ks{st[3], st[4], st[5]},
       vs{st[6], st[7], st[8]};
   const dim3 grid((unsigned)((BW + run - 1) / run), (unsigned)H);
   typedef __nv_bfloat16 bf;
-  window_attn_bwd_tc_kernel<HD><<<grid, WTC_THREADS, smem, stream>>>(
+  window_attn_bwd_tc_kernel<HD, DROP><<<grid, WTC_THREADS, smem, stream>>>(
       static_cast<const bf*>(q), static_cast<const bf*>(k),
       static_cast<const bf*>(v), qs, ks, vs, rel_bias, mask,
       static_cast<const bf*>(d_out), static_cast<bf*>(dq),
       static_cast<bf*>(dk), static_cast<bf*>(dv), d_bias, partials, BW, nW,
-      n, run, scale);
+      n, run, scale, drop);
   e = cudaGetLastError();
   if (e != cudaSuccess || !partials) return e;
   return launch_bias_sum(partials, (int)grid.x, H, n, d_bias, stream);
+}
+
+template <int HD>
+static cudaError_t launch_tc_any(const void* q, const void* k, const void* v,
+                                 const long long* st, const float* rel_bias,
+                                 const float* mask, const void* d_out,
+                                 void* dq, void* dk, void* dv, float* d_bias,
+                                 float* partials, int BW, int H, int nW,
+                                 int n, int run, float scale, Dropout drop,
+                                 cudaStream_t stream) {
+  if (drop.threshold > 0)
+    return launch_tc<HD, true>(q, k, v, st, rel_bias, mask, d_out, dq, dk, dv,
+                               d_bias, partials, BW, H, nW, n, run, scale,
+                               drop, stream);
+  return launch_tc<HD, false>(q, k, v, st, rel_bias, mask, d_out, dq, dk, dv,
+                              d_bias, partials, BW, H, nW, n, run, scale,
+                              drop, stream);
 }
 
 // strides: host array of 9 element strides, (image * window, head, token)
@@ -444,37 +504,43 @@ static cudaError_t launch_tc(const void* q, const void* k, const void* v,
 // run == 0: the CUDA-core kernel. partials: null for the atomics, else the
 // ordered body's f32 buffer of (blocks per head, H, n, n), blocks per head
 // being ceil(BW / run) for run > 0 and BW for run == 0; d_rel_bias is then
-// written, not added to. Returns a cudaError_t code.
+// written, not added to. drop_seed / drop_threshold / drop_scale: the
+// forward's dropout (window_attn_fwd; threshold 0: none). Returns a
+// cudaError_t code.
 extern "C" int window_attn_bwd(const void* q, const void* k, const void* v,
                                int dtype, const long long* strides,
                                const float* rel_bias, const float* mask,
                                const void* d_out, void* dq, void* dk,
                                void* dv, float* d_bias, int BW, int H, int nW,
                                int n, int hd, float scale, int run,
-                               float* partials, void* stream) {
-  if (BW < 1 || H < 1 || nW < 1 || n < 1 || hd < 1 || BW % nW != 0 || run < 0)
+                               float* partials, unsigned long long drop_seed,
+                               unsigned long long drop_threshold,
+                               float drop_scale, void* stream) {
+  if (BW < 1 || H < 1 || nW < 1 || n < 1 || hd < 1 || BW % nW != 0 ||
+      run < 0 || drop_threshold > (1ull << 32))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const Dropout drop{drop_seed, drop_threshold, drop_scale};
   if (run > 0) {
     if (dtype != kBF16 || n > WTC_ROWS || H > 65535)
       return (int)cudaErrorInvalidValue;
     if (hd == 32)
-      return (int)launch_tc<32>(q, k, v, strides, rel_bias, mask, d_out, dq,
-                                dk, dv, d_bias, partials, BW, H, nW, n, run,
-                                scale, s);
+      return (int)launch_tc_any<32>(q, k, v, strides, rel_bias, mask, d_out,
+                                    dq, dk, dv, d_bias, partials, BW, H, nW,
+                                    n, run, scale, drop, s);
     if (hd == 64)
-      return (int)launch_tc<64>(q, k, v, strides, rel_bias, mask, d_out, dq,
-                                dk, dv, d_bias, partials, BW, H, nW, n, run,
-                                scale, s);
+      return (int)launch_tc_any<64>(q, k, v, strides, rel_bias, mask, d_out,
+                                    dq, dk, dv, d_bias, partials, BW, H, nW,
+                                    n, run, scale, drop, s);
     return (int)cudaErrorInvalidValue;
   }
   if (dtype == kF32)
-    return (int)launch<float>(q, k, v, strides, rel_bias, mask, d_out, dq, dk,
-                              dv, d_bias, partials, BW, H, nW, n, hd, scale,
-                              s);
+    return (int)launch_any<float>(q, k, v, strides, rel_bias, mask, d_out, dq,
+                                  dk, dv, d_bias, partials, BW, H, nW, n, hd,
+                                  scale, drop, s);
   if (dtype == kBF16)
-    return (int)launch<__nv_bfloat16>(q, k, v, strides, rel_bias, mask, d_out,
-                                      dq, dk, dv, d_bias, partials, BW, H,
-                                      nW, n, hd, scale, s);
+    return (int)launch_any<__nv_bfloat16>(q, k, v, strides, rel_bias, mask,
+                                          d_out, dq, dk, dv, d_bias, partials,
+                                          BW, H, nW, n, hd, scale, drop, s);
   return (int)cudaErrorInvalidValue;
 }

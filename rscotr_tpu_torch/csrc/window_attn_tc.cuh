@@ -27,6 +27,7 @@
 #include <stdint.h>
 
 #include "common.cuh"
+#include "philox.cuh"
 
 #define WTC_THREADS 128
 #define WTC_ROWS 64  // padded tokens of a tile
@@ -299,6 +300,34 @@ __device__ __forceinline__ void softmax_rows(float (&s)[8][4]) {
     s[nt][2] *= l1;
     s[nt][3] *= l1;
   }
+}
+
+// the keep bits (philox.cuh) of this thread's 32 entries of a 16 x 64 C
+// block, entry [nt][c] at bit 4 nt + c, for the tile whose element (0, 0)
+// has flat index `base`; padded rows and columns are not kept
+__device__ __forceinline__ uint32_t dropout_bits(const Dropout& d,
+                                                 unsigned long long base,
+                                                 int n, int r0, int t) {
+  uint32_t bits = 0u;
+#pragma unroll
+  for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const int row = r0 + 8 * (c >> 1), col = nt * 8 + 2 * t + (c & 1);
+      if (row < n && col < n && dropout_keep(d, base + row * n + col))
+        bits |= 1u << (4 * nt + c);
+    }
+  return bits;
+}
+
+// s <- s / (1 - p) where kept, else 0
+__device__ __forceinline__ void apply_dropout(float (&s)[8][4], uint32_t bits,
+                                              float scale) {
+#pragma unroll
+  for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+    for (int c = 0; c < 4; ++c)
+      s[nt][c] = (bits >> (4 * nt + c)) & 1u ? s[nt][c] * scale : 0.f;
 }
 
 // a (16 x HD) C block -> rows r0, r0 + 8 (where < n) of a contiguous

@@ -14,10 +14,12 @@ Parameter names follow mmdet's SwinTransformer (``patch_embed.proj/norm``,
 * Maps are padded to a multiple of the window; the shift is off when
   min(H, W) <= window. LayerNorm eps 1e-5; exact (erf) GELU.
 * In training mode (``model.train()``) the blocks apply stochastic depth
-  with the linearly increasing ``drop_path_rate`` schedule, and dropout at
-  ``drop_rate``, drawing from the ``generator`` passed to ``forward``.
-  Attention dropout (``attn_drop_rate``) is not supported: the K2 kernels
-  have none.
+  with the linearly increasing ``drop_path_rate`` schedule, dropout at
+  ``drop_rate``, and attention dropout at ``attn_drop_rate`` on the softmax
+  probabilities before the product with v, all drawing from the
+  ``generator`` passed to ``forward``. The attention dropout runs inside
+  K2 / K2b: the generator gives one Philox key per window-attention call
+  (``ops.philox.draw_seed``), from which the kernels draw the keep bits.
 * ``with_cp=True`` (mmdet's key; JAX's per-block ``nn.remat``) runs each
   block under ``torch.utils.checkpoint`` in training: the backward keeps
   the block's input and recomputes the rest. The recompute draws its drop
@@ -28,18 +30,19 @@ Parameter names follow mmdet's SwinTransformer (``patch_embed.proj/norm``,
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Dict, Sequence, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
-import torch.utils.checkpoint
 from torch import nn
 
 from rscotr_tpu_torch.models.layers.common import (FFN, Conv2d, DropPath,
                                                    Dropout, LayerNorm, Linear,
+                                                   checkpoint_with_generator,
                                                    drop_path_rates,
                                                    trunc_normal_)
+from rscotr_tpu_torch.ops.philox import draw_seed
 from rscotr_tpu_torch.ops.window_attention import window_attention
 
 
@@ -89,8 +92,8 @@ class WindowMSA(nn.Module):
     """Window multi-head self-attention (mmdet ``WindowMSA`` names)."""
 
     def __init__(self, dim: int, num_heads: int, window_size: int,
-                 qkv_bias: bool = True, qk_scale=None, proj_drop: float = 0.0,
-                 dtype=torch.float32, device=None):
+                 qkv_bias: bool = True, qk_scale=None, attn_drop: float = 0.0,
+                 proj_drop: float = 0.0, dtype=torch.float32, device=None):
         super().__init__()
         self.dim, self.num_heads, self.window_size = dim, num_heads, \
             window_size
@@ -104,6 +107,7 @@ class WindowMSA(nn.Module):
         self.qkv = Linear(dim, 3 * dim, bias=qkv_bias, dtype=dtype,
                           device=device)
         self.proj = Linear(dim, dim, dtype=dtype, device=device)
+        self.attn_drop = float(attn_drop)
         self.proj_drop = Dropout(proj_drop)
 
     def _init_params(self, g):
@@ -118,8 +122,11 @@ class WindowMSA(nn.Module):
         rel_bias = self.relative_position_bias_table[
             self.relative_position_index].reshape(n, n, H).permute(2, 0, 1)
         q, k, v = (t.unflatten(0, (B_ // nW, nW)) for t in qkv.unbind(0))
+        drop = self.attn_drop if self.training else 0.0
         out = window_attention(q, k, v, rel_bias.contiguous(), mask,
-                               self.scale)                # (B, nW, H, n, hd)
+                               self.scale, drop,
+                               draw_seed(generator) if drop else 0)
+        # out: (B, nW, H, n, hd)
         out = out.reshape(B_, H, n, hd).transpose(1, 2).reshape(B_, n, C)
         return self.proj_drop(self.proj(out), generator)
 
@@ -132,38 +139,19 @@ class ShiftWindowMSA(nn.Module):
         self.w_msa = WindowMSA(*args, **kwargs)
 
 
-def checkpoint_with_generator(fn, x, generator: Optional[torch.Generator]):
-    """``fn(x, generator)`` under ``torch.utils.checkpoint`` (non-reentrant).
-    The first pass draws from ``generator`` and advances it, as a plain
-    call does; the recompute in the backward draws from a copy of it at the
-    state the first pass started from, so both passes draw the same masks."""
-    state = None if generator is None else generator.get_state()
-    passes = []
-
-    def run(t):
-        g = generator
-        if passes and g is not None:
-            g = torch.Generator(device=generator.device)
-            g.set_state(state)
-        passes.append(None)
-        return fn(t, g)
-
-    return torch.utils.checkpoint.checkpoint(run, x, use_reentrant=False)
-
-
 class SwinBlock(nn.Module):
     def __init__(self, dim: int, num_heads: int, window_size: int = 7,
                  shift: int = 0, mlp_ratio: float = 4.0,
                  qkv_bias: bool = True, qk_scale=None, drop: float = 0.0,
-                 drop_path: float = 0.0, with_cp: bool = False,
-                 dtype=torch.float32, device=None):
+                 attn_drop: float = 0.0, drop_path: float = 0.0,
+                 with_cp: bool = False, dtype=torch.float32, device=None):
         super().__init__()
         self.window_size, self.shift = window_size, shift
         self.with_cp = with_cp
         self.norm1 = LayerNorm(dim, device=device)
         self.attn = ShiftWindowMSA(dim, num_heads, window_size, qkv_bias,
-                                   qk_scale, proj_drop=drop, dtype=dtype,
-                                   device=device)
+                                   qk_scale, attn_drop=attn_drop,
+                                   proj_drop=drop, dtype=dtype, device=device)
         self.drop_path = DropPath(drop_path)
         self.norm2 = LayerNorm(dim, device=device)
         self.ffn = FFN(dim, int(dim * mlp_ratio),
@@ -270,6 +258,7 @@ class SwinTransformer(nn.Module):
                  window_size: int = 7, patch_size: int = 4,
                  mlp_ratio: float = 4.0, qkv_bias: bool = True,
                  qk_scale=None, drop_rate: float = 0.0,
+                 attn_drop_rate: float = 0.0,
                  drop_path_rate: float = 0.0, patch_norm: bool = True,
                  out_indices: Sequence[int] = (0, 1, 2, 3),
                  with_cp: bool = False, dtype=torch.float32, device=None):
@@ -286,6 +275,7 @@ class SwinTransformer(nn.Module):
                                 shift=0 if bi % 2 == 0 else window_size // 2,
                                 mlp_ratio=mlp_ratio, qkv_bias=qkv_bias,
                                 qk_scale=qk_scale, drop=drop_rate,
+                                attn_drop=attn_drop_rate,
                                 drop_path=dprs[si][bi], with_cp=with_cp,
                                 dtype=dtype, device=device)
                       for bi in range(depth)]

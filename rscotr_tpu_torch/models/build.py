@@ -3,9 +3,13 @@ rscotr_tpu/models/build.py).
 
 Reads the same reference-shaped ``cfg.model`` dicts and ``type`` names and
 builds the model types ``MTL``, ``DINO`` and ``RSCoTrSeg``; a head whose
-task is left out of ``tasks`` is not built (MTL only). Swin's
-``drop_rate`` and ``drop_path_rate`` run in training mode; every other
-dropout rate must be 0 (``_no_dropout``), as in every config.
+task is left out of ``tasks`` is not built (MTL only).
+
+Dropout rates follow JAX's build exactly (ROADMAP C18): Swin's
+``drop_rate``, ``attn_drop_rate`` and ``drop_path_rate`` and the shared
+encoder's ``attn_cfgs.dropout`` and ``ffn_cfgs.ffn_drop`` run in training
+mode, at JAX's sites; the DINO decoder's and the Mask2Former head's rates
+are accepted and dropped, as rscotr_tpu/models/build.py drops them.
 """
 
 from __future__ import annotations
@@ -35,19 +39,9 @@ def _pop_type(cfg: dict):
     return cfg.pop("type"), cfg
 
 
-def _no_dropout(name: str, **rates) -> None:
-    """The port runs no dropout where the kernels have none, nor in the
-    transformer layers (every config sets 0 there)."""
-    bad = {k: v for k, v in rates.items() if v}
-    if bad:
-        raise NotImplementedError(f"{name}: non-zero {bad} is not supported "
-                                  "by rscotr_tpu_torch")
-
-
 def build_backbone(cfg: dict, dtype, device):
     t, c = _pop_type(cfg)
     if t == "SwinTransformer":
-        _no_dropout(t, attn_drop_rate=c.get("attn_drop_rate", 0.0))
         return SwinTransformer(
             embed_dims=c.get("embed_dims", 96),
             depths=tuple(c.get("depths", (2, 2, 6, 2))),
@@ -57,6 +51,7 @@ def build_backbone(cfg: dict, dtype, device):
             qkv_bias=c.get("qkv_bias", True),
             qk_scale=c.get("qk_scale", None),
             drop_rate=c.get("drop_rate", 0.0),
+            attn_drop_rate=c.get("attn_drop_rate", 0.0),
             drop_path_rate=c.get("drop_path_rate", 0.2),
             patch_norm=c.get("patch_norm", True),
             out_indices=tuple(c.get("out_indices", (0, 1, 2, 3))),
@@ -96,8 +91,6 @@ def build_shared_encoder(cfg: dict, dtype, device):
     layers = c.get("transformerlayers", {})
     attn = layers.get("attn_cfgs", {})
     ffn = layers.get("ffn_cfgs", {})
-    _no_dropout(t, dropout=attn.get("dropout", 0.0),
-                ffn_drop=ffn.get("ffn_drop", 0.0))
     return DeformableEncoder(
         num_layers=c.get("num_layers", 6),
         embed_dims=attn.get("embed_dims", 256),
@@ -105,6 +98,7 @@ def build_shared_encoder(cfg: dict, dtype, device):
         num_levels=attn.get("num_levels", 4),
         num_points=attn.get("num_points", 4),
         feedforward_channels=ffn.get("feedforward_channels", 2048),
+        ffn_drop=ffn.get("ffn_drop", 0.0), dropout=attn.get("dropout", 0.0),
         with_cp=bool(c.get("with_cp", False)), dtype=dtype, device=device)
 
 
@@ -138,8 +132,8 @@ def build_bbox_head(cfg: dict, dtype, device):
     if not isinstance(attn_cfgs, (list, tuple)):
         attn_cfgs = [attn_cfgs, attn_cfgs]
     msda = attn_cfgs[1]
-    _no_dropout(t, dropout=max(a.get("dropout", 0.0) for a in attn_cfgs),
-                ffn_drop=dec_layers.get("ffn_cfgs", {}).get("ffn_drop", 0.0))
+    # as in rscotr_tpu: the decoder runs no dropout, whatever the config
+    # (ROADMAP C18)
     return DINOHead(
         num_classes=c.get("num_classes", 20),
         num_query=c.get("num_query", 600),
@@ -164,6 +158,7 @@ def build_seg_head(cfg: dict, dtype, device, input_convs: bool = False):
     attn = tl.get("attn_cfgs", {})
     ffn = tl.get("ffn_cfgs", {})
     # as in rscotr_tpu: the seg head runs no dropout, whatever the config
+    # (ROADMAP C18)
     return Mask2FormerHead(
         in_channels=tuple(c.get("in_channels", (96, 192, 384, 768))),
         feat_channels=c.get("feat_channels", 256),

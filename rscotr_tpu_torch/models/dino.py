@@ -10,6 +10,7 @@ the det ``make_train_step`` run on it unchanged.
 
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
@@ -38,6 +39,6 @@ class DINO(nn.Module):
         feats = self.neck(bb[len(bb) - self.neck_in_levels:])
         return outputs_f32(self.bbox_head(
             feats, img_hw,
-            encode_fn=self.encoder,
+            encode_fn=functools.partial(self.encoder, generator=generator),
             dn_label_query=dn_label_query, dn_bbox_query=dn_bbox_query,
             attn_mask=attn_mask))

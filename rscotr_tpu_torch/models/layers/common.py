@@ -26,6 +26,7 @@ from typing import Callable, List, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 from torch import nn
 
 from rscotr_tpu_torch.utils.rng import per_sample
@@ -217,8 +218,33 @@ class Dropout(nn.Module):
     def forward(self, x, generator: Optional[torch.Generator] = None):
         if not self.training or self.rate == 0.0:
             return x
+        if self.rate == 1.0:   # flax's nn.Dropout: zeros, nothing drawn
+            return torch.zeros_like(x)
         keep = 1.0 - self.rate
         return x * _keep_mask(x.shape, keep, generator, x) / keep
+
+
+def checkpoint_with_generator(fn, x, generator: Optional[torch.Generator],
+                              *args):
+    """``fn(x, *args, generator=generator)`` under ``torch.utils.checkpoint``
+    (non-reentrant; Swin blocks and encoder layers under ``with_cp``). The
+    first pass draws from ``generator`` and advances it, as a plain call
+    does; the recompute in the backward draws from a copy of it at the
+    state the first pass started from (``checkpoint`` restores only the
+    default generators), so both passes draw the same masks and keys."""
+    state = None if generator is None else generator.get_state()
+    passes = []
+
+    def run(t, *rest):
+        g = generator
+        if passes and g is not None:
+            g = torch.Generator(device=generator.device)
+            g.set_state(state)
+        passes.append(None)
+        return fn(t, *rest, generator=g)
+
+    return torch.utils.checkpoint.checkpoint(run, x, *args,
+                                             use_reentrant=False)
 
 
 class Embedding(nn.Module):

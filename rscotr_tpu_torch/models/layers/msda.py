@@ -4,7 +4,10 @@ rscotr_tpu/models/layers/msda.py; mmcv key layout ``sampling_offsets``,
 
 The sampling core is rscotr_tpu_torch.ops.ms_deform_attn (kernel K1 on
 CUDA). Init: sampling_offsets weight zero with the rotational grid bias,
-attention_weights zero, value/output projections flax-default. Under
+attention_weights zero, value/output projections flax-default. In training
+mode a non-zero ``dropout`` drops entries of ``output_proj``'s output before
+the residual add, as JAX's layer does, drawing from the ``generator`` given
+to ``forward``. Under
 tensor parallelism (``parallel/tp.py``) ``value_proj`` is column-sharded:
 the layer runs the kernel on this rank's heads and ``output_proj``
 (row-sharded) sums them.
@@ -18,7 +21,7 @@ from typing import Optional, Sequence, Tuple
 import torch
 from torch import nn
 
-from rscotr_tpu_torch.models.layers.common import Linear, constant_
+from rscotr_tpu_torch.models.layers.common import Dropout, Linear, constant_
 from rscotr_tpu_torch.ops.ms_deform_attn import ms_deform_attn
 
 
@@ -38,7 +41,7 @@ def sampling_offsets_bias(num_heads: int, num_levels: int,
 class MultiScaleDeformableAttention(nn.Module):
     def __init__(self, embed_dims: int = 256, num_heads: int = 8,
                  num_levels: int = 4, num_points: int = 4,
-                 dtype=torch.float32, device=None):
+                 dropout: float = 0.0, dtype=torch.float32, device=None):
         super().__init__()
         C, H, L, P = embed_dims, num_heads, num_levels, num_points
         self.num_heads, self.num_levels, self.num_points = H, L, P
@@ -48,6 +51,7 @@ class MultiScaleDeformableAttention(nn.Module):
                                         device=device)
         self.value_proj = Linear(C, C, dtype=dtype, device=device)
         self.output_proj = Linear(C, C, dtype=dtype, device=device)
+        self.dropout = Dropout(dropout)
 
     def _init_params(self, g):
         constant_(self.sampling_offsets.weight, 0.0)
@@ -63,7 +67,8 @@ class MultiScaleDeformableAttention(nn.Module):
                 query_pos: Optional[torch.Tensor] = None,
                 key_padding_mask: Optional[torch.Tensor] = None,
                 reference_points: Optional[torch.Tensor] = None,
-                spatial_shapes: Sequence[Tuple[int, int]] = ()):
+                spatial_shapes: Sequence[Tuple[int, int]] = (),
+                generator: Optional[torch.Generator] = None):
         """
         Args:
             query: (B, Nq, C). value: (B, Nv, C).
@@ -71,6 +76,7 @@ class MultiScaleDeformableAttention(nn.Module):
                 (B, Nq, num_levels, 4) normalized cxcywh boxes.
             key_padding_mask: (B, Nv) bool, True = padded.
             spatial_shapes: per-level (H, W).
+            generator: the dropout's draws (training mode only).
         """
         identity = query
         if query_pos is not None:
@@ -114,4 +120,4 @@ class MultiScaleDeformableAttention(nn.Module):
             raise ValueError("reference_points last dim must be 2 or 4")
 
         out = ms_deform_attn(v, spatial_shapes, locs, attn)
-        return identity + self.output_proj(out)
+        return identity + self.dropout(self.output_proj(out), generator)

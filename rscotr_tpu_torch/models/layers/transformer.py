@@ -14,66 +14,76 @@ layout: ``attentions.{i}``, ``ffns.0``, ``norms.{i}``.
 from __future__ import annotations
 
 import torch
-import torch.utils.checkpoint
 from torch import nn
 
 from rscotr_tpu_torch.models.layers.attention import MultiheadAttention
-from rscotr_tpu_torch.models.layers.common import FFN, LayerNorm
+from rscotr_tpu_torch.models.layers.common import (FFN, LayerNorm,
+                                                   checkpoint_with_generator)
 from rscotr_tpu_torch.models.layers.msda import MultiScaleDeformableAttention
 
 
 class DeformableEncoderLayer(nn.Module):
+    """``dropout``: after the MSDA output projection; ``ffn_drop``: after
+    each FFN product (mmcv's keys; active in training mode, drawing from the
+    ``generator`` given to ``forward``)."""
+
     def __init__(self, embed_dims=256, num_heads=8, num_levels=4,
-                 num_points=4, feedforward_channels=2048,
-                 dtype=torch.float32, device=None):
+                 num_points=4, feedforward_channels=2048, ffn_drop=0.0,
+                 dropout=0.0, dtype=torch.float32, device=None):
         super().__init__()
         self.attentions = nn.ModuleList([MultiScaleDeformableAttention(
-            embed_dims, num_heads, num_levels, num_points, dtype=dtype,
-            device=device)])
+            embed_dims, num_heads, num_levels, num_points, dropout=dropout,
+            dtype=dtype, device=device)])
         self.ffns = nn.ModuleList([FFN(embed_dims, feedforward_channels,
-                                       dtype=dtype, device=device)])
+                                       drop=ffn_drop, dtype=dtype,
+                                       device=device)])
         self.norms = nn.ModuleList([LayerNorm(embed_dims, device=device)
                                     for _ in range(2)])
 
     def forward(self, x, query_pos, reference_points, spatial_shapes,
-                key_padding_mask=None):
+                key_padding_mask=None, generator=None):
         x = self.attentions[0](query=x, value=x, query_pos=query_pos,
                                key_padding_mask=key_padding_mask,
                                reference_points=reference_points,
-                               spatial_shapes=spatial_shapes)
+                               spatial_shapes=spatial_shapes,
+                               generator=generator)
         x = self.norms[0](x)
-        x = self.ffns[0](x)
+        x = self.ffns[0](x, generator=generator)
         return self.norms[1](x)
 
 
 class DeformableEncoder(nn.Module):
     """The shared multi-scale deformable encoder (one module used by every
-    task head). ``with_cp=True`` (JAX's ``nn.remat`` of each layer) runs each
-    layer under ``torch.utils.checkpoint`` in training: the backward keeps
-    the layer's inputs and recomputes the rest (the layers draw nothing)."""
+    task head; the models hand it to the heads with the forward's
+    ``generator`` bound). ``with_cp=True`` (JAX's ``nn.remat`` of each
+    layer) runs each layer under ``checkpoint_with_generator`` in training:
+    the backward keeps the layer's inputs and recomputes the rest with the
+    dropout masks of the first pass."""
 
     def __init__(self, num_layers=6, embed_dims=256, num_heads=8,
                  num_levels=4, num_points=4, feedforward_channels=2048,
-                 with_cp=False, dtype=torch.float32, device=None):
+                 ffn_drop=0.0, dropout=0.0, with_cp=False,
+                 dtype=torch.float32, device=None):
         super().__init__()
         self.with_cp = with_cp
         self.layers = nn.ModuleList(
             DeformableEncoderLayer(embed_dims, num_heads, num_levels,
                                    num_points, feedforward_channels,
+                                   ffn_drop=ffn_drop, dropout=dropout,
                                    dtype=dtype, device=device)
             for _ in range(num_layers))
 
     def forward(self, x, query_pos, reference_points, spatial_shapes,
-                key_padding_mask=None):
+                key_padding_mask=None, generator=None):
         cp = self.with_cp and self.training and torch.is_grad_enabled()
         for layer in self.layers:
             if cp:
-                x = torch.utils.checkpoint.checkpoint(
-                    layer, x, query_pos, reference_points, spatial_shapes,
-                    key_padding_mask, use_reentrant=False)
+                x = checkpoint_with_generator(
+                    layer, x, generator, query_pos, reference_points,
+                    spatial_shapes, key_padding_mask)
             else:
                 x = layer(x, query_pos, reference_points, spatial_shapes,
-                          key_padding_mask)
+                          key_padding_mask, generator)
         return x
 
 

@@ -12,6 +12,7 @@ from the ``generator`` given to the forward.
 
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
@@ -45,6 +46,11 @@ class MTL(nn.Module):
         self.seg_head = seg_head
         self.neck_in_levels = neck_in_levels
 
+    def _encoder(self, generator):
+        """The shared encoder as the heads call it (JAX's ``_encode_fn``),
+        drawing its dropout from ``generator``."""
+        return functools.partial(self.shared_encoder, generator=generator)
+
     def extract_feat(self, img, generator=None):
         """img (B, H, W, 3) -> (neck_feats, backbone_feats)."""
         bb = self.backbone(img, generator)
@@ -55,7 +61,7 @@ class MTL(nn.Module):
     def forward_cls(self, img, generator: Optional[torch.Generator] = None):
         if isinstance(self.cls_head, MlvlClsHead):
             nk, _ = self.extract_feat(img, generator)
-            return outputs_f32(self.cls_head(nk, self.shared_encoder))
+            return outputs_f32(self.cls_head(nk, self._encoder(generator)))
         # SlvlClsHead reads only the last backbone map. Under jit XLA drops
         # the unused neck of the JAX forward; eagerly it would run, so the
         # backbone is called alone.
@@ -68,7 +74,7 @@ class MTL(nn.Module):
         ``DINOHead.forward``; the CDN queries and mask are for training."""
         nk, _ = self.extract_feat(img, generator)
         return outputs_f32(self.bbox_head(
-            nk, img_hw, encode_fn=self.shared_encoder,
+            nk, img_hw, encode_fn=self._encoder(generator),
             dn_label_query=dn_label_query, dn_bbox_query=dn_bbox_query,
             attn_mask=attn_mask))
 
@@ -78,4 +84,4 @@ class MTL(nn.Module):
         backbone maps."""
         nk, bb = self.extract_feat(img, generator)
         return outputs_f32(self.seg_head(nk, bb,
-                                         encode_fn=self.shared_encoder))
+                                         encode_fn=self._encoder(generator)))

@@ -11,6 +11,7 @@ of them (3 in every config) and FPN-fuses the rest. ``forward_seg`` is
 
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
@@ -31,4 +32,6 @@ class RSCoTrSeg(nn.Module):
         """-> seg logits (B, H/4, W/4, channels), see
         ``Mask2FormerHead.forward``."""
         bb = self.backbone(img, generator)
-        return outputs_f32(self.seg_head(bb, bb, encode_fn=self.encoder))
+        return outputs_f32(self.seg_head(
+            bb, bb, encode_fn=functools.partial(self.encoder,
+                                                generator=generator)))

@@ -42,6 +42,7 @@ ORDERED = 2
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
+_U = ctypes.c_ulonglong
 
 
 @dataclasses.dataclass(frozen=True)
@@ -122,7 +123,7 @@ def _bind(path: Path) -> ctypes.CDLL:
     lib.msda_fwd.restype = _I
     lib.window_attn_fwd.argtypes = [
         _P, _P, _P, _I, ctypes.POINTER(ctypes.c_longlong), _P, _P, _P,
-        _I, _I, _I, _I, _I, ctypes.c_float, _I, _P]
+        _I, _I, _I, _I, _I, ctypes.c_float, _I, _U, _U, ctypes.c_float, _P]
     lib.window_attn_fwd.restype = _I
     lib.msda_bwd.argtypes = [_P, _I, _P, _P, _I, _P, _P, _P, _P, _I, _I,
                              _I, _I, _I, _I, _I,
@@ -141,7 +142,8 @@ def _bind(path: Path) -> ctypes.CDLL:
     lib.msda_bwd_walk.restype = _I
     lib.window_attn_bwd.argtypes = [
         _P, _P, _P, _I, ctypes.POINTER(ctypes.c_longlong), _P, _P, _P,
-        _P, _P, _P, _P, _I, _I, _I, _I, _I, ctypes.c_float, _I, _P, _P]
+        _P, _P, _P, _P, _I, _I, _I, _I, _I, ctypes.c_float, _I, _P, _U, _U,
+        ctypes.c_float, _P]
     lib.window_attn_bwd.restype = _I
     lib.ws_fwd.argtypes = [_P, _P, _I, _P, _L, _I, _I, _I, _P]
     lib.ws_fwd.restype = _I

@@ -27,7 +27,17 @@ Each kernel has two instantiations behind its one entry point, and
 block walks a run of consecutive windows of one head; float32 inputs, and
 bf16 inputs outside those shapes, take the CUDA-core kernel (one block per
 window and head, float32 arithmetic on operands staged as float32).
-``launches`` counts both.
+``launches`` counts both, ``tc_launches`` the tensor-core ones.
+
+Attention dropout (Swin's ``attn_drop_rate`` in training; JAX's unfused
+path, rscotr_tpu/models/backbones/swin.py): with ``dropout_p`` > 0 the
+probabilities P become P' = P keep / (1 - p) before P v, as flax's
+``nn.Dropout`` scales them; p = 1 gives zeros. The keep bits are
+``ops.philox.keep_mask`` of the (B, nW, H, n, n) probabilities under the
+call's ``seed``: K2 and K2b regenerate them in the kernel (their DROP
+instantiations, picked at launch), the plain versions with torch integer
+ops, so the two keep the same elements. Rate 0 (eval mode, and every config
+of configs/) launches the bodies without dropout.
 
 K2b sums d_rel_bias over images and windows in float32 with atomics, in an
 order that changes from run to run. Under
@@ -45,61 +55,79 @@ from typing import Optional, Tuple
 
 import torch
 
-from rscotr_tpu_torch.ops import kernel_lib
+from rscotr_tpu_torch.ops import kernel_lib, philox
 
 
 @torch.library.custom_op("rscotr_torch::window_attn_fwd", mutates_args=(),
                          device_types="cpu")
 def window_attn_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     rel_bias: torch.Tensor, shift_mask: Optional[torch.Tensor],
-                    scale: float) -> torch.Tensor:
+                    scale: float, dropout_p: float = 0.0,
+                    seed: int = 0) -> torch.Tensor:
     """K2 as an operator (``torch.ops.rscotr_torch.window_attn_fwd``), so
     that a ``torch.export`` program holds the kernel and not the plain
     version: the plain version on the CPU, K2 on CUDA
     (``_window_attention_cuda``, its instantiation planned from the
     tensors' strides and alignment at run time), a contiguous (B, nW, H, n,
-    hd) output in q's dtype from the fake implementation while tracing."""
-    return window_attention_torch(q, k, v, rel_bias, shift_mask,
-                                  scale).contiguous()
+    hd) output in q's dtype from the fake implementation while tracing.
+    ``dropout_p`` / ``seed``: the attention dropout (0: none)."""
+    return window_attention_torch(q, k, v, rel_bias, shift_mask, scale,
+                                  dropout_p, seed).contiguous()
 
 
 @window_attn_fwd.register_kernel("cuda")
-def _window_attn_fwd_cuda(q, k, v, rel_bias, shift_mask, scale):
-    return _window_attention_cuda(q, k, v, rel_bias, shift_mask, scale)
+def _window_attn_fwd_cuda(q, k, v, rel_bias, shift_mask, scale,
+                          dropout_p=0.0, seed=0):
+    return _window_attention_cuda(q, k, v, rel_bias, shift_mask, scale,
+                                  dropout_p, seed)
 
 
 @window_attn_fwd.register_fake
-def _window_attn_fwd_fake(q, k, v, rel_bias, shift_mask, scale):
+def _window_attn_fwd_fake(q, k, v, rel_bias, shift_mask, scale,
+                          dropout_p=0.0, seed=0):
     return q.new_empty(q.shape)
+
+
+def _dropout_args(dropout_p: float, seed: int) -> tuple:
+    """The operators' trailing arguments: none at rate 0, so that a call
+    without dropout (and an exported program) is what it was."""
+    return (float(dropout_p), int(seed)) if dropout_p else ()
 
 
 class _WindowAttention(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, q, k, v, rel_bias, shift_mask, scale):
-        ctx.scale = scale
+    def forward(ctx, q, k, v, rel_bias, shift_mask, scale, dropout_p, seed):
+        ctx.scale, ctx.dropout_p, ctx.seed = scale, dropout_p, seed
         ctx.save_for_backward(q, k, v, rel_bias, shift_mask)
-        return torch.ops.rscotr_torch.window_attn_fwd(q, k, v, rel_bias,
-                                                      shift_mask, scale)
+        return torch.ops.rscotr_torch.window_attn_fwd(
+            q, k, v, rel_bias, shift_mask, scale,
+            *_dropout_args(dropout_p, seed))
 
     @staticmethod
     def backward(ctx, d_out):
         q, k, v, rel_bias, shift_mask = ctx.saved_tensors
         dq, dk, dv, d_bias = window_attention_bwd(
-            q, k, v, rel_bias, shift_mask, ctx.scale, d_out.contiguous())
-        return dq, dk, dv, d_bias, None, None
+            q, k, v, rel_bias, shift_mask, ctx.scale, d_out.contiguous(),
+            ctx.dropout_p, ctx.seed)
+        return dq, dk, dv, d_bias, None, None, None, None
 
 
 def window_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      rel_bias: torch.Tensor,
                      shift_mask: Optional[torch.Tensor] = None,
-                     scale: Optional[float] = None) -> torch.Tensor:
-    """softmax(scale * q k^T + rel_bias[h] + shift_mask[w]) v.
+                     scale: Optional[float] = None, dropout_p: float = 0.0,
+                     seed: int = 0) -> torch.Tensor:
+    """softmax(scale * q k^T + rel_bias[h] + shift_mask[w]) v, with the
+    probabilities dropped at rate ``dropout_p`` under the key ``seed``
+    (``ops.philox``) before the product with v.
 
     Args:
         q, k, v: (B, nW, H, n, hd) per (image, window, head) tiles; may be
             strided views (channel stride 1).
         rel_bias: (H, n, n) float32 relative-position bias.
         shift_mask: (nW, n, n) float32 additive mask or None.
+        dropout_p: attention dropout rate in [0, 1] (0: none).
+        seed: the Philox key of this call (``philox.draw_seed``).
     Returns:
         (B, nW, H, n, hd) contiguous, in q's dtype.
     """
@@ -109,10 +137,13 @@ def window_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         scale = q.shape[-1] ** -0.5
     if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"window_attention: no path for device {q.device}")
-    return _WindowAttention.apply(q, k, v, rel_bias, shift_mask, float(scale))
+    philox.keep_threshold(dropout_p)   # raises outside [0, 1]
+    return _WindowAttention.apply(q, k, v, rel_bias, shift_mask, float(scale),
+                                  float(dropout_p), int(seed))
 
 
 window_attention.launches = 0
+window_attention.tc_launches = 0
 
 # shared-memory ceiling of one block on Hopper (227 KB)
 _MAX_SMEM = 232448
@@ -216,7 +247,17 @@ def _check_cuda_args(name, q, k, v, rel_bias, shift_mask):
     return strides
 
 
-def _window_attention_cuda(q, k, v, rel_bias, shift_mask, scale):
+def _kernel_dropout(dropout_p: float, seed: int) -> tuple:
+    """(seed as 64 bits, keep threshold, 1 / (1 - p)) for the C entries;
+    a threshold of 0 takes the bodies without dropout."""
+    thr = philox.keep_threshold(dropout_p)
+    if thr == 0:
+        return 0, 0, 0.0
+    return int(seed) & 0xFFFFFFFFFFFFFFFF, thr, philox.keep_scale(dropout_p)
+
+
+def _window_attention_cuda(q, k, v, rel_bias, shift_mask, scale,
+                           dropout_p=0.0, seed=0):
     B, nW, H, n, hd = q.shape
     st = _check_cuda_args("window_attention", q, k, v, rel_bias, shift_mask)
     run = tensor_core_plan(
@@ -237,32 +278,36 @@ def _window_attention_cuda(q, k, v, rel_bias, shift_mask, scale):
             kernel_lib.dtype_code(q, "q"), st, rel_bias.data_ptr(),
             shift_mask.data_ptr() if shift_mask is not None else None,
             out.data_ptr(), B * nW, H, nW, n, hd, scale, run,
+            *_kernel_dropout(dropout_p, seed),
             kernel_lib.stream_ptr(q.device))
     kernel_lib.check(err, "window_attn_fwd")
     window_attention.launches += 1
+    window_attention.tc_launches += bool(run)
     return out
 
 
-def window_attention_bwd(q, k, v, rel_bias, shift_mask, scale, d_out):
-    """Gradients of ``window_attention`` -> (dq, dk, dv in q's dtype,
-    d_rel_bias float32), through the operator
-    ``torch.ops.rscotr_torch.window_attn_bwd``: kernel K2b on CUDA
-    (``launches`` counts it), the plain version on the CPU."""
+def window_attention_bwd(q, k, v, rel_bias, shift_mask, scale, d_out,
+                         dropout_p: float = 0.0, seed: int = 0):
+    """Gradients of ``window_attention`` (with the forward's ``dropout_p``
+    and ``seed``) -> (dq, dk, dv in q's dtype, d_rel_bias float32), through
+    the operator ``torch.ops.rscotr_torch.window_attn_bwd``: kernel K2b on
+    CUDA (``launches`` counts it), the plain version on the CPU."""
     kernel_lib.refuse_dtensor("window_attention_bwd", q, k, v, rel_bias,
                               shift_mask, d_out)
     if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"window_attention_bwd: no path for device "
                          f"{q.device}")
-    return torch.ops.rscotr_torch.window_attn_bwd(q, k, v, rel_bias,
-                                                  shift_mask, float(scale),
-                                                  d_out)
+    return torch.ops.rscotr_torch.window_attn_bwd(
+        q, k, v, rel_bias, shift_mask, float(scale), d_out,
+        *_dropout_args(dropout_p, seed))
 
 
 @torch.library.custom_op("rscotr_torch::window_attn_bwd", mutates_args=(),
                          device_types="cpu")
 def window_attn_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     rel_bias: torch.Tensor, shift_mask: Optional[torch.Tensor],
-                    scale: float, d_out: torch.Tensor
+                    scale: float, d_out: torch.Tensor, dropout_p: float = 0.0,
+                    seed: int = 0
                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
                                torch.Tensor]:
     """K2b as an operator (``torch.ops.rscotr_torch.window_attn_bwd``), so
@@ -272,17 +317,19 @@ def window_attn_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     in q's dtype and a float32 (H, n, n) d_rel_bias from the fake
     implementation."""
     return tuple(t.contiguous() for t in window_attention_bwd_torch(
-        q, k, v, rel_bias, shift_mask, scale, d_out))
+        q, k, v, rel_bias, shift_mask, scale, d_out, dropout_p, seed))
 
 
 @window_attn_bwd.register_kernel("cuda")
-def _window_attn_bwd_cuda(q, k, v, rel_bias, shift_mask, scale, d_out):
+def _window_attn_bwd_cuda(q, k, v, rel_bias, shift_mask, scale, d_out,
+                          dropout_p=0.0, seed=0):
     return _window_attention_bwd_cuda(q, k, v, rel_bias, shift_mask, scale,
-                                      d_out)
+                                      d_out, dropout_p, seed)
 
 
 @window_attn_bwd.register_fake
-def _window_attn_bwd_fake(q, k, v, rel_bias, shift_mask, scale, d_out):
+def _window_attn_bwd_fake(q, k, v, rel_bias, shift_mask, scale, d_out,
+                          dropout_p=0.0, seed=0):
     H, n = q.shape[2], q.shape[3]
     return (q.new_empty(q.shape), q.new_empty(q.shape), q.new_empty(q.shape),
             q.new_empty((H, n, n), dtype=torch.float32))
@@ -301,7 +348,8 @@ def bias_partials(shape, run: int) -> int:
     return -(-B * nW // run) if run else B * nW
 
 
-def _window_attention_bwd_cuda(q, k, v, rel_bias, shift_mask, scale, d_out):
+def _window_attention_bwd_cuda(q, k, v, rel_bias, shift_mask, scale, d_out,
+                               dropout_p=0.0, seed=0):
     """Kernel K2b on CUDA tensors."""
     B, nW, H, n, hd = q.shape
     st = _check_cuda_args("window_attention_bwd", q, k, v, rel_bias,
@@ -335,14 +383,17 @@ def _window_attention_bwd_cuda(q, k, v, rel_bias, shift_mask, scale, d_out):
             d_out.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
             d_bias.data_ptr(), B * nW, H, nW, n, hd, float(scale), run,
             partials.data_ptr() if nblk else None,
+            *_kernel_dropout(dropout_p, seed),
             kernel_lib.stream_ptr(q.device))
     kernel_lib.check(err, "window_attn_bwd")
     window_attention_bwd.launches += 1
+    window_attention_bwd.tc_launches += bool(run)
     window_attention_bwd.ordered_launches += bool(nblk)
     return dq, dk, dv, d_bias
 
 
 window_attention_bwd.launches = 0
+window_attention_bwd.tc_launches = 0
 window_attention_bwd.ordered_launches = 0
 
 
@@ -354,6 +405,16 @@ def _probs(q, k, rel_bias, shift_mask, scale):
     return torch.softmax(s, dim=-1)
 
 
+def _dropout_factor(shape, dropout_p: float, seed: int,
+                    device) -> Optional[torch.Tensor]:
+    """keep / (1 - p) in float32 over the (B, nW, H, n, n) probabilities
+    (the kernels' bits, ``philox.keep_mask``), None at rate 0."""
+    if not dropout_p:
+        return None
+    keep = philox.keep_mask(shape, dropout_p, seed, device)
+    return keep.float() * philox.keep_scale(dropout_p)
+
+
 def _as_operand(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     """``x`` (float32) as the kernels feed it to a product: rounded to
     ``dtype`` when that is bf16, untouched for float32."""
@@ -363,17 +424,23 @@ def _as_operand(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
 def window_attention_bwd_torch(q: torch.Tensor, k: torch.Tensor,
                                v: torch.Tensor, rel_bias: torch.Tensor,
                                shift_mask: Optional[torch.Tensor],
-                               scale: float, d_out: torch.Tensor):
-    """Plain PyTorch version of K2b, f32 sums throughout: dV = P^T dO,
-    dP = dO V^T, dS = P (dP - rowsum(dO O)), dQ = scale dS K,
+                               scale: float, d_out: torch.Tensor,
+                               dropout_p: float = 0.0, seed: int = 0):
+    """Plain PyTorch version of K2b, f32 sums throughout: with P' = P M
+    (M = keep / (1 - p) under dropout, else 1), dV = P'^T dO,
+    dP = (dO V^T) M, dS = P (dP - rowsum(dO O)), dQ = scale dS K,
     dK = scale dS^T Q, d_rel_bias = sum of dS over images and windows.
-    O = P V is recomputed in f32. For bf16 inputs P and dS are rounded to
+    O = P' V is recomputed in f32. For bf16 inputs P' and dS are rounded to
     bf16 as operands of dV, dQ and dK, where the kernel rounds them."""
     p = _probs(q, k, rel_bias, shift_mask, scale)
+    m = _dropout_factor(p.shape, dropout_p, seed, p.device)
+    pd = p if m is None else p * m
     vf, do = v.float(), d_out.float()
-    o = torch.einsum("bwhqk,bwhkd->bwhqd", p, vf)
-    dv = torch.einsum("bwhqk,bwhqd->bwhkd", _as_operand(p, q.dtype), do)
+    o = torch.einsum("bwhqk,bwhkd->bwhqd", pd, vf)
+    dv = torch.einsum("bwhqk,bwhqd->bwhkd", _as_operand(pd, q.dtype), do)
     dp = torch.einsum("bwhqd,bwhkd->bwhqk", do, vf)
+    if m is not None:
+        dp = dp * m
     ds = p * (dp - (do * o).sum(-1, keepdim=True))
     ds_op = _as_operand(ds, q.dtype)
     dq = torch.einsum("bwhqk,bwhkd->bwhqd", ds_op, k.float()) * scale
@@ -385,11 +452,16 @@ def window_attention_bwd_torch(q: torch.Tensor, k: torch.Tensor,
 def window_attention_torch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            rel_bias: torch.Tensor,
                            shift_mask: Optional[torch.Tensor] = None,
-                           scale: Optional[float] = None) -> torch.Tensor:
+                           scale: Optional[float] = None,
+                           dropout_p: float = 0.0,
+                           seed: int = 0) -> torch.Tensor:
     """Plain PyTorch version of K2 (the einsum path of the JAX Swin block):
-    f32 scores and softmax, output in q's dtype. For bf16 inputs P is
-    rounded to bf16 before P v, as the kernel and the Pallas body do."""
+    f32 scores and softmax, then P' = P keep / (1 - p) under dropout,
+    output in q's dtype. For bf16 inputs P' is rounded to bf16 before
+    P' v, as the kernel and the Pallas body do."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
-    p = _as_operand(_probs(q, k, rel_bias, shift_mask, scale), q.dtype)
+    p = _probs(q, k, rel_bias, shift_mask, scale)
+    m = _dropout_factor(p.shape, dropout_p, seed, p.device)
+    p = _as_operand(p if m is None else p * m, q.dtype)
     return torch.einsum("bwhqk,bwhkd->bwhqd", p, v.float()).to(q.dtype)

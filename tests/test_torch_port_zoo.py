@@ -17,7 +17,9 @@ same numpy-seeded inputs:
 * dropout: the kept share, the 1 / (1 - rate) scale, one mask per
   generator seed, identity in eval mode, for the port's ``Dropout`` and
   through the modules that take a rate (the FFN, Swin's ``drop_rate``);
-  ``build_model`` refuses the rates no config sets and no kernel runs;
+  ``build_model`` runs every rate JAX's build passes through (a train
+  step moves) and drops the DINO decoder's and the seg head's, as JAX's
+  build does (the step is bit-equal to the one without; ROADMAP C18);
 * the full-width configs ``build_model`` builds on the ``meta`` device with
   the keys and shapes of the bridged ``jax.eval_shape`` init.
 
@@ -30,6 +32,8 @@ rounding boundary may fall on either side); det outputs 1e-4 and boxes
 test_torch_port_train_slice.py.
 """
 
+import copy
+import dataclasses
 import os
 
 import numpy as np
@@ -418,12 +422,16 @@ def _set_swin_attn_drop(m):
     m["backbone"]["attn_drop_rate"] = 0.1
 
 
+def _encoder(m):
+    return m.get("shared_encoder") or m["encoder"]
+
+
 def _set_encoder_dropout(m):
-    m["shared_encoder"]["transformerlayers"]["attn_cfgs"]["dropout"] = 0.1
+    _encoder(m)["transformerlayers"]["attn_cfgs"]["dropout"] = 0.1
 
 
 def _set_encoder_ffn_drop(m):
-    m["shared_encoder"]["transformerlayers"]["ffn_cfgs"]["ffn_drop"] = 0.1
+    _encoder(m)["transformerlayers"]["ffn_cfgs"]["ffn_drop"] = 0.1
 
 
 def _set_decoder_dropout(m):
@@ -433,23 +441,89 @@ def _set_decoder_dropout(m):
         a["dropout"] = 0.1
 
 
-@pytest.mark.parametrize("setter,rate", [
-    (_set_swin_attn_drop, "attn_drop_rate"),
-    (_set_encoder_dropout, "dropout"),
-    (_set_encoder_ffn_drop, "ffn_drop"),
-    (_set_decoder_dropout, "dropout"),
+def _set_decoder_ffn_drop(m):
+    layers = m["bbox_head"]["transformer"]["decoder"]["transformerlayers"]
+    layers["ffn_cfgs"]["ffn_drop"] = 0.1
+
+
+def _set_seg_head_rates(m):
+    head = m.get("seg_head") or m["decode_head"]
+    layers = head["transformer_decoder"]["transformerlayers"]
+    layers["attn_cfgs"]["dropout"] = 0.1
+    layers["ffn_cfgs"]["ffn_drop"] = 0.1
+
+
+@pytest.fixture
+def two_threads():
+    """torch keeps to 2 threads for the train steps below, so that the
+    test workers beside this one do not oversubscribe the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(2)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(threads)
+
+
+def _dropout_step(kind, setter, task):
+    """One train step of the tiny model of ``kind`` (MTL, or the standalone
+    DINO / RSCoTrSeg) with the rate set and one without, from the same
+    weights, batch and generator seed: their log vars and the states
+    after."""
+    cfg = load_cfg(TINY) if kind == "MTL" else _tiny(kind)[0]
+    step_cfg = dataclasses.replace(make_step_config(cfg),
+                                   cls_use_augments=False)
+    rng = np.random.default_rng(9)
+    batch = {"cls": lambda: dict(
+        img=rng.integers(0, 256, (2, 64, 64, 3)).astype(np.uint8),
+        gt_label=rng.integers(0, 45, 2).astype(np.int32)),
+        "det": lambda: det_batch(rng, step_cfg.cdn, hw=((128, 128),) * 2),
+        "seg": lambda: seg_batch(rng)}[task]()
+    runs = []
+    for rate in (True, False):
+        m = copy.deepcopy(cfg["model"])
+        if rate:
+            setter(m)
+        model = build_model(m, device="cpu")
+        opt = build_optimizer(
+            cfg["optimizer"], model.named_parameters(),
+            lr_config=cfg["lr_config"],
+            grad_clip=cfg["optimizer_config"]["grad_clip"])
+        lv = make_train_step(model, opt, task, step_cfg)(
+            batch, torch.Generator().manual_seed(4))
+        runs.append(({k: float(v) for k, v in lv.items()},
+                     model.state_dict()))
+    return runs
+
+
+@pytest.mark.parametrize("kind,setter,task,runs", [
+    ("MTL", _set_swin_attn_drop, "cls", True),
+    ("MTL", _set_encoder_dropout, "seg", True),
+    ("MTL", _set_encoder_ffn_drop, "det", True),
+    ("MTL", _set_decoder_dropout, "det", False),
+    ("MTL", _set_decoder_ffn_drop, "det", False),
+    ("MTL", _set_seg_head_rates, "seg", False),
+    ("DINO", _set_encoder_dropout, "det", True),
+    ("DINO", _set_decoder_dropout, "det", False),
+    ("RSCoTrSeg", _set_encoder_ffn_drop, "seg", True),
+    ("RSCoTrSeg", _set_seg_head_rates, "seg", False),
 ])
-def test_build_model_refuses_dropout_rates(setter, rate):
-    """No config sets these rates, and the kernels (Swin's K2 / K2b) and
-    the transformer layers run no dropout: a non-zero rate is refused, not
-    run some other way. Swin's ``drop_rate`` is taken."""
-    cfg = load_cfg(TINY)
-    m = cfg["model"]
-    m["backbone"]["drop_rate"] = 0.1
-    assert build_model(m, device="meta").backbone.drop.rate == 0.1
-    setter(m)
-    with pytest.raises(NotImplementedError, match=rate):
-        build_model(m, device="meta")
+def test_build_model_runs_dropout_rates(kind, setter, task, runs,
+                                       two_threads):
+    """Every rate JAX's build passes through (Swin's ``attn_drop_rate``,
+    the shared encoder's ``dropout`` and ``ffn_drop``) runs in a train-mode
+    step: the step's loss moves off the one without it. The rates JAX's
+    build drops (the DINO decoder's, the Mask2Former head's; ROADMAP C18)
+    build and are dropped: the step is bit-equal to the one without."""
+    (with_rate, state), (without, state0) = _dropout_step(kind, setter,
+                                                          task)
+    assert all(np.isfinite(v) for v in with_rate.values())
+    if runs:
+        assert with_rate["loss"] != without["loss"]
+    else:
+        assert with_rate == without
+        for n, v in state0.items():
+            assert torch.equal(state[n], v), n
 
 
 # ---------------------------------------------------------------------------
