@@ -220,14 +220,32 @@ Phases, each of which raises on failure (exit code 1, no result line):
     ``MTL_synthetic_flagship_hostaug.py`` (the same tails on the host: PIL
     RandAugment, resize, crop, photometric in the loader threads), each as
     written for 48 iterations (16 cls, 16 det, 16 seg), in the order
-    devaug, hostaug, hostaug, devaug; all ``--no-validate``. Every
-    iteration's task and K1 / K1b / K2 / K2b launches (on the vector body)
-    checked as in the loop phase, every loss term finite, the totals, a
-    parameter of the backbone and of each head moved; reported as the loop
-    phase's, per run the data-wait share over all steps and after step 1
-    (the steady wait) beside each group's collection, the two configs' runs
-    side by side, and each augment stage's time as a share of its task's
-    devaug step;
+    hostaug, devaug, hostaug (the soak's legs, 16b, run the devaug config
+    with the same checks); all ``--no-validate``. Every iteration's task
+    and K1 / K1b / K2 / K2b launches (on the vector body) checked as in the
+    loop phase, every loss term finite, the totals, a parameter of the
+    backbone and of each head moved; reported as the loop phase's, per run
+    the data-wait share over all steps and after step 1 (the steady wait)
+    beside each group's collection, the two configs' runs side by side, and
+    each augment stage's time as a share of its task's devaug step;
+16b. the soak (``soak_phase``), the short form of ``python -m
+    rscotr_tpu_torch.tools.soak_flagship`` through its ``soak`` on
+    ``MTL_synthetic_flagship_devaug.py``: ``SOAK_ITERS`` (96) iterations,
+    a log record every 16, eval every 48, each leg a process of its own
+    (this script's ``--soak-leg`` mode: the train tool through
+    ``train_cli_run``, every count at 0 just before it); SIGTERM to phase
+    1 ``SOAK_KILL_DELAY`` after its ``metrics.jsonl`` holds a record at
+    step 48 or later (an event, not a clock), then phase 2 resumes with
+    ``--auto-resume`` to 96. Checked: the preemption checkpoint
+    ``iter_N.pth`` with 48 < N < 96, phase 1's rc 124 and phase 2's 0,
+    each leg's steps in the derived grouped order (phase 2's from N, a
+    fresh data stream), its launches per iteration the devaug loop's, every
+    loss term finite, each leg's one eval (at 48, at 96) in its totals, the
+    records' steps continuing from N, two ``val/`` records; printed: the
+    soak's own lines (the drift is printed, not held: the full-length
+    soaks hold it), each leg's wall, card memory and RSS, the phase's
+    seconds. It runs in the overfit proof's time, beside it (after 17's
+    devaug ``--deterministic`` runs), so its times are not a clean card's;
 17. scale-out (``scaleout_phase``) through ``--launcher pytorch``, each
     run 12 round-robin iterations of the flagship
     (``--steps-per-dispatch 1``): (a) ``tools/train.py`` on two ranks
@@ -371,6 +389,12 @@ AUG_TOL = (1.0, 0.005)
 # iterations of each devaug and hostaug run (steps_per_dispatch 16 as
 # written: 16 cls, 16 det, 16 seg)
 AUG_ITERS = 48
+# the soak phase: iterations, its log and eval intervals (the full soak's
+# 16 and 250 scaled to the run), and the seconds between phase 1's record
+# at SOAK_EVAL or later and its SIGTERM (the step in flight then is past
+# SOAK_EVAL)
+SOAK_ITERS, SOAK_LOG, SOAK_EVAL = 96, 16, 48
+SOAK_KILL_DELAY = 1.0
 # the quad-gather path's kernels, which no model path launches
 QUAD = ("K3'", "K4", "K5")
 
@@ -3665,12 +3689,13 @@ LOOP_WANT = {"cls": {"K1": 0, "K1b": 0, "K2": 12, "K2b": 12},
              "seg": {"K1": 6, "K1b": 6, "K2": 12, "K2b": 12}}
 
 
-def loop_order(cfg, max_iters, k):
+def loop_order(cfg, max_iters, k, start=0):
     """The task of each step that the port's grouped order gives the
     flagship's train loaders, derived without data or a step: stand-in
     loaders of the real lengths whose batches carry only the task, under
     the config's strategy and stand-in hooks at the checkpoint and eval
-    intervals (the log hook does not bound a group)."""
+    intervals (the log hook does not bound a group); from step ``start``
+    with a fresh data stream, as a resume runs."""
     from rscotr_tpu_torch.data import build_datasets
     from rscotr_tpu_torch.data.build import build_iteration_strategy
     from rscotr_tpu_torch.data.loader import MultiDataLoader
@@ -3699,7 +3724,7 @@ def loop_order(cfg, max_iters, k):
     runner = IterBasedRunner(
         {t: (lambda b, g, t=t: tasks.append(t) or {})
          for t in ("cls", "det", "seg")}, max_iters=max_iters, prefetch=0,
-        steps_per_dispatch=k, handle_preemption=False)
+        start_step=start, steps_per_dispatch=k, handle_preemption=False)
     for iv in (cfg["checkpoint_config"]["interval"],
                cfg["evaluation"]["interval"]):
         runner.register_hook(type("Interval", (Hook,), {"interval": iv})())
@@ -3910,20 +3935,20 @@ def aug_loop_phase(smi, stages):
     ``MTL_synthetic_flagship_hostaug.py`` (the same tails on the host, PIL
     in the loader threads), each as written (``steps_per_dispatch`` 16)
     for 48 iterations in the grouped order (16 cls, 16 det, 16 seg), in
-    the order devaug, hostaug, hostaug, devaug so that each holds each
-    place; ``--no-validate`` in a temporary work dir, full width, bf16,
-    random weights from seed 0. Each run is checked by ``check_loop_run``
-    and its backbone and every head must move; reported by
-    ``loop_report``, then per config the two runs side by side: each
-    task's median step and the steady data wait (after step 1, whose
-    collection also starts the loaders). Last, each augment stage's time
-    (``augment_phase``) as a share of its task's devaug step."""
+    the order hostaug, devaug, hostaug (the devaug run between the two);
+    ``--no-validate`` in a temporary work dir, full width, bf16, random
+    weights from seed 0. Each run is checked by ``check_loop_run`` and its
+    backbone and every head must move; reported by ``loop_report``, then
+    the two configs side by side: each task's median step and the steady
+    data wait (after step 1, whose collection also starts the loaders).
+    Last, each augment stage's time (``augment_phase``) as a share of its
+    task's devaug step."""
     import shutil
     import tempfile
 
     launches, res = {}, {"devaug": [], "hostaug": []}
     paths = {"devaug": DEVAUG_CFG, "hostaug": HOSTAUG_CFG}
-    for name in ("devaug", "hostaug", "hostaug", "devaug"):
+    for name in ("hostaug", "devaug", "hostaug"):
         path = paths[name]
         cfg = as_written(path)
         k = cfg["runner"]["steps_per_dispatch"]
@@ -3961,7 +3986,7 @@ def aug_loop_phase(smi, stages):
         if len(res[name]) == 1:
             launches.update(first_launches(f"{name} loop", run, AUG_ITERS))
     for t in ("cls", "det", "seg"):
-        log(f"  {t} step, devaug against hostaug (runs 1, 4 against 2, 3): "
+        log(f"  {t} step, devaug against hostaug (run 2 against 1, 3): "
             + " / ".join(f"{r[t]['median_ms']:.2f}" for r in res["devaug"])
             + " ms against "
             + " / ".join(f"{r[t]['median_ms']:.2f}" for r in res["hostaug"])
@@ -3979,10 +4004,131 @@ def aug_loop_phase(smi, stages):
     for t, st in stages.items():
         st["step_share"] = st["ms"] / res["devaug"][0][t]["median_ms"]
         log(f"  {t} augment stage {st['what']}: {st['ms']:.3f} ms, "
-            f"{100 * st['step_share']:.1f}% of the first devaug {t} "
-            f"step's {res['devaug'][0][t]['median_ms']:.2f} ms  [{smi}]")
+            f"{100 * st['step_share']:.1f}% of the devaug {t} step's "
+            f"{res['devaug'][0][t]['median_ms']:.2f} ms  [{smi}]")
     res["stages"] = stages
     return launches, res
+
+
+def soak_leg(argv) -> int:
+    """``chip_smoke.py --soak-leg TRAIN_ARGV...``: one leg of the soak
+    phase, the train tool through ``train_cli_run`` (every count at 0 just
+    before it, read just after), its run appended as one JSON line to the
+    work dir's ``legs.jsonl``."""
+    work_dir = argv[argv.index("--work-dir") + 1]
+    run = train_cli_run(argv, "soak leg")
+    for st in run["steps"]:
+        st["log_vars"] = {k: float(v) for k, v in st["log_vars"].items()}
+    with open(os.path.join(work_dir, "legs.jsonl"), "a") as f:
+        f.write(json.dumps(run) + "\n")
+    return 0
+
+
+def last_record_step(path) -> int:
+    """The step of the last whole line of a ``metrics.jsonl`` (0 while it
+    has none)."""
+    try:
+        with open(path) as f:
+            lines = [x for x in f if x.endswith("\n") and x.strip()]
+    except OSError:
+        return 0
+    return json.loads(lines[-1])["step"] if lines else 0
+
+
+def soak_phase(smi):
+    """The short soak through ``rscotr_tpu_torch.tools.soak_flagship``'s
+    ``soak`` (module docstring, 16b). Returns the legs' launches for the
+    kernels line and the phase's result."""
+    import shutil
+    import tempfile
+
+    from rscotr_tpu_torch.tools import soak_flagship as sf
+    from rscotr_tpu_torch.utils.config import merge_from_dict
+    t_phase = time.perf_counter()
+    options = (f"evaluation.interval={SOAK_EVAL}",
+               "checkpoint_config.interval=100000",
+               f"log_config.interval={SOAK_LOG}")
+    cfg = merge_from_dict(as_written(DEVAUG_CFG), {
+        "evaluation.interval": SOAK_EVAL,
+        "checkpoint_config.interval": 100000})
+    K = cfg["runner"].get("steps_per_dispatch", 1)
+    log(f"soak phase: rscotr_tpu_torch.tools.soak_flagship.soak on "
+        f"{os.path.relpath(DEVAUG_CFG, ROOT)}, {SOAK_ITERS} iterations, "
+        f"--cfg-options {' '.join(options)}, steps_per_dispatch {K}; "
+        f"SIGTERM {SOAK_KILL_DELAY:g} s after phase 1's record at step "
+        f">= {SOAK_EVAL}; each leg a process of its own (chip_smoke.py "
+        "--soak-leg)")
+    work = tempfile.mkdtemp(prefix="rscotr_soak_")
+    wd = os.path.join(work, "wd")
+    metrics = os.path.join(wd, "metrics.jsonl")
+    seen = {}
+
+    def kill_when():
+        if "at" not in seen:
+            if last_record_step(metrics) >= SOAK_EVAL:
+                seen["at"] = time.perf_counter()
+            return False
+        return time.perf_counter() - seen["at"] >= SOAK_KILL_DELAY
+
+    try:
+        res = sf.soak(wd, SOAK_ITERS, None, device="cuda", cfg=DEVAUG_CFG,
+                      cfg_options=options, kill_when=kill_when,
+                      command=[sys.executable, os.path.abspath(__file__),
+                               "--soak-leg"], grace_s=300,
+                      out=lambda line: log("  " + line))
+        if res["rc"]:
+            fail("soak: the protocol failed (its lines above)")
+        with open(os.path.join(wd, "legs.jsonl")) as f:
+            runs = [json.loads(x) for x in f]
+        records = sf.read_records(wd)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+    n = res["resumed_from"]
+    legs = res["legs"]
+    if not SOAK_EVAL < n < SOAK_ITERS or len(runs) != 2:
+        fail(f"soak: preemption checkpoint iter_{n}, {len(runs)} leg "
+             f"records; want {SOAK_EVAL} < N < {SOAK_ITERS} and two legs")
+    if (legs[0].rc, legs[1].rc) != (sf.TIMEOUT_RC, 0):
+        fail(f"soak: leg rcs {legs[0].rc}, {legs[1].rc}")
+    evals = {k: sum(n_b * EVAL_WANT[t][i] for t, n_b, _ in
+                    EVAL_SETS.values()) for i, k in enumerate(("K1", "K2"))}
+    for i, (run, first) in enumerate(zip(runs, (0, n))):
+        name = f"soak phase {i + 1}"
+        want = loop_order(cfg, SOAK_ITERS, K, start=first)
+        if i == 0:
+            want = want[:n]
+        if run["end_step"] != (n, SOAK_ITERS)[i]:
+            fail(f"{name}: ended at step {run['end_step']}")
+        # each leg evaluates once: at 48 before its SIGTERM, at 96
+        check_loop_run(name, run, want, first_step=first + 1, extra=evals)
+        if not run["moved"] or not all(run["moved"].values()):
+            fail(f"{name}: parameters moved {run['moved']}")
+    # phase 1's records up to N, phase 2's after it: each log step once
+    steps = [r["step"] for r in records]
+    want_steps = list(range(SOAK_LOG, SOAK_ITERS + 1, SOAK_LOG))
+    bad = [(r["step"], k) for r in records for k, v in r.items()
+           if isinstance(v, float) and not np.isfinite(v)
+           and not k.startswith("val/")]
+    if steps != want_steps or res["summary"]["evals"] < 2 or bad:
+        fail(f"soak: records at steps {steps} (want {want_steps}), "
+             f"{res['summary']['evals']} val/ records, non-finite {bad}")
+    log(f"  soak: preemption at iter {n}, resumed from it to {SOAK_ITERS}; "
+        f"launches per iteration the devaug loop's in both legs ("
+        + "; ".join(f"phase {i + 1} {r['total']}" for i, r in
+                    enumerate(runs)) + f"); records at {steps}, val/ at "
+        f"{res['summary']['eval_steps']}  [{smi}]")
+    loop_report("soak phase 1 (beside the overfit proof)", runs[0]["steps"],
+                smi)
+    out = dict(n=n, summary=res["summary"],
+               legs=[leg.wall_s for leg in legs],
+               phase_s=time.perf_counter() - t_phase)
+    log(f"  soak phase {out['phase_s']:.1f} s (legs "
+        + ", ".join(f"{x:.1f}" for x in out["legs"]) + f" s)  [{smi}]")
+    launches = {f"soak phase {i + 1} ({r['end_step'] - first} steps + "
+                f"eval)": {k: r["total"][k] for k in K4}
+                for i, (r, first) in enumerate(zip(runs, (0, n)))}
+    return launches, out
 
 
 # the scale-out phase: 12 round-robin iterations of the flagship a run,
@@ -5501,6 +5647,8 @@ def main(argv) -> int:
         return scaleout_rank(argv[1:])
     if argv[:1] == ["--overfit-proof"]:
         return overfit_proof_process(argv[1:])
+    if argv[:1] == ["--soak-leg"]:
+        return soak_leg(argv[1:])
     from rscotr_tpu_torch.ops import kernel_lib
 
     smi = subprocess.run(
@@ -5552,6 +5700,8 @@ def main(argv) -> int:
         # timing
         scale = scaleout_phase(smi, after_timed=after_timed)
         deterministic_devaug()
+        # the short soak (its drift printed, not held) in the proof's time
+        klaunches, soak = soak_phase(smi)
         plaunches, tools["overfit"] = finish_overfit_proof(proof["run"], smi)
         dryrun = finish_dryrun(dry["run"])
     finally:
@@ -5578,6 +5728,7 @@ def main(argv) -> int:
     zlaunches.update(xlaunches)
     zlaunches.update(llaunches)
     zlaunches.update(alaunches)
+    zlaunches.update(klaunches)
     zlaunches["graft entry() call (paper MTL det 256^2)"] = \
         graft["entry_launches"]
     for t in ("cls", "det"):
@@ -5618,7 +5769,12 @@ def main(argv) -> int:
         for run in ("devaug", "hostaug")) + "; " + "; ".join(
         f"{t} augment stage {st['ms']:.3f} ms "
         f"({100 * st['step_share']:.1f}% of its step)"
-        for t, st in aug["stages"].items()) + "; " + "; ".join(
+        for t, st in aug["stages"].items())
+        + f"; soak preempted at iter {soak['n']}, median s/iter "
+        f"mid {soak['summary']['mid']:.3f} late "
+        f"{soak['summary']['late']:.3f} drift "
+        f"{100 * soak['summary']['drift']:+.1f}%, soak phase "
+        f"{soak['phase_s']:.1f} s; " + "; ".join(
         f"MSDA impl={i} fwd+bwd {qtimes[f'MSDA {i}'][1]:.4f} ms"
         for i in ("quad", "kernel")) + "; " + "; ".join(
         f"scale-out {k} step {v['ms']:.2f} ms, gradient sum "

@@ -426,18 +426,23 @@ def train_model(cfg: dict, work_dir: str, seed: int = 0,
     if load_task_pretrain_path:
         load_task_pretrain(model, load_task_pretrain_path)
 
-    # checkpoints load on every rank, before anything is sharded
-    start_step, resume_ck = 0, None
+    # checkpoints load on every rank, before anything is sharded; of a
+    # resume only the optimizer state is kept, until the optimizer takes it:
+    # the file's host copy (~0.7 GiB for the flagship) is not held for the
+    # run
+    start_step, resume_opt = 0, None
     resume_from, load_from = resolve_init_checkpoint(
         cfg, resume_from, auto_resume, work_dir)
     if resume_from:
         resume_ck = load_checkpoint(resume_from, model=model)
         start_step = int(resume_ck["meta"].get("iter", 0))
+        resume_opt = resume_ck["optimizer"]
         logger.info("resumed from %s @ iter %d", resume_ck["path"],
                     start_step)
+        del resume_ck
     elif load_from:
-        ck = load_checkpoint(load_from, model=model)
-        logger.info("loaded weights (load_from) %s", ck["path"])
+        logger.info("loaded weights (load_from) %s",
+                    load_checkpoint(load_from, model=model)["path"])
 
     sync, eval_model = None, model
     par_cfg = cfg.get("parallel") or {}
@@ -507,8 +512,9 @@ def train_model(cfg: dict, work_dir: str, seed: int = 0,
                     "the JAX package dispatches them; one call a step",
                     steps_per_dispatch)
 
-    if resume_ck is not None and resume_ck["optimizer"] is not None:
-        optimizer.load_state_dict(resume_ck["optimizer"])
+    if resume_opt is not None:
+        optimizer.load_state_dict(resume_opt)
+        del resume_opt
 
     profile_cfg = dict(cfg.get("profile_cfg") or {})
     if profile_cfg:

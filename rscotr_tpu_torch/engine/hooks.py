@@ -240,9 +240,9 @@ class KeyIndicator:
 @HOOKS.register_module()
 class MultiDatasetsEvalHook(Hook):
     """Every ``interval`` steps and at the last: ``eval_fn(runner)`` over
-    the val sets, its metrics logged and added to ``log_vars`` as
-    ``val/{key}``; with ``save_best``, a better ``KeyIndicator`` score
-    writes ``best_checkpoint.pth`` (weights only)."""
+    the val sets, its metrics logged with its seconds and added to
+    ``log_vars`` as ``val/{key}``; with ``save_best``, a better
+    ``KeyIndicator`` score writes ``best_checkpoint.pth`` (weights only)."""
     priority = 30
 
     def __init__(self, eval_fn: Callable[[Any], Dict[str, float]],
@@ -262,8 +262,10 @@ class MultiDatasetsEvalHook(Hook):
         if runner.step % self.interval != 0 and \
                 runner.step != runner.max_iters:
             return
+        t0 = time.perf_counter()
         metrics = self.eval_fn(runner)
-        self.logger.info("eval @ iter %d: %s", runner.step,
+        self.logger.info("eval @ iter %d in %.2f s: %s", runner.step,
+                         time.perf_counter() - t0,
                          {k: round(float(v), 4) for k, v in metrics.items()})
         runner.log_vars.update({f"val/{k}": v for k, v in metrics.items()})
         if self.indicator is not None:
