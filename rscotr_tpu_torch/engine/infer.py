@@ -17,6 +17,7 @@ import torch.nn.functional as F
 from rscotr_tpu_torch.models.heads.dino_loss import dino_get_bboxes
 from rscotr_tpu_torch.models.heads.pixel_decoders import _resize_bilinear
 from rscotr_tpu_torch.ops import resize
+from rscotr_tpu_torch.utils import trace
 
 _DEFAULT_NORM = ((123.675, 116.28, 103.53), (58.395, 57.12, 57.375))
 
@@ -98,17 +99,22 @@ def make_infer_steps(model, max_per_img: int = 300, img_norm=None,
 
     @torch.inference_mode()
     def infer_cls(img):
-        img = device_normalize(to_dev(img), img_norm)
-        return model.forward_cls(img).softmax(-1)
+        with trace.span(trace.REQUEST_CLS):
+            with trace.span(trace.INPUT):
+                img = device_normalize(to_dev(img), img_norm)
+            return model.forward_cls(img).softmax(-1)
 
     @torch.inference_mode()
     def infer_det(img, img_hw, scale_factor=None):
-        img_hw = to_dev(img_hw)
-        img = device_normalize(to_dev(img), img_norm, img_hw)
-        all_cls, all_coords, _, _ = model.forward_det(img, img_hw)
-        return dino_get_bboxes(all_cls[-1], all_coords[-1], img_hw,
-                               to_dev(scale_factor), max_per_img=max_per_img,
-                               rescale=True)
+        with trace.span(trace.REQUEST_DET):
+            with trace.span(trace.INPUT):
+                img_hw = to_dev(img_hw)
+                img = device_normalize(to_dev(img), img_norm, img_hw)
+            all_cls, all_coords, _, _ = model.forward_det(img, img_hw)
+            with trace.span(trace.DET_BOXES):
+                return dino_get_bboxes(all_cls[-1], all_coords[-1], img_hw,
+                                       to_dev(scale_factor),
+                                       max_per_img=max_per_img, rescale=True)
 
     stc = dict(seg_test_cfg or {})
     if stc.get("mode", "whole") == "slide":
@@ -138,7 +144,9 @@ def make_infer_steps(model, max_per_img: int = 300, img_norm=None,
 
     @torch.inference_mode()
     def infer_seg_logits(img):
-        return seg_logits(device_normalize(to_dev(img), img_norm))
+        with trace.span(trace.INPUT):
+            img = device_normalize(to_dev(img), img_norm)
+        return seg_logits(img)
 
     @torch.inference_mode()
     def infer_seg(img):

@@ -17,6 +17,7 @@ import torch
 from torch import nn
 
 from rscotr_tpu_torch.models.mtl import outputs_f32
+from rscotr_tpu_torch.utils import trace
 
 
 class DINO(nn.Module):
@@ -35,8 +36,10 @@ class DINO(nn.Module):
                     generator: Optional[torch.Generator] = None):
         """-> (all_cls, all_coords, topk_score, topk_anchor), see
         ``DINOHead.forward``."""
-        bb = self.backbone(img, generator)
-        feats = self.neck(bb[len(bb) - self.neck_in_levels:])
+        with trace.span(trace.BACKBONE):
+            bb = self.backbone(img, generator)
+        with trace.span(trace.NECK):
+            feats = self.neck(bb[len(bb) - self.neck_in_levels:])
         return outputs_f32(self.bbox_head(
             feats, img_hw,
             encode_fn=functools.partial(self.encoder, generator=generator),

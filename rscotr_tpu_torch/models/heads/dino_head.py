@@ -30,6 +30,7 @@ from rscotr_tpu_torch.ops.box_ops import inverse_sigmoid
 from rscotr_tpu_torch.ops.point_generator import encoder_reference_points
 from rscotr_tpu_torch.ops.pos_encoding import (coordinate_sine_embedding,
                                                sine_positional_encoding)
+from rscotr_tpu_torch.utils import trace
 
 BIG = 1e4  # finite stand-in for the reference's masked_fill(inf)
 
@@ -139,67 +140,75 @@ class DINOHead(nn.Module):
         B = neck_feats[0].shape[0]
         C = self.embed_dims
         shapes = tuple((f.shape[1], f.shape[2]) for f in neck_feats)
-        masks, valid_ratios = mlvl_masks_and_ratios(shapes, self.strides,
-                                                    img_hw)
-        toks, poss, mflat = [], [], []
-        for lvl, f in enumerate(neck_feats):
-            h, w = shapes[lvl]
-            pos = sine_positional_encoding(
-                masks[lvl], num_feats=C // 2,
-                temperature=self.pos_temperature, normalize=True)
-            toks.append(f.reshape(B, h * w, C))
-            poss.append(pos.reshape(B, h * w, C) + tr.level_embeds[lvl])
-            mflat.append(masks[lvl].reshape(B, h * w))
-        tokens = torch.cat(toks, 1)
-        pos_flat = torch.cat(poss, 1)
-        mask_flat = torch.cat(mflat, 1)
+        with trace.span(trace.DET_EMBED):
+            masks, valid_ratios = mlvl_masks_and_ratios(shapes, self.strides,
+                                                        img_hw)
+            toks, poss, mflat = [], [], []
+            for lvl, f in enumerate(neck_feats):
+                h, w = shapes[lvl]
+                pos = sine_positional_encoding(
+                    masks[lvl], num_feats=C // 2,
+                    temperature=self.pos_temperature, normalize=True)
+                toks.append(f.reshape(B, h * w, C))
+                poss.append(pos.reshape(B, h * w, C) + tr.level_embeds[lvl])
+                mflat.append(masks[lvl].reshape(B, h * w))
+            tokens = torch.cat(toks, 1)
+            pos_flat = torch.cat(poss, 1)
+            mask_flat = torch.cat(mflat, 1)
 
-        enc_ref = encoder_reference_points(shapes, valid_ratios)
-        memory = encode_fn(tokens, pos_flat, enc_ref, shapes,
-                           key_padding_mask=mask_flat)
+            enc_ref = encoder_reference_points(shapes, valid_ratios)
+        with trace.span(trace.ENCODER):
+            memory = encode_fn(tokens, pos_flat, enc_ref, shapes,
+                               key_padding_mask=mask_flat)
 
         # ---- two-stage proposals and top-k selection ---------------------
-        out_memory, out_proposals = self._gen_proposals(
-            memory, mask_flat, shapes, valid_ratios)
-        enc_cls = self.cls_branches[-1](out_memory)       # (B, S, K)
-        enc_coord_unact = self.reg_branches[-1](out_memory) + out_proposals
-        topk_idx = enc_cls.max(-1).values.topk(self.num_query, dim=1).indices
-        K = enc_cls.shape[-1]
-        topk_score = enc_cls.gather(1, topk_idx[..., None].expand(-1, -1, K))
-        topk_coords_unact = enc_coord_unact.gather(
-            1, topk_idx[..., None].expand(-1, -1, 4))
-        topk_anchor = topk_coords_unact.sigmoid()
-        topk_coords_unact = topk_coords_unact.detach()
+        with trace.span(trace.DET_SELECT):
+            out_memory, out_proposals = self._gen_proposals(
+                memory, mask_flat, shapes, valid_ratios)
+            enc_cls = self.cls_branches[-1](out_memory)       # (B, S, K)
+            enc_coord_unact = (self.reg_branches[-1](out_memory) +
+                               out_proposals)
+            topk_idx = enc_cls.max(-1).values.topk(self.num_query,
+                                                   dim=1).indices
+            K = enc_cls.shape[-1]
+            topk_score = enc_cls.gather(
+                1, topk_idx[..., None].expand(-1, -1, K))
+            topk_coords_unact = enc_coord_unact.gather(
+                1, topk_idx[..., None].expand(-1, -1, 4))
+            topk_anchor = topk_coords_unact.sigmoid()
+            topk_coords_unact = topk_coords_unact.detach()
 
         # ---- decoder queries (CDN first) and box refinement --------------
-        x = tr.query_embed.weight[None].expand(B, -1, -1)
-        ref_unact = topk_coords_unact
-        if dn_label_query is not None:
-            x = torch.cat([dn_label_query, x], 1)
-            ref_unact = torch.cat([dn_bbox_query, topk_coords_unact], 1)
-        ref = ref_unact.sigmoid()
-        ratios4 = torch.cat([valid_ratios, valid_ratios], -1)[:, None]
-        dec = tr.decoder
-        inter_states, inter_refs = [], [ref]
-        for lid, layer in enumerate(dec.layers):
-            ref_input = ref[:, :, None, :] * ratios4      # (B, N, L, 4)
-            query_pos = dec.ref_point_head(coordinate_sine_embedding(
-                ref_input[:, :, 0, :], num_feats=C // 2))
-            x = layer(x, query_pos, memory, ref_input, shapes,
-                      self_attn_mask=attn_mask, key_padding_mask=mask_flat)
-            new_ref = (self.reg_branches[lid](x) +
-                       inverse_sigmoid(ref, eps=1e-3)).sigmoid()
-            ref = new_ref.detach()
-            inter_states.append(dec.norm(x))
-            inter_refs.append(new_ref)
+        with trace.span(trace.DET_DECODER):
+            x = tr.query_embed.weight[None].expand(B, -1, -1)
+            ref_unact = topk_coords_unact
+            if dn_label_query is not None:
+                x = torch.cat([dn_label_query, x], 1)
+                ref_unact = torch.cat([dn_bbox_query, topk_coords_unact], 1)
+            ref = ref_unact.sigmoid()
+            ratios4 = torch.cat([valid_ratios, valid_ratios], -1)[:, None]
+            dec = tr.decoder
+            inter_states, inter_refs = [], [ref]
+            for lid, layer in enumerate(dec.layers):
+                ref_input = ref[:, :, None, :] * ratios4      # (B, N, L, 4)
+                query_pos = dec.ref_point_head(coordinate_sine_embedding(
+                    ref_input[:, :, 0, :], num_feats=C // 2))
+                x = layer(x, query_pos, memory, ref_input, shapes,
+                          self_attn_mask=attn_mask, key_padding_mask=mask_flat)
+                new_ref = (self.reg_branches[lid](x) +
+                           inverse_sigmoid(ref, eps=1e-3)).sigmoid()
+                ref = new_ref.detach()
+                inter_states.append(dec.norm(x))
+                inter_refs.append(new_ref)
 
-        all_cls, all_coords = [], []
-        for lvl, state in enumerate(inter_states):
-            all_cls.append(self.cls_branches[lvl](state))
-            all_coords.append((self.reg_branches[lvl](state) + inverse_sigmoid(
-                inter_refs[lvl], eps=1e-3)).sigmoid())
-        return (torch.stack(all_cls), torch.stack(all_coords), topk_score,
-                topk_anchor)
+            all_cls, all_coords = [], []
+            for lvl, state in enumerate(inter_states):
+                all_cls.append(self.cls_branches[lvl](state))
+                all_coords.append((self.reg_branches[lvl](state) +
+                                   inverse_sigmoid(inter_refs[lvl], eps=1e-3)
+                                   ).sigmoid())
+            return (torch.stack(all_cls), torch.stack(all_coords), topk_score,
+                    topk_anchor)
 
     def _gen_proposals(self, memory, mask_flat, shapes, valid_ratios):
         """mmdet gen_encoder_output_proposals with finite masking."""

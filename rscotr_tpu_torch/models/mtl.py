@@ -19,6 +19,7 @@ import torch
 from torch import nn
 
 from rscotr_tpu_torch.models.heads.cls_heads import MlvlClsHead
+from rscotr_tpu_torch.utils import trace
 
 
 def outputs_f32(out):
@@ -53,19 +54,25 @@ class MTL(nn.Module):
 
     def extract_feat(self, img, generator=None):
         """img (B, H, W, 3) -> (neck_feats, backbone_feats)."""
-        bb = self.backbone(img, generator)
+        with trace.span(trace.BACKBONE):
+            bb = self.backbone(img, generator)
         if self.neck is None:
             return bb, bb
-        return self.neck(bb[len(bb) - self.neck_in_levels:]), bb
+        with trace.span(trace.NECK):
+            return self.neck(bb[len(bb) - self.neck_in_levels:]), bb
 
     def forward_cls(self, img, generator: Optional[torch.Generator] = None):
         if isinstance(self.cls_head, MlvlClsHead):
             nk, _ = self.extract_feat(img, generator)
-            return outputs_f32(self.cls_head(nk, self._encoder(generator)))
+            with trace.span(trace.CLS_HEAD):
+                return outputs_f32(self.cls_head(nk, self._encoder(generator)))
         # SlvlClsHead reads only the last backbone map. Under jit XLA drops
         # the unused neck of the JAX forward; eagerly it would run, so the
         # backbone is called alone.
-        return outputs_f32(self.cls_head(self.backbone(img, generator)))
+        with trace.span(trace.BACKBONE):
+            bb = self.backbone(img, generator)
+        with trace.span(trace.CLS_HEAD):
+            return outputs_f32(self.cls_head(bb))
 
     def forward_det(self, img, img_hw, dn_label_query=None,
                     dn_bbox_query=None, attn_mask=None,
