@@ -24,6 +24,14 @@ Phases, each of which raises on failure (exit code 1, no result line):
    not divide, and at a head width that takes its CUDA-core instantiation
    in bf16. Each timed kernel stands beside its bound (the larger of bytes
    moved once over 3.35 TB/s and operations over the published peak);
+3b. K7 (``layer_norm_phase``, the LayerNorm forward outside autograd)
+   against its plain version at the main path's widths (96 to 1536, f32
+   and bf16 in, f32 and bf16 out; f32 outputs at TOL's f32 bound, bf16
+   ones within one bf16 ulp more), timed at the cls stage-1 block norm (802,816
+   x 96, f32 in, bf16 out) and the det encoder's (212,704 x 256, f32 in
+   and out) beside its bound, the plain version and ``F.layer_norm``; the
+   host microseconds of a ``LayerNorm`` module call with K7 against the
+   module's earlier ``F.layer_norm(x.float(), ...)``, in turns;
 4. backward kernels: K1b (the whole MSDA backward in one launch, the
    value-gradient scatter fused in) and K2b (window attention backward),
    through ``torch.autograd.grad`` of the CUDA Functions, against the plain
@@ -76,7 +84,8 @@ Phases, each of which raises on failure (exit code 1, no result line):
    600-query DINO head, 9-layer Mask2Former head; bf16 compute, random
    weights from a seed) answers cls 16x224^2, det 1x800^2, det 4x800^2,
    seg 4x512^2 and seg 1x512^2 requests; outputs are checked, kernel
-   launches counted (every K1 launch must take the vector body), median
+   launches counted (every K1 launch must take the vector body, every
+   LayerNorm call a K7 launch), median
    latency (CUDA events) and peak memory reported;
 10. training: the flagship trains cls 16x224^2 (mixup / cutmix), det
     1x800^2 (18 GT boxes padded to 100, 5 CDN groups: 200 DN + 600 matching
@@ -307,7 +316,7 @@ Phases, each of which raises on failure (exit code 1, no result line):
     stages' own tensors (rebuilt from their seed), under every backend that
     takes them; the fastest is the yardstick. The port never calls it.
 
-The line before the last is {"kernels": [...]}: eight kernels, each with
+The line before the last is {"kernels": [...]}: nine kernels, each with
 ``launches`` (the main path's run: the flagship's training), K1, K1b, K2
 and K2b also ``launches_paths`` (each zoo path's, each flagship task's,
 the flagship eval's run, each tool's run in the tools phase, each
@@ -346,8 +355,14 @@ locations in [0, 1], beside ``eager_ms``, ``whole_ms`` / ``whole_eager_ms``
 (``scatter_add_mm`` with its zero fill), ``scalar_ms`` (the scalar body on
 the same tensors), ``vec_launches`` and ``stages`` (also [-0.2, 1.2], where
 about half the sampling points clamp onto edge cells); its ``library_ms``
-is device time too. The last line is {"ok": true, "device": {...}}. Without a CUDA device the script exits 1
-before printing any result.
+is device time too. K7's ``ms`` and ``library_ms`` (``F.layer_norm``,
+which writes f32) are device times from a graph replay beside
+``eager_ms`` / ``library_eager_ms``, at the cls stage-1 norm, with the det
+encoder's in ``stages``; its ``launches`` are the serving phase's (every
+LayerNorm call of the five requests, ``launches_per_request``), and
+``host_us`` holds the module's host cost with K7 and with its earlier
+formula. The last line is {"ok": true, "device": {...}}. Without a CUDA
+device the script exits 1 before printing any result.
 """
 
 from __future__ import annotations
@@ -360,6 +375,7 @@ import re
 import subprocess
 import sys
 import time
+import types
 
 import numpy as np
 import torch
@@ -957,6 +973,151 @@ def kernel_phase():
                         bound_ms=ms, bound_by=by, library_ms=None)
     log_times(times)
     return err, times
+
+
+# K7 (LayerNorm forward) at the main path's shapes: (rows, C, input dtype,
+# output dtype). The cls stage-1 block norm (256 x 56^2 rows, f32 in, bf16
+# out to the qkv product) and the det encoder's norm (16 x 13,294 rows, f32
+# in and out) are timed; the others are checked.
+K7_CASES = {
+    "cls224.s0 norm1": (802816, 96, torch.float32, torch.bfloat16),
+    "det encoder norm": (212704, 256, torch.float32, torch.float32),
+    "cls224 patch embed": (802816, 96, torch.bfloat16, torch.float32),
+    "cls224.s1 norm1": (200704, 192, torch.float32, torch.bfloat16),
+    "cls224 merge 4C=1536": (12544, 1536, torch.float32, torch.bfloat16),
+    "cls224.s3 out norm": (12544, 768, torch.float32, torch.float32),
+    "det decoder norm": (9600, 256, torch.float32, torch.float32),
+    "ragged 7 rows": (7, 96, torch.float32, torch.bfloat16),
+}
+TIMED_K7 = ("cls224.s0 norm1", "det encoder norm")
+# host cost of a LayerNorm call: calls a timed loop issues, at the decoder's
+# shape, where the host paces the request
+K7_HOST_CALLS = 2000
+
+
+def k7_inputs(rows, C, dtype, seed):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = (torch.randn(rows, C, device="cuda", generator=g) * 3
+         + torch.randn(rows, 1, device="cuda", generator=g)).to(dtype)
+    w = torch.randn(C, device="cuda", generator=g)
+    b = torch.randn(C, device="cuda", generator=g)
+    return x, w, b
+
+
+def k7_check(name, got, ref) -> float:
+    """f32 outputs at TOL's f32 bound; bf16 outputs within one bf16 ulp of
+    the plain version's (two f32 results a few ulps apart round to
+    neighbouring bf16 values where they straddle a rounding boundary) plus
+    that f32 bound (an output near 0 is the difference of the affine
+    terms, whose f32 rounding error exceeds its bf16 ulp)."""
+    if not torch.isfinite(got.float()).all():
+        fail(f"K7 {name}: non-finite output")
+    err = (got.float() - ref.float()).abs()
+    atol, rtol = TOL[torch.float32]
+    allow = atol + rtol * ref.float().abs()
+    tol = f"tol {atol:g} + {rtol:g}*|ref|"
+    if got.dtype == torch.bfloat16:
+        _, e = torch.frexp(ref.float())
+        allow = allow + torch.ldexp(torch.ones_like(err), e - 8)
+        tol += " + one bf16 ulp of the plain version's"
+    ok = bool((err <= allow).all())
+    log(f"  K7 {name:<24} {str(got.dtype)[6:]:<8} max_abs_err "
+        f"{err.max().item():.3e}  ({tol})")
+    if not ok:
+        fail(f"K7 {name}: kernel disagrees with its plain version")
+    return err.max().item()
+
+
+def k7_host_us(fn, calls=K7_HOST_CALLS) -> float:
+    """Host microseconds a call: ``calls`` calls issued in a loop, no
+    synchronisation inside it (the card runs behind the host)."""
+    for _ in range(20):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return 1e6 * (t1 - t0) / calls
+
+
+def layer_norm_phase():
+    """K7 against its plain version, timed beside its bound, the plain
+    version and ``F.layer_norm`` (the library call the port made before
+    K7); then the host cost of a ``LayerNorm`` module call with K7 against
+    the module's earlier formula ``F.layer_norm(x.float(), ...)``."""
+    import torch.nn.functional as F
+
+    from rscotr_tpu_torch.models.layers.common import LayerNorm, init_weights
+    from rscotr_tpu_torch.ops.layer_norm import layer_norm, layer_norm_torch
+    log("layer norm phase: K7 layer_norm_fwd vs layer_norm_torch (the plain "
+        "version in float32, cast to the output dtype)")
+    err, times = [0.0, 0.0], {}
+    for i, (name, (rows, C, dt, out)) in enumerate(K7_CASES.items()):
+        x, w, b = k7_inputs(rows, C, dt, 200 + i)
+        before = layer_norm.launches
+        got = layer_norm(x, w, b, 1e-5, out)
+        torch.cuda.synchronize()
+        if layer_norm.launches != before + 1:
+            fail(f"K7 {name}: the wrapper counted no launch")
+        e = k7_check(name, got, layer_norm_torch(x, w, b, 1e-5, out))
+        bf = int(out == torch.bfloat16)
+        err[bf] = max(err[bf], e)
+        if name not in TIMED_K7:
+            continue
+
+        def run():
+            return layer_norm(x, w, b, 1e-5, out)
+
+        def library():
+            return F.layer_norm(x, (C,), w, b, 1e-5)
+
+        ms, by = bound((x, w, b, got), 8.0 * rows * C, "f32")
+        times[f"K7 {name}"] = dict(
+            ms=graph_ms(run), eager_ms=cuda_ms(run, 50),
+            plain_ms=cuda_ms(lambda: layer_norm_torch(x, w, b, 1e-5, out),
+                             10),
+            bound_ms=ms, bound_by=by, library_ms=graph_ms(library),
+            library_eager_ms=cuda_ms(library, 50),
+            timed_at=f"({rows}, {C}) {str(dt)[6:]} in, {str(out)[6:]} out")
+        del x, got
+    log_times(times)
+
+    # host cost: a module call under inference_mode, K7 against a twin
+    # module whose forward is the earlier formula, in turns, at the
+    # decoder's shape and the patch embedding's bf16 input (the cast the
+    # earlier formula issued on top); and the wrapper alone
+    def earlier(self, x):
+        return F.layer_norm(x.float(), self.normalized_shape, self.weight,
+                            self.bias, self.eps)
+
+    host = {}
+    for name, (rows, C, dt) in {
+            "det decoder (9600, 256) f32": (9600, 256, torch.float32),
+            "patch embed (4096, 96) bf16": (4096, 96, torch.bfloat16)
+    }.items():
+        m, twin = LayerNorm(C).cuda(), LayerNorm(C).cuda()
+        init_weights(m, torch.Generator())
+        init_weights(twin, torch.Generator())
+        twin.forward = types.MethodType(earlier, twin)
+        x = k7_inputs(rows, C, dt, 300)[0]
+        k7, old, bare = [], [], []
+        with torch.inference_mode():
+            for _ in range(3):
+                k7.append(k7_host_us(lambda: m(x)))
+                old.append(k7_host_us(lambda: twin(x)))
+                bare.append(k7_host_us(lambda: layer_norm(x, m.weight,
+                                                          m.bias)))
+        host[name] = dict(k7_us=float(np.median(k7)),
+                          earlier_us=float(np.median(old)),
+                          wrapper_us=float(np.median(bare)))
+        log(f"  host cost of a LayerNorm module call, {name}: K7 "
+            + " / ".join(f"{v:.2f}" for v in k7) + " us, earlier formula "
+            + " / ".join(f"{v:.2f}" for v in old) + " us; the wrapper "
+            "alone " + " / ".join(f"{v:.2f}" for v in bare) + " us (3 "
+            f"turns of {K7_HOST_CALLS} calls)")
+    return err, times, host
 
 
 def quad_phase():
@@ -1851,6 +2012,8 @@ def train_parity_phase():
 def serving_phase():
     from rscotr_tpu_torch.engine import make_infer_steps
     from rscotr_tpu_torch.models import build_model
+    from rscotr_tpu_torch.models.layers.common import LayerNorm
+    from rscotr_tpu_torch.ops.layer_norm import layer_norm
     from rscotr_tpu_torch.ops.ms_deform_attn import ms_deform_attn
     from rscotr_tpu_torch.ops.msda_ws import ws_fwd
     from rscotr_tpu_torch.ops.window_attention import window_attention
@@ -1893,27 +2056,46 @@ def serving_phase():
     ms_deform_attn.launches = 0
     ms_deform_attn.vec_launches = 0
     window_attention.launches = 0
+    layer_norm.launches = 0
     k4 = ws_fwd.launches
-    outs = {}
+    # K7: one launch per LayerNorm call (a hook counts the calls)
+    ln_calls = [0]
+
+    def count_call(*_):
+        ln_calls[0] += 1
+
+    hooks = [m.register_forward_hook(count_call) for m in model.modules()
+             if isinstance(m, LayerNorm)]
+    outs, k7_per_request = {}, {}
     for name, (task, args) in reqs.items():
         k1, k2 = ms_deform_attn.launches, window_attention.launches
         vec = ms_deform_attn.vec_launches
+        k7, ln_calls[0] = layer_norm.launches, 0
         outs[name] = steps[task](*args)
         got = (ms_deform_attn.launches - k1, window_attention.launches - k2)
         vec = ms_deform_attn.vec_launches - vec
+        k7_per_request[name] = layer_norm.launches - k7
         log(f"  launches in {name}: K1 {got[0]} ({vec} vector body), K2 "
             f"{got[1]} (want {want[task][0]}, all vector body, "
-            f"{want[task][1]})")
+            f"{want[task][1]}), K7 {k7_per_request[name]} (want "
+            f"{ln_calls[0]}, the LayerNorm calls)")
         if got != want[task] or vec != got[0]:
             fail(f"{name}: kernel launches {got} ({vec} K1 vector body) != "
                  f"{want[task]}")
+        if k7_per_request[name] != ln_calls[0]:
+            fail(f"{name}: K7 launches {k7_per_request[name]} != LayerNorm "
+                 f"calls {ln_calls[0]}")
+    for h in hooks:
+        h.remove()
     torch.cuda.synchronize()
     if ws_fwd.launches != k4:
         fail("serving launched K4: the quad-gather path is not the model's")
     launches = {"K1": ms_deform_attn.launches, "K2": window_attention.launches,
-                "K1 vec": ms_deform_attn.vec_launches}
+                "K1 vec": ms_deform_attn.vec_launches,
+                "K7": layer_norm.launches, "K7 per request": k7_per_request}
     log(f"  launches in the main path's run: K1 {launches['K1']} "
-        f"({launches['K1 vec']} vector body), K2 {launches['K2']}")
+        f"({launches['K1 vec']} vector body), K2 {launches['K2']}, K7 "
+        f"{launches['K7']}")
 
     probs = outs["cls 16x224^2"].float()
     if tuple(probs.shape) != (16, 45) or not torch.isfinite(probs).all() or \
@@ -5526,8 +5708,8 @@ def dropout_fields(r):
 
 
 def kernels_line(times, btimes, qtimes, err, berr, qerr, k6err, k6levels,
-                 launches):
-    """The ``{"kernels": [...]}`` object: eight kernels, each with its
+                 launches, k7):
+    """The ``{"kernels": [...]}`` object: nine kernels, each with its
     launches on the main path, its error against the plain version, its
     time beside the plain version's, its bound and its library yardstick."""
     det_enc = "det encoder B=1 Q=Nv=13294 H=8 L=4 P=4 D=32 bf16"
@@ -5629,6 +5811,16 @@ def kernels_line(times, btimes, qtimes, err, berr, qerr, k6err, k6levels,
               k6err, "G=8 K=53376 Nv=10000 C=128 bf16",
               plain="production_level_slice (gather, then x w in f32)",
               levels=k6levels),
+        entry("layer_norm_fwd", "layer_norm.cu",
+              "none (flax nn.LayerNorm, fused by XLA)", "K7",
+              k7[1]["K7 cls224.s0 norm1"], k7[0],
+              k7[1]["K7 cls224.s0 norm1"]["timed_at"]
+              + " (cls 256 x 224^2, stage 1 block norm)",
+              library="F.layer_norm(x, (C,), w, b) (writes f32)",
+              launches_per_request=launches["K7 per request"],
+              library_eager_ms=k7[1]["K7 cls224.s0 norm1"][
+                  "library_eager_ms"],
+              host_us=k7[2], stages=stages(k7[1], "K7")),
     ]}
 
 
@@ -5672,6 +5864,7 @@ def main(argv) -> int:
         return 2
 
     err, times = kernel_phase()
+    k7err, k7times, k7host = layer_norm_phase()
     berr, btimes = backward_phase()
     dropout_phase(times, btimes)
     qerr, qtimes, qlaunches = quad_phase()
@@ -5719,6 +5912,8 @@ def main(argv) -> int:
     launches.update({"K1 serving": slaunches["K1"],
                      "K1 vec serving": slaunches["K1 vec"],
                      "K2 serving": slaunches["K2"], "K6": k6launches,
+                     "K7": slaunches["K7"],
+                     "K7 per request": slaunches["K7 per request"],
                      "K3' training": launches["K3'"]}, **qlaunches)
     # the launches of each path beside the main path, per kernel
     zlaunches.update({f"flagship {t} steps (12)": n
@@ -5813,7 +6008,8 @@ def main(argv) -> int:
         f"{graft['phase_s']:.1f} s")
     log(smi)
     print(json.dumps(kernels_line(times, btimes, qtimes, err, berr, qerr,
-                                  k6err, k6levels, launches)), flush=True)
+                                  k6err, k6levels, launches,
+                                  (k7err, k7times, k7host))), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

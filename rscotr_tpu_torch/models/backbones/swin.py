@@ -148,12 +148,14 @@ class SwinBlock(nn.Module):
         super().__init__()
         self.window_size, self.shift = window_size, shift
         self.with_cp = with_cp
-        self.norm1 = LayerNorm(dim, device=device)
+        # norm1 and norm2 are read by bf16 products alone (qkv after pad,
+        # roll and windowing; the FFN's first layer): they round to its dtype
+        self.norm1 = LayerNorm(dim, out_dtype=dtype, device=device)
         self.attn = ShiftWindowMSA(dim, num_heads, window_size, qkv_bias,
                                    qk_scale, attn_drop=attn_drop,
                                    proj_drop=drop, dtype=dtype, device=device)
         self.drop_path = DropPath(drop_path)
-        self.norm2 = LayerNorm(dim, device=device)
+        self.norm2 = LayerNorm(dim, out_dtype=dtype, device=device)
         self.ffn = FFN(dim, int(dim * mlp_ratio),
                        act=lambda t: F.gelu(t, approximate="none"),
                        drop=drop, drop_path=drop_path, dtype=dtype,
@@ -211,7 +213,7 @@ class PatchMerging(nn.Module):
 
     def __init__(self, dim: int, dtype=torch.float32, device=None):
         super().__init__()
-        self.norm = LayerNorm(4 * dim, device=device)
+        self.norm = LayerNorm(4 * dim, out_dtype=dtype, device=device)
         self.reduction = Linear(4 * dim, 2 * dim, bias=False, dtype=dtype,
                                 device=device)
 

@@ -3,10 +3,13 @@
 Counterpart of rscotr_tpu/models/layers/common.py, plus the compute-dtype
 flow that flax gives the JAX package: a ``Linear`` / ``Conv2d`` built with
 ``dtype=torch.bfloat16`` casts its input, weight and bias to bf16 (flax
-``nn.Dense(dtype=...)``), while ``LayerNorm`` / ``GroupNorm`` always return
+``nn.Dense(dtype=...)``), while ``LayerNorm`` / ``GroupNorm`` return
 float32 (flax norms with no ``dtype`` promote bf16 input to their f32
-params). Parameters stay float32. Activations are NHWC / (B, N, C) as in the
-JAX package; parameter names follow the reference's mm state-dict layout.
+params); a ``LayerNorm`` whose only reader is a bf16 product returns the
+bf16 rounding of that float32 result (``out_dtype``), which the product
+would take anyway. Parameters stay float32. Activations are NHWC / (B, N,
+C) as in the JAX package; parameter names follow the reference's mm
+state-dict layout.
 
 ``DropPath`` and ``Dropout`` are active only in training mode
 (``module.train()``, JAX's ``deterministic=False``) with a non-zero rate, and
@@ -29,6 +32,7 @@ import torch.nn.functional as F
 import torch.utils.checkpoint
 from torch import nn
 
+from rscotr_tpu_torch.ops.layer_norm import layer_norm
 from rscotr_tpu_torch.utils.rng import per_sample
 
 # flax variance_scaling's truncated-normal correction: std of a unit normal
@@ -128,10 +132,15 @@ class Conv2d(nn.Conv2d):
 
 
 class LayerNorm(nn.LayerNorm):
-    """flax LayerNorm(epsilon=1e-5): float32 statistics and output."""
+    """flax LayerNorm(epsilon=1e-5): float32 statistics, output in
+    ``out_dtype`` (float32, or bfloat16 where every reader is a bf16
+    product). A call that autograd does not record (serving, evaluation,
+    export) goes through ``ops.layer_norm`` (kernel K7 on CUDA); one it
+    records through ``F.layer_norm``."""
 
-    def __init__(self, dim: int, device=None):
+    def __init__(self, dim: int, out_dtype=torch.float32, device=None):
         super().__init__(dim, eps=1e-5, device=device)
+        self.out_dtype = out_dtype
 
     def reset_parameters(self):
         """No-op: ``init_weights`` initialises from an explicit generator."""
@@ -141,8 +150,14 @@ class LayerNorm(nn.LayerNorm):
         constant_(self.bias, 0.0)
 
     def forward(self, x):
-        return F.layer_norm(x.float(), self.normalized_shape, self.weight,
-                            self.bias, self.eps)
+        if torch.is_grad_enabled() and (x.requires_grad or
+                                        self.weight.requires_grad or
+                                        self.bias.requires_grad):
+            y = F.layer_norm(x.float(), self.normalized_shape, self.weight,
+                             self.bias, self.eps)
+            return y.to(self.out_dtype)
+        return layer_norm(x.contiguous(), self.weight, self.bias, self.eps,
+                          self.out_dtype)
 
 
 class GroupNorm(nn.GroupNorm):

@@ -10,9 +10,10 @@ buckets cls 2 x 64^2, det 2 x 128^2, seg 2 x 64^2; the tests load that one
 artifact. Checked:
 
 * the operators' schemas and fake implementations (``opcheck``);
-* each loaded program calls ``rscotr_torch::msda_fwd`` (det, seg) and
-  ``rscotr_torch::window_attn_fwd`` once per MSDA layer and Swin block, and
-  no ``grid_sampler``;
+* each loaded program calls ``rscotr_torch::msda_fwd`` (det, seg),
+  ``rscotr_torch::window_attn_fwd`` and ``rscotr_torch::layer_norm_fwd``
+  once per MSDA layer, Swin block and LayerNorm call, and no
+  ``grid_sampler`` and no aten LayerNorm;
 * the artifact against the port's live steps (atol 1e-5, as JAX's
   tests/test_export.py) and against JAX's live ``make_infer_steps`` (JAX
   under highest matmul precision) at the slice tolerances of
@@ -60,10 +61,13 @@ BUCKETS = {"cls": (2, 64), "det": (2, 128), "seg": (2, 64)}
 ROUND_TOL = 1e-5
 CLS_TOL, SCORE_TOL, BOX_TOL, SEG_TOL = 1e-5, 1e-5, 1e-3, 1e-4
 # the tiny config: Swin depths [1, 1, 2, 1]; 2 encoder and 2 det decoder
-# MSDA layers
-OP_COUNTS = {"cls": {"window_attn_fwd": 5, "msda_fwd": 0},
-             "det": {"window_attn_fwd": 5, "msda_fwd": 4},
-             "seg": {"window_attn_fwd": 5, "msda_fwd": 2}}
+# MSDA layers; LayerNorm calls: Swin 18, det head 13, seg head 17
+OP_COUNTS = {"cls": {"window_attn_fwd": 5, "msda_fwd": 0,
+                     "layer_norm_fwd": 18},
+             "det": {"window_attn_fwd": 5, "msda_fwd": 4,
+                     "layer_norm_fwd": 31},
+             "seg": {"window_attn_fwd": 5, "msda_fwd": 2,
+                     "layer_norm_fwd": 35}}
 
 
 def _jax_side(cfg):
@@ -186,6 +190,7 @@ def test_programs_call_the_kernel_ops(exported, task):
     assert counts == OP_COUNTS[task]
     assert set(found) <= {f"rscotr_torch.{n}" for n in OP_COUNTS[task]}
     assert not any("grid_sampler" in t for t in ops)
+    assert not any("layer_norm" in t and "rscotr" not in t for t in ops)
 
 
 @pytest.mark.parametrize("task", sorted(BUCKETS))
@@ -507,8 +512,9 @@ def cuda_device():
 def test_ops_launch_the_kernels_on_cuda(cuda_device, tmp_path):
     """On the card each operator launches its kernel (counted by the
     wrapper) and agrees with its plain version; an artifact exported on
-    ``cuda`` launches K1 / K2 per request as the live steps do, every K1 on
-    the vector body."""
+    ``cuda`` launches K1 / K2 / K7 per request as the live steps do, every
+    K1 on the vector body."""
+    from rscotr_tpu_torch.ops.layer_norm import layer_norm
     from rscotr_tpu_torch.ops.ms_deform_attn import (ms_deform_attn,
                                                      ms_deform_attn_torch)
     from rscotr_tpu_torch.ops.window_attention import (
@@ -540,9 +546,10 @@ def test_ops_launch_the_kernels_on_cuda(cuda_device, tmp_path):
     fns, _ = load_artifact(str(tmp_path), device="cuda")
     for task, want in OP_COUNTS.items():
         k1, vec = ms_deform_attn.launches, ms_deform_attn.vec_launches
-        k2 = window_attention.launches
+        k2, k7 = window_attention.launches, layer_norm.launches
         fns[task](*_inputs(task))
         torch.cuda.synchronize()
+        assert layer_norm.launches - k7 == want["layer_norm_fwd"]
         assert ms_deform_attn.launches - k1 == want["msda_fwd"]
         assert ms_deform_attn.vec_launches - vec == want["msda_fwd"]
         assert window_attention.launches - k2 == want["window_attn_fwd"]
