@@ -975,6 +975,120 @@ def kernel_phase():
     return err, times
 
 
+# K2's long-window body at Swin-L's stages (window 12, n = 144, head width
+# 32) on 16 tiles of 640^2: (B, nW, H, side of the padded map)
+K2_LONG_SHAPES = {
+    "swinl640.s0": (16, 196, 6, 168), "swinl640.s1": (16, 49, 12, 84),
+    "swinl640.s2": (16, 16, 24, 48), "swinl640.s3": (16, 4, 48, 24),
+}
+K2_LONG_WINDOW = 12
+
+
+def long_wa_inputs(B, nW, H, side, masked, seed, window=K2_LONG_WINDOW,
+                   hd=32):
+    """bf16 q, k, v as the strided views of one fused projection (as the
+    Swin block passes them), the f32 bias and, ``masked``, the shift mask
+    of a ``side`` x ``side`` map."""
+    from rscotr_tpu_torch.models.backbones.swin import _shift_attn_mask
+    n = window * window
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    qkv = torch.randn(B * nW, n, 3, H, hd, device="cuda",
+                      generator=g).to(torch.bfloat16).permute(2, 0, 3, 1, 4)
+    q, k, v = (t.unflatten(0, (B, nW)) for t in qkv.unbind(0))
+    bias = torch.randn(H, n, n, device="cuda", generator=g) * 0.02
+    mask = torch.as_tensor(_shift_attn_mask(side, side, window, window // 2),
+                           device="cuda") if masked else None
+    return q, k, v, bias, mask, hd ** -0.5
+
+
+def k2_long_phase():
+    """K2's long-window tensor-core body (``tc144_launches``) against the
+    plain version, image by image within the two-flip allowance, and timed
+    beside the CUDA-core body on the same tensors, at Swin-L's four stage
+    shapes, unshifted and shifted; then windows 9 to 11 (n = 81, 100, 121,
+    padded rows and keys) and attention dropout, checked."""
+    from rscotr_tpu_torch.ops import flops
+    from rscotr_tpu_torch.ops import window_attention as wa
+    log("K2 long-window phase: window_attn_tc144_kernel vs "
+        "window_attention_torch and the CUDA-core body (run=0)")
+    times, seed = {}, 300
+
+    def check(name, q, k, v, bias, mask, scale, got, drop=None):
+        excess = worst = 0.0
+        atol, rtol = TOL[torch.bfloat16]
+        # image by image, to bound the allowance's memory; with dropout
+        # whole, since the keep bits follow the tile's index in the batch
+        parts = [slice(None)] if drop else \
+            [slice(b, b + 1) for b in range(q.shape[0])]
+        for b in parts:
+            one = (q[b], k[b], v[b], bias, mask, scale)
+            ref = wa.window_attention_torch(*one, *(drop or ())).float()
+            err = (got[b].float() - ref).abs()
+            slack = k2_ulp_slack(*one, drop=drop)
+            excess = max(excess, (err - rtol * ref.abs() - slack).max().item())
+            worst = max(worst, err.max().item())
+        log(f"  {name:<34} bf16     max_abs_err {worst:.3e}  (tol {atol:g} "
+            f"+ {rtol:g}*|ref| + P_FLIPS)")
+        if not torch.isfinite(got).all() or excess > atol:
+            fail(f"{name}: the long-window body disagrees with its plain "
+                 f"version (max_abs_err {worst:.3e})")
+
+    for name, (B, nW, H, side) in K2_LONG_SHAPES.items():
+        for masked in (False, True):
+            seed += 1
+            q, k, v, bias, mask, scale = long_wa_inputs(B, nW, H, side,
+                                                        masked, seed)
+            before = (wa.window_attention.launches,
+                      wa.window_attention.tc144_launches)
+            got = wa.window_attention(q, k, v, bias, mask, scale)
+            torch.cuda.synchronize()
+            if (wa.window_attention.launches - before[0],
+                    wa.window_attention.tc144_launches - before[1]) != (1, 1):
+                fail(f"K2 {name}: not one long-window launch")
+            label = f"K2 {name}{' masked' if masked else ''}"
+            check(label, q, k, v, bias, mask, scale, got)
+            core = wa._window_attention_cuda(q, k, v, bias, mask, scale,
+                                             run=0)
+            check(label + " (cuda-core)", q, k, v, bias, mask, scale, core)
+            n, hd = q.shape[-2:]
+            ms, by = bound((q, k, v, bias, mask, got),
+                           flops.window_attn_flops(B * nW * H, n, hd),
+                           "bf16 tensor")
+            times[label] = dict(
+                ms=graph_ms(lambda: wa.window_attention(q, k, v, bias, mask,
+                                                        scale)),
+                core_ms=graph_ms(lambda: wa._window_attention_cuda(
+                    q, k, v, bias, mask, scale, run=0), iters=5, reps=3),
+                plain_ms=cuda_ms(lambda: wa.window_attention_torch(
+                    q[:1], k[:1], v[:1], bias, mask, scale), 5) * B,
+                bound_ms=ms, bound_by=by)
+            del q, k, v, got, core
+            torch.cuda.empty_cache()
+    for window in (9, 10, 11):
+        for masked in (False, True):
+            seed += 1
+            side = 4 * window
+            q, k, v, bias, mask, scale = long_wa_inputs(
+                3, 16, 5, side, masked, seed, window)
+            before = wa.window_attention.tc144_launches
+            got = wa.window_attention(q, k, v, bias, mask, scale)
+            if wa.window_attention.tc144_launches != before + 1:
+                fail(f"K2 window {window}: not a long-window launch")
+            check(f"K2 window {window}{' masked' if masked else ''}", q, k,
+                  v, bias, mask, scale, got)
+    q, k, v, bias, mask, scale = long_wa_inputs(2, 16, 6, 48, True, seed + 1)
+    drop = (0.3, 12345)
+    got = wa.window_attention(q, k, v, bias, mask, scale, *drop)
+    check("K2 window 12 dropout 0.3", q, k, v, bias, mask, scale, got, drop)
+    for label, r in times.items():
+        log(f"  time bf16 {label:<28} kernel {r['ms']:.4f} ms   cuda-core "
+            f"body {r['core_ms']:.4f} ms ({r['core_ms'] / r['ms']:.1f}x)   "
+            f"plain {r['plain_ms']:.4f} ms   bound {r['bound_ms']:.4f} ms "
+            f"({r['bound_by']}, {100 * r['bound_ms'] / r['ms']:.1f}% of it)")
+    log(f"  tc144_launches {wa.window_attention.tc144_launches}")
+    return times
+
+
 # K7 (LayerNorm forward) at the main path's shapes: (rows, C, input dtype,
 # output dtype). The cls stage-1 block norm (256 x 56^2 rows, f32 in, bf16
 # out to the qkv product) and the det encoder's norm (16 x 13,294 rows, f32
@@ -5865,6 +5979,7 @@ def main(argv) -> int:
 
     err, times = kernel_phase()
     k7err, k7times, k7host = layer_norm_phase()
+    k2_long_phase()
     berr, btimes = backward_phase()
     dropout_phase(times, btimes)
     qerr, qtimes, qlaunches = quad_phase()

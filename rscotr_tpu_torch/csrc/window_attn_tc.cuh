@@ -1,7 +1,8 @@
 // Tensor-core building blocks shared by the bf16 instantiations of K2
 // (window_attn.cu) and K2b (window_attn_bwd.cu).
 //
-// A (window, head) tile is n <= 64 tokens of HD channels. It is staged in
+// A (window, head) tile is n <= 64 tokens of HD channels (K2's long-window
+// body, window_attn.cu, stages 144 rows the same way). It is staged in
 // shared memory as 64 rows of bf16 (rows n..63 stay zero) with a row stride
 // of HD + 8 elements: 16 bytes of padding put the eight 16-byte rows of
 // every ldmatrix phase in eight different bank groups, so fragment loads
@@ -99,10 +100,11 @@ __device__ __forceinline__ void load_tile(__nv_bfloat16* dst,
   }
 }
 
-// S accumulators of this warp's 16 rows over the 64 padded keys:
-// acc += a_tile[16 warp rows] b_tile^T, both tiles row-major (rows, HD)
-template <int HD>
-__device__ __forceinline__ void mma_rows_by_rows(float (&acc)[8][4],
+// S accumulators of this warp's 16 rows over the NT * 8 padded keys (64
+// unless given): acc += a_tile[16 warp rows] b_tile^T, both tiles
+// row-major (rows, HD)
+template <int HD, int NT = 8>
+__device__ __forceinline__ void mma_rows_by_rows(float (&acc)[NT][4],
                                                  const __nv_bfloat16* a_tile,
                                                  const __nv_bfloat16* b_tile,
                                                  int warp, int lane) {
@@ -114,7 +116,7 @@ __device__ __forceinline__ void mma_rows_by_rows(float (&acc)[8][4],
                         (warp * 16 + (lane & 7) + 8 * ((lane >> 3) & 1)) * LD +
                         ks * 16 + 8 * (lane >> 4)));
 #pragma unroll
-    for (int nt = 0; nt < 8; nt += 2) {
+    for (int nt = 0; nt < NT; nt += 2) {
       uint32_t b[4];
       ldsm_x4(b, smem_u32(b_tile +
                           (nt * 8 + (lane & 7) + 8 * (lane >> 4)) * LD +
@@ -125,16 +127,17 @@ __device__ __forceinline__ void mma_rows_by_rows(float (&acc)[8][4],
   }
 }
 
-// out (16 x HD) += A b_tile with A (16 x 64) given as four bf16 A fragments
-// over the 64 padded rows of b_tile (row-major (64, HD), read transposed)
-template <int HD>
+// out (16 x HD) += A b_tile with A (16 x 16 KK) given as KK bf16 A
+// fragments (four unless given) over the 16 KK padded rows of b_tile
+// (row-major (16 KK, HD), read transposed)
+template <int HD, int KK = 4>
 __device__ __forceinline__ void mma_frag_by_tile(float (&out)[HD / 8][4],
-                                                 const uint32_t (&a)[4][4],
+                                                 const uint32_t (&a)[KK][4],
                                                  const __nv_bfloat16* b_tile,
                                                  int lane) {
   constexpr int LD = HD + 8;
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
+  for (int kk = 0; kk < KK; ++kk) {
 #pragma unroll
     for (int nt = 0; nt < HD / 8; nt += 2) {
       uint32_t b[4];
@@ -148,12 +151,13 @@ __device__ __forceinline__ void mma_frag_by_tile(float (&out)[HD / 8][4],
   }
 }
 
-// the C tiles of a 16 x 64 f32 block as the four A fragments of the next
-// product, rounded to bf16
-__device__ __forceinline__ void c_to_a_frags(uint32_t (&a)[4][4],
-                                             const float (&c)[8][4]) {
+// the C tiles of a 16 x 16 KK f32 block (16 x 64 unless given) as the KK A
+// fragments of the next product, rounded to bf16
+template <int KK = 4>
+__device__ __forceinline__ void c_to_a_frags(uint32_t (&a)[KK][4],
+                                             const float (&c)[2 * KK][4]) {
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
+  for (int kk = 0; kk < KK; ++kk) {
     a[kk][0] = pack_bf16(c[2 * kk][0], c[2 * kk][1]);
     a[kk][1] = pack_bf16(c[2 * kk][2], c[2 * kk][3]);
     a[kk][2] = pack_bf16(c[2 * kk + 1][0], c[2 * kk + 1][1]);

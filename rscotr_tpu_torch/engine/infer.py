@@ -86,6 +86,12 @@ def make_infer_steps(model, max_per_img: int = 300, img_norm=None,
         "seg_logits": infer_seg_logits(img) -> f32 logits (B, H, W, C) at
         the input resolution}.
 
+    A seg head of scheme 3 (Mask2Former's mask classification) gives class
+    and mask logits, which its ``semantic`` module turns into the class
+    scores (B, H, W, num_classes) in Mask2Former's published order; the
+    other schemes' logits are upsampled with ``resize_linear``. The label
+    map is the argmax of either.
+
     ``seg_test_cfg`` is the config's ``model.test_cfg.seg``: ``mode``
     ``"whole"`` (default) upsamples the logits of the whole image;
     ``"slide"`` runs overlapping ``crop_size`` windows at ``stride`` (mmseg
@@ -130,8 +136,9 @@ def make_infer_steps(model, max_per_img: int = 300, img_norm=None,
             pred = cnt = None
             for y in _slide_origins(H, hc, hs):
                 for x in _slide_origins(W, wc, ws):
-                    logits = resize_linear(model.forward_seg(
-                        img[:, y:y + hc, x:x + wc]), (hc, wc))
+                    out = model.forward_seg(img[:, y:y + hc, x:x + wc])
+                    with trace.span(trace.SEG_SEMANTIC):
+                        logits = scores(out, (hc, wc))
                     if pred is None:
                         pred = logits.new_zeros((B, H, W, logits.shape[-1]))
                         cnt = logits.new_zeros((H, W))
@@ -140,17 +147,32 @@ def make_infer_steps(model, max_per_img: int = 300, img_norm=None,
             return pred / cnt[None, :, :, None]
     else:
         def seg_logits(img):
-            return resize_linear(model.forward_seg(img), img.shape[1:3])
+            out = model.forward_seg(img)
+            with trace.span(trace.SEG_SEMANTIC):
+                return scores(out, img.shape[1:3])
+
+    def scores(out, hw):
+        if isinstance(out, tuple):
+            return model.seg_head.semantic(*out, hw)
+        return resize_linear(out, hw)
+
+    def seg_request(img, labels):
+        with trace.span(trace.REQUEST_SEG):
+            with trace.span(trace.INPUT):
+                img = device_normalize(to_dev(img), img_norm)
+            logits = seg_logits(img)
+            if not labels:
+                return logits
+            with trace.span(trace.SEG_SEMANTIC):
+                return logits.argmax(-1)
 
     @torch.inference_mode()
     def infer_seg_logits(img):
-        with trace.span(trace.INPUT):
-            img = device_normalize(to_dev(img), img_norm)
-        return seg_logits(img)
+        return seg_request(img, False)
 
     @torch.inference_mode()
     def infer_seg(img):
-        return infer_seg_logits(img).argmax(-1)
+        return seg_request(img, True)
 
     return {"cls": infer_cls, "det": infer_det, "seg": infer_seg,
             "seg_logits": infer_seg_logits}

@@ -154,8 +154,12 @@ def seg_loss_fn(model, batch, generator, cfg: TrainStepConfig,
     count of the global batch (``reduce_sum``)."""
     img = _input("seg", batch, generator, cfg, train)
     gt = batch["gt_semantic_seg"]
-    logits = resize_linear(
-        model.forward_seg(img, generator if train else None), gt.shape[1:3])
+    logits = model.forward_seg(img, generator if train else None)
+    if isinstance(logits, tuple):
+        raise NotImplementedError(
+            "Mask2FormerHead scheme 3 serves only: Mask2Former's matched mask "
+            "and class losses are not ported")
+    logits = resize_linear(logits, gt.shape[1:3])
     count = counted_labels(gt, logits.shape[-1], cfg.seg_ignore_index)
     loss = softmax_cross_entropy(
         logits, gt, ignore_index=cfg.seg_ignore_index,

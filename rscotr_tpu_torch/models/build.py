@@ -150,6 +150,8 @@ def build_bbox_head(cfg: dict, dtype, device):
 
 
 def build_seg_head(cfg: dict, dtype, device, input_convs: bool = False):
+    """``scheme`` 1 or 2 (the paper's heads) or 3 (Mask2Former's mask
+    classification and semantic inference)."""
     t, c = _pop_type(cfg)
     if t != "Mask2FormerHead":
         raise KeyError(f"unknown seg head type {t}")

@@ -13,10 +13,20 @@ rows reset to all-allowed, repeated per head. Outputs:
 * scheme 2: mask_pred itself is the logits, one channel per QUERY (100 at
   the flagship; the serving argmax runs over all of them, as the JAX
   package's: ROADMAP C4).
-Returns the last layer's logits NHWC (B, Hm, Wm, channels) at the mask
-feature's stride (8 in the MTL). Keys follow the reference's mm layout
-(``transformer_decoder.layers.{i}``, ``transformer_decoder.post_norm``,
-``mask_embed.{0,2,4}``, ``cls_embed``, ``pixel_decoder.*``).
+Schemes 1 and 2 return the last layer's logits NHWC (B, Hm, Wm, channels)
+at the mask feature's stride (8 in the MTL).
+* scheme 3: Mask2Former's own mask classification (Cheng et al., CVPR
+  2022, arXiv:2112.01527; the JAX package has no counterpart): the last
+  layer's class logits (B, Q, num_classes + 1) and mask logits NCHW (B, Q,
+  Hm, Wm), which ``semantic`` (``SemanticInference``) turns into per-pixel
+  class scores in the published order.
+Keys follow the reference's mm layout (``transformer_decoder.layers.{i}``,
+``transformer_decoder.post_norm``, ``mask_embed.{0,2,4}``, ``cls_embed``,
+``pixel_decoder.*``).
+
+Spans (``utils.trace``): ``rscotr.seg.pixel_decoder`` around the pixel
+decoder (the encoder inside it has its own), ``rscotr.seg.decoder`` around
+the queries, the decoder layers and every prediction head.
 """
 
 from __future__ import annotations
@@ -32,6 +42,25 @@ from rscotr_tpu_torch.models.layers.common import Embedding, LayerNorm, Linear
 from rscotr_tpu_torch.models.layers.transformer import \
     MaskedAttentionDecoderLayer
 from rscotr_tpu_torch.ops.pos_encoding import sine_positional_encoding
+from rscotr_tpu_torch.utils import trace
+
+
+class SemanticInference(nn.Module):
+    """Mask2Former's semantic inference (``semantic_inference`` of its
+    ``MaskFormer`` model), in the published order: the mask logits (B, Q,
+    h, w) upsampled bilinearly to the image (half-pixel centres, no
+    antialiasing: ``F.interpolate(..., align_corners=False)``), then their
+    sigmoid, then the product with ``softmax(cls)[..., :-1]`` summed over
+    the queries (the einsum ``qc,qhw->chw``, here one batched product).
+    Returns float32 scores NHWC (B, H, W, num_classes). A module of its own
+    (no parameters), so that a forward hook can read the scores."""
+
+    def forward(self, cls_logits, mask_logits, hw):
+        B, Q = mask_logits.shape[:2]
+        masks = _interpolate(mask_logits.float(), hw).sigmoid_()
+        probs = cls_logits.float().softmax(-1)[..., :-1]
+        scores = torch.bmm(masks.reshape(B, Q, -1).transpose(1, 2), probs)
+        return scores.reshape(B, masks.shape[2], masks.shape[3], -1)
 
 
 class Mask2FormerDecoder(nn.Module):
@@ -60,7 +89,7 @@ class Mask2FormerHead(nn.Module):
                  pixel_decoder_input_convs: bool = False,
                  dtype=torch.float32, device=None):
         super().__init__()
-        if scheme not in (1, 2):
+        if scheme not in (1, 2, 3):
             raise NotImplementedError(f"Mask2FormerHead scheme {scheme}")
         C, L = feat_channels, num_transformer_feat_level
         self.scheme = scheme
@@ -85,7 +114,8 @@ class Mask2FormerHead(nn.Module):
             Linear(C, C, dtype=dtype, device=device), nn.ReLU(),
             Linear(C, out_channels, dtype=dtype, device=device))
         self.cls_embed = (Linear(C, num_classes + 1, dtype=dtype,
-                                 device=device) if scheme == 1 else None)
+                                 device=device) if scheme in (1, 3) else None)
+        self.semantic = SemanticInference() if scheme == 3 else None
 
     def _forward_head(self, q, mask_feature, attn_hw):
         """-> (seg logits (B, channels, Hm, Wm), attention mask for the next
@@ -106,10 +136,17 @@ class Mask2FormerHead(nn.Module):
         return seg, am.reshape(B * self.num_heads, Q, -1)
 
     def forward(self, neck_feats, backbone_feats, encode_fn: Callable):
-        """Returns seg logits (B, Hm, Wm, num_queries | num_classes + 1)."""
-        mask_feature, ms_feats = self.pixel_decoder(encode_fn, neck_feats,
-                                                    backbone_feats)
-        B = backbone_feats[0].shape[0]
+        """Returns seg logits (B, Hm, Wm, num_queries | num_classes + 1);
+        scheme 3: (class logits (B, Q, num_classes + 1), mask logits (B, Q,
+        Hm, Wm))."""
+        with trace.span(trace.SEG_PIXEL_DECODER):
+            mask_feature, ms_feats = self.pixel_decoder(
+                encode_fn, neck_feats, backbone_feats)
+        with trace.span(trace.SEG_DECODER):
+            return self._decode(mask_feature, ms_feats)
+
+    def _decode(self, mask_feature, ms_feats):
+        B = mask_feature.shape[0]
         C = self.level_embed.weight.shape[1]
         dec_inputs, dec_pos = [], []
         for i in range(self.num_levels):
@@ -132,4 +169,6 @@ class Mask2FormerHead(nn.Module):
             seg, attn_mask = self._forward_head(
                 q, mask_feature,
                 ms_feats[(i + 1) % self.num_levels].shape[1:3])
+        if self.scheme == 3:
+            return self.cls_embed(self.transformer_decoder.post_norm(q)), seg
         return seg.permute(0, 2, 3, 1)

@@ -29,6 +29,7 @@ from rscotr_tpu_torch.models.layers.common import (Conv2d, Embedding,
                                                    GroupNorm)
 from rscotr_tpu_torch.ops.point_generator import single_level_grid_points
 from rscotr_tpu_torch.ops.pos_encoding import sine_positional_encoding
+from rscotr_tpu_torch.utils import trace
 
 
 def _flatten_levels_for_encoder(neck_feats, level_embed, num_encoder_levels,
@@ -174,7 +175,9 @@ class MlvlSegPixelDecoder(nn.Module):
         tokens, pos, ref, shapes = _flatten_levels_for_encoder(
             neck_feats, self.level_encoding.weight, L, enc_strides,
             self.pos_temperature)
-        outs = _split_levels(encode_fn(tokens, pos, ref, shapes), shapes)
+        with trace.span(trace.ENCODER):
+            memory = encode_fn(tokens, pos, ref, shapes)
+        outs = _split_levels(memory, shapes)
         num_fpn = len(backbone_feats) - L
         for k, (lat_conv, out_conv) in enumerate(zip(self.lateral_convs,
                                                      self.output_convs)):

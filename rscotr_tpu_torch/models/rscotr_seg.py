@@ -18,6 +18,7 @@ import torch
 from torch import nn
 
 from rscotr_tpu_torch.models.mtl import outputs_f32
+from rscotr_tpu_torch.utils import trace
 
 
 class RSCoTrSeg(nn.Module):
@@ -29,9 +30,10 @@ class RSCoTrSeg(nn.Module):
         self.encoder = encoder
 
     def forward_seg(self, img, generator: Optional[torch.Generator] = None):
-        """-> seg logits (B, H/4, W/4, channels), see
-        ``Mask2FormerHead.forward``."""
-        bb = self.backbone(img, generator)
+        """-> seg logits (B, H/4, W/4, channels), or scheme 3's class and
+        mask logits, see ``Mask2FormerHead.forward``."""
+        with trace.span(trace.BACKBONE):
+            bb = self.backbone(img, generator)
         return outputs_f32(self.seg_head(
             bb, bb, encode_fn=functools.partial(self.encoder,
                                                 generator=generator)))

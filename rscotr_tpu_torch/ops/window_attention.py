@@ -26,8 +26,13 @@ Each kernel has two instantiations behind its one entry point, and
 16-byte aligned bases and strides takes the tensor-core kernel, in which a
 block walks a run of consecutive windows of one head; float32 inputs, and
 bf16 inputs outside those shapes, take the CUDA-core kernel (one block per
-window and head, float32 arithmetic on operands staged as float32).
-``launches`` counts both, ``tc_launches`` the tensor-core ones.
+window and head, float32 arithmetic on operands staged as float32). K2 has
+a third: bf16 with 64 < n <= 144 (windows 9 to 12) at head width 32 and the
+same alignment takes the long-window tensor-core kernel, in which a block
+stages one head's bias plus one window's mask once and walks a run of
+images of that window. ``launches`` counts every launch, ``tc_launches``
+the tensor-core ones (both kinds) and ``tc144_launches`` the long-window
+ones; K2b has no long-window body.
 
 Attention dropout (Swin's ``attn_drop_rate`` in training; JAX's unfused
 path, rscotr_tpu/models/backbones/swin.py): with ``dropout_p`` > 0 the
@@ -144,6 +149,7 @@ def window_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 window_attention.launches = 0
 window_attention.tc_launches = 0
+window_attention.tc144_launches = 0
 
 # shared-memory ceiling of one block on Hopper (227 KB)
 _MAX_SMEM = 232448
@@ -162,6 +168,13 @@ TC_MAX_RUN = 32
 # the SM count of an H100 SXM: what ``tensor_core_plan`` assumes when it is
 # not told the device's (the wrappers read it from the device)
 H100_SM_COUNT = 132
+# K2's long-window instantiation (csrc/window_attn.cu): tiles padded to 144
+# tokens, head width 32; its registers (the scores and the bias + mask of
+# 144 keys a thread row) hold one block of 288 threads an SM, and a run of
+# images is cut so that the blocks fill the SMs this many times
+TC144_MAX_TOKENS = 144
+TC144_HEAD_DIMS = (32,)
+TC144_WAVES = 4
 
 
 def tc_smem_bytes(kind: str, n: int, hd: int, masked: bool) -> int:
@@ -198,15 +211,28 @@ def tensor_core_plan(kind: str, dtype: torch.dtype, shape, strides,
     and adds its share of d_rel_bias once (K2b): blocks per head fall from
     B * nW to ceil(B * nW / run)."""
     B, nW, H, n, hd = shape
-    if dtype != torch.bfloat16 or n > TC_MAX_TOKENS or \
-            hd not in TC_HEAD_DIMS or H > 65535:
+    if dtype != torch.bfloat16 or H > 65535 or \
+            any(s % 8 for s in strides) or any(p % 16 for p in data_ptrs):
         return 0
-    if any(s % 8 for s in strides) or any(p % 16 for p in data_ptrs):
+    if n > TC_MAX_TOKENS:
+        return _tc144_run(kind, B, nW, H, n, hd, sm_count)
+    if hd not in TC_HEAD_DIMS:
         return 0
     resident = min(TC_REG_BLOCKS_PER_SM[kind],
                    _SM_SMEM // (tc_smem_bytes(kind, n, hd, masked) + 1024))
     slots = sm_count * resident
     return max(1, min(TC_MAX_RUN, -(-B * nW * H // slots)))
+
+
+def _tc144_run(kind, B, nW, H, n, hd, sm_count) -> int:
+    """K2's long-window plan: 0 where it does not apply (K2b, n > 144,
+    head widths other than 32), else the images a block walks for its one
+    (window, head): all B where the nW * H pairs fill the SMs
+    ``TC144_WAVES`` times, else B cut into as many runs as that takes."""
+    if kind != "fwd" or n > TC144_MAX_TOKENS or hd not in TC144_HEAD_DIMS:
+        return 0
+    runs = min(B, max(1, -(-TC144_WAVES * sm_count // (nW * H))))
+    return -(-B // runs)
 
 
 def _check_smem(name, n, hd, smem):
@@ -257,13 +283,17 @@ def _kernel_dropout(dropout_p: float, seed: int) -> tuple:
 
 
 def _window_attention_cuda(q, k, v, rel_bias, shift_mask, scale,
-                           dropout_p=0.0, seed=0):
+                           dropout_p=0.0, seed=0, run=None):
+    """K2 on CUDA tensors; ``run`` 0 forces the CUDA-core instantiation
+    (the kernel checks compare the bodies on the same tensors), None
+    takes ``tensor_core_plan``'s."""
     B, nW, H, n, hd = q.shape
     st = _check_cuda_args("window_attention", q, k, v, rel_bias, shift_mask)
-    run = tensor_core_plan(
-        "fwd", q.dtype, q.shape, st,
-        [t.data_ptr() for t in (q, k, v, shift_mask) if t is not None],
-        shift_mask is not None, _sm_count(q.device))
+    if run is None:
+        run = tensor_core_plan(
+            "fwd", q.dtype, q.shape, st,
+            [t.data_ptr() for t in (q, k, v, shift_mask) if t is not None],
+            shift_mask is not None, _sm_count(q.device))
     if run == 0:
         _check_smem("window_attention", n, hd,
                     4 * (3 * n * hd + n + n * n + 4 * n))
@@ -283,6 +313,7 @@ def _window_attention_cuda(q, k, v, rel_bias, shift_mask, scale,
     kernel_lib.check(err, "window_attn_fwd")
     window_attention.launches += 1
     window_attention.tc_launches += bool(run)
+    window_attention.tc144_launches += bool(run) and n > TC_MAX_TOKENS
     return out
 
 

@@ -14,20 +14,30 @@ Spans sit at stage boundaries only; those of one request nest on the
 host thread under its request span. Each, what it covers, and what reads
 it (``bench_h100/metrics/``, on a traced run):
 
-- ``rscotr.request.cls`` / ``rscotr.request.det``: the whole call of
-  ``infer_cls`` / ``infer_det``. ``host_syncs.infer`` counts the host's
-  stream, device and event synchronisations inside; every metric below is
-  a mean over these requests.
+- ``rscotr.request.cls`` / ``rscotr.request.det`` / ``rscotr.request.seg``:
+  the whole call of ``infer_cls`` / ``infer_det`` / ``infer_seg`` (and
+  ``infer_seg_logits``). ``host_syncs.infer`` counts the host's stream,
+  device and event synchronisations inside; every metric below is a mean
+  over these requests.
 - ``rscotr.input``: the pixels and ``img_hw`` to the device, normalised
   (every entry, seg's too): ``input_ms.infer``.
 - ``rscotr.backbone``: Swin or ResNet-50: ``backbone_idle_ms.infer``.
 - ``rscotr.neck`` (ChannelMapper), ``rscotr.cls_head`` (the cls head),
   ``rscotr.det.embed`` (masks, positional encodings, flattening): no metric
   of their own; a traced run's ``breakdown.idle_gaps`` names them.
-- ``rscotr.encoder``: the shared encoder: ``encoder_idle_ms.infer``.
+- ``rscotr.encoder``: the shared encoder (the det head's, and the seg
+  pixel decoder's): ``encoder_idle_ms.infer``.
 - ``rscotr.det.select`` (two-stage proposals and top-k),
   ``rscotr.det.decoder`` (the decoder and its branches) and
   ``rscotr.det.boxes`` (``dino_get_bboxes``): ``dethead_idle_ms.infer``.
+- ``rscotr.seg.pixel_decoder`` (input convs, level flattening, FPN, mask
+  feature; the encoder inside it has its own span):
+  ``seg_pixdec_idle_ms.infer`` (with ``rscotr.encoder``).
+- ``rscotr.seg.decoder`` (the queries, the masked-attention layers and
+  every prediction head): ``seg_decoder_idle_ms.infer``.
+- ``rscotr.seg.semantic`` (scheme 3's upsample, sigmoid and class product,
+  the other schemes' upsampling, and the argmax of the label map):
+  ``seg_semantic_idle_ms.infer``.
 
 The ``*_idle_ms.infer`` metrics put each device-idle interval down to the
 innermost span the host is in: a stage's self time, without its children.
@@ -35,7 +45,8 @@ innermost span the host is in: a stage's self time, without its children.
 Launch counters, function attributes counted per call on the card:
 ``ms_deform_attn.launches`` / ``vec_launches`` (K1),
 ``ms_deform_attn_bwd.launches`` / ``vec_launches`` / ``ordered_launches``
-(K1b), ``window_attention.launches`` / ``tc_launches`` (K2),
+(K1b), ``window_attention.launches`` / ``tc_launches`` /
+``tc144_launches`` (K2; the last its long-window body),
 ``window_attention_bwd.launches`` / ``tc_launches`` / ``ordered_launches``
 (K2b), ``scatter_add_mm.launches`` / ``vec_launches`` (K3'),
 ``ws_fwd.launches`` / ``vec_launches`` (K4) and ``ws_bwd.launches`` /
@@ -52,6 +63,7 @@ import torch
 
 REQUEST_CLS = "rscotr.request.cls"
 REQUEST_DET = "rscotr.request.det"
+REQUEST_SEG = "rscotr.request.seg"
 INPUT = "rscotr.input"
 BACKBONE = "rscotr.backbone"
 NECK = "rscotr.neck"
@@ -61,6 +73,9 @@ ENCODER = "rscotr.encoder"
 DET_SELECT = "rscotr.det.select"
 DET_DECODER = "rscotr.det.decoder"
 DET_BOXES = "rscotr.det.boxes"
+SEG_PIXEL_DECODER = "rscotr.seg.pixel_decoder"
+SEG_DECODER = "rscotr.seg.decoder"
+SEG_SEMANTIC = "rscotr.seg.semantic"
 
 
 def span(name: str):

@@ -31,7 +31,10 @@ STAGES = {
             (trace.NECK, 1), (trace.DET_EMBED, 1), (trace.ENCODER, 1),
             (trace.DET_SELECT, 1), (trace.DET_DECODER, 1),
             (trace.DET_BOXES, 1)],
-    "seg": [(trace.INPUT, 0), (trace.BACKBONE, 0), (trace.NECK, 0)],
+    "seg": [(trace.REQUEST_SEG, 0), (trace.INPUT, 1), (trace.BACKBONE, 1),
+            (trace.NECK, 1), (trace.SEG_PIXEL_DECODER, 1), (trace.ENCODER, 2),
+            (trace.SEG_DECODER, 1), (trace.SEG_SEMANTIC, 1),
+            (trace.SEG_SEMANTIC, 1)],
 }
 
 
@@ -84,7 +87,7 @@ def test_spans_nest_in_order_as_host_ops(tiny, task):
 
 def test_span_names_and_kind():
     names = [v for k, v in vars(trace).items() if k.isupper()]
-    assert len(names) == len(set(names)) == 11
+    assert len(names) == len(set(names)) == 15
     assert all(n.startswith("rscotr.") for n in names)
     assert {n for task in STAGES for n, _ in STAGES[task]} == set(names)
     # the record_function annotation the spans avoid is a user annotation

@@ -237,17 +237,20 @@ def test_tensor_core_plan_follows_the_device_and_the_mask():
 
 
 @pytest.mark.parametrize("why,kw", [
-    ("n above 64", dict(n=81)),
+    # K2's long-window body takes n = 65..144 at head width 32 (forward)
+    ("n above 64", dict(n=81, kinds=("bwd",))),
     ("head width not compiled", dict(hd=24)),
     ("token stride not a multiple of 16 bytes", dict(stride=(4704, 32, 100))),
     ("base not 16-byte aligned", dict(ptr=4098)),
     ("too many heads for the grid", dict(H=70000)),
+    ("n above 64, head width 64", dict(n=81, hd=64)),
+    ("n above 144", dict(n=169)),
 ])
 def test_tensor_core_plan_falls_to_cuda_cores(why, kw):
     H, n, hd = kw.get("H", 3), kw.get("n", 49), kw.get("hd", 32)
     st = list(kw.get("stride", (n * H * hd, n * hd, hd))) * 3
     ptrs = [4096, 8192, kw.get("ptr", 12288)]
-    for kind in ("fwd", "bwd"):
+    for kind in kw.get("kinds", ("fwd", "bwd")):
         assert wa.tensor_core_plan(kind, torch.bfloat16, (2, 4, H, n, hd),
                                    st, ptrs) == 0, why
 
