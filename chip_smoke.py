@@ -87,6 +87,17 @@ Phases, each of which raises on failure (exit code 1, no result line):
    launches counted (every K1 launch must take the vector body, every
    LayerNorm call a K7 launch), median
    latency (CUDA events) and peak memory reported;
+9b. the DINO head as a CUDA graph (``det_graph_phase``, also alone:
+   ``python -c "import chip_smoke; chip_smoke.det_graph_phase()"``), at
+   the flagship's det request (16 x 800^2): the attention scale against
+   the host-copied divisor it replaced, bit for bit on the card; the
+   graph counters per request (warm-up: eager, capture, replay; then one
+   replay and no eager call a request, K1 and K7 launches as the eager
+   request's); each replayed request's head outputs and boxes against the
+   same request run eagerly (bit-equal, or the largest gap by name); the
+   head's selection and decoder timed eagerly against a replay (host
+   issue and end to end, in turns); a profiled request's host
+   synchronisations and its K1 kernels on the device timeline;
 10. training: the flagship trains cls 16x224^2 (mixup / cutmix), det
     1x800^2 (18 GT boxes padded to 100, 5 CDN groups: 200 DN + 600 matching
     queries) and seg 4x512^2 (uint8 labels in [0, 5) with a band of the
@@ -2274,6 +2285,203 @@ def serving_phase():
             f"{len(times)} requests (min {min(times):.3f}, max "
             f"{max(times):.3f}); peak memory {peak:.1f} MiB")
     return launches, lat
+
+
+class _Eager(contextlib.AbstractContextManager):
+    """A dispatch mode that only passes each op on: under it the DINO head
+    runs its selection and decoder eagerly (a mode sees every op), on the
+    same kernels."""
+
+    def __enter__(self):
+        from torch.utils._python_dispatch import TorchDispatchMode
+
+        class Pass(TorchDispatchMode):
+            def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+                return func(*args, **(kwargs or {}))
+        self.mode = Pass()
+        return self.mode.__enter__()
+
+    def __exit__(self, *exc):
+        return self.mode.__exit__(*exc)
+
+
+def det_graph_phase():
+    """The DINO head's selection and decoder as one CUDA-graph replay per
+    input key (``models/heads/dino_head.py``), at the flagship's det
+    request: 16 tiles of 800^2, bf16, random weights of seed 0. Returns
+    {"eager_ms", "replay_ms", "gaps", "syncs"}."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from rscotr_tpu_torch.engine import make_infer_steps
+    from rscotr_tpu_torch.models import build_model
+    from rscotr_tpu_torch.models.heads.dino_head import DINOHead
+    from rscotr_tpu_torch.models.layers.attention import scaled_logits
+    from rscotr_tpu_torch.ops.layer_norm import layer_norm
+    from rscotr_tpu_torch.ops.ms_deform_attn import ms_deform_attn
+    from rscotr_tpu_torch.utils import trace
+    from rscotr_tpu_torch.utils.config import load_model_cfg
+    log("det graph phase: the flagship's DINO head replayed as a CUDA graph "
+        "at det 16x800^2, bf16, random weights (seed 0)")
+
+    # -- the attention scale: the host-copied divisor's quotient, bit for bit
+    g = torch.Generator(device="cuda").manual_seed(7)
+    for dtype in (torch.float32, torch.bfloat16):
+        for hd in (16, 32, 64):
+            q = (3 * torch.randn(16, 8, 600, hd, device="cuda",
+                                 generator=g)).to(dtype).requires_grad_()
+            k = (3 * torch.randn(16, 8, 600, hd, device="cuda",
+                                 generator=g)).to(dtype).requires_grad_()
+            w = torch.randn(16, 8, 600, 600, device="cuda", generator=g)
+            old = torch.matmul(q, k.transpose(-1, -2)) / torch.sqrt(
+                torch.tensor(float(hd), dtype=dtype, device="cuda"))
+            new = scaled_logits(q, k)
+            got = torch.autograd.grad((new * w).sum(), (q, k))
+            want = torch.autograd.grad((old * w).sum(), (q, k))
+            if not (torch.equal(new, old) and all(
+                    torch.equal(a, b) for a, b in zip(got, want))):
+                fail(f"scaled_logits {dtype} hd {hd}: not bit-equal to the "
+                     "host-copied divisor's quotient")
+    log("  scaled_logits: logits and gradients bit-equal to the "
+        "host-copied divisor's, f32 and bf16, head widths 16 / 32 / 64")
+
+    cfg = load_model_cfg(FLAGSHIP_CFG)
+    model = build_model(cfg, tasks=("det",), device="cuda",
+                        generator=torch.Generator().manual_seed(0))
+    step = make_infer_steps(model, max_per_img=300)["det"]
+    head = model.bbox_head
+    rng = np.random.default_rng(0)
+    B = 16
+    hw = np.full((B, 2), 800, np.int32)
+    imgs = [rng.integers(0, 256, (B, 800, 800, 3)).astype(np.uint8)
+            for _ in range(3)]
+    kept = {}
+
+    def hook(_m, _i, out):
+        kept["head"] = out
+
+    model.bbox_head.register_forward_hook(hook)
+    names = ("all_cls", "all_coords", "topk_score", "topk_anchor", "bboxes",
+             "labels")
+
+    def request(img, eager=False):
+        with _Eager() if eager else contextlib.nullcontext():
+            det = step(img, hw)
+        return dict(zip(names, tuple(kept.pop("head")) + tuple(det)))
+
+    def counts():
+        return (DINOHead.graph_captures, DINOHead.graph_replays,
+                DINOHead.eager_calls, ms_deform_attn.launches,
+                layer_norm.launches)
+
+    # -- counters: warm-up (eager, capture, replay), then replays ---------
+    per_call = []
+    for i in range(6):
+        c0 = counts()
+        request(imgs[i % 3])
+        torch.cuda.synchronize()
+        per_call.append(tuple(b - a for a, b in zip(c0, counts())))
+    log("  per call (captures, replays, eager calls, K1, K7): "
+        + ", ".join(str(c) for c in per_call))
+    k1, k7 = per_call[0][3:]
+    want = [(0, 0, 1, k1, k7), (1, 1, 0, k1, k7)] + [(0, 1, 0, k1, k7)] * 4
+    if per_call != want or k1 != 12:
+        fail(f"det graph: counters a call {per_call} != {want} (12 K1)")
+
+    # -- replayed against eager, request by request -----------------------
+    gaps = {}
+    for i, img in enumerate(imgs):
+        eager = request(img, eager=True)
+        for rep in range(2):
+            got = request(img)
+            for n in names:
+                a, b = got[n], eager[n]
+                if a.shape != b.shape or a.dtype != b.dtype:
+                    fail(f"det graph: {n} {tuple(a.shape)} {a.dtype} "
+                         f"against eager {tuple(b.shape)} {b.dtype}")
+                d = (a.double() - b.double()).abs().max().item()
+                gaps[n] = max(gaps.get(n, 0.0), d)
+        if not all(torch.isfinite(got[n]).all() for n in names[:5]):
+            fail("det graph: replayed outputs not finite")
+    equal = [n for n, d in gaps.items() if d == 0]
+    log(f"  replayed against eager, 3 requests x 2 replays: bit-equal "
+        f"{', '.join(equal) or 'none'}" + "".join(
+            f"; {n} largest gap {d:.3e}" for n, d in gaps.items() if d))
+
+    # -- the head's selection and decoder: eager against a replay ---------
+    args = {}
+    decode = head._decode
+
+    def spy(*a):
+        args["a"] = a
+        return decode(*a)
+
+    head._decode = spy
+    with _Eager():
+        step(imgs[0], hw)
+    del head._decode
+    memory, mask_flat, valid_ratios, shapes = args["a"][:4]
+    times = {"eager": [], "replay": []}
+    issue = {"eager": [], "replay": []}
+    with torch.inference_mode():
+        key = head._graph_key(memory, shapes)
+        key_s = _key_s(head, memory, shapes)
+        if key not in head._graphs:
+            fail("det graph: the request's key holds no graph")
+        for _ in range(5):
+            for mode in ("eager", "replay", "replay", "eager"):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                if mode == "eager":
+                    head._decode(memory, mask_flat, valid_ratios, shapes)
+                else:
+                    head._replay(key, memory, mask_flat, valid_ratios,
+                                 shapes)
+                t1 = time.perf_counter()
+                torch.cuda.synchronize()
+                t2 = time.perf_counter()
+                issue[mode].append(1e3 * (t1 - t0))
+                times[mode].append(1e3 * (t2 - t0))
+    res = {f"{m}_ms": float(np.median(times[m])) for m in times}
+    res.update({f"{m}_issue_ms": float(np.median(issue[m])) for m in issue})
+    log(f"  selection + decoder, median of 10 in turns: eager "
+        f"{res['eager_ms']:.2f} ms (host issue {res['eager_issue_ms']:.2f}),"
+        f" replay {res['replay_ms']:.2f} ms (host issue "
+        f"{res['replay_issue_ms']:.2f}); the key {1e3 * key_s:.3f} ms")
+
+    # -- a profiled request: host syncs, K1 kernels on the device ---------
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step(imgs[1], hw)
+        torch.cuda.synchronize()
+    evs = list(prof.profiler.kineto_results.events())
+    req = [e for e in evs if e.name() == trace.REQUEST_DET]
+    if len(req) != 1:
+        fail(f"det graph: {len(req)} request spans in the profile")
+    a, b = req[0].start_ns(), req[0].start_ns() + req[0].duration_ns()
+    syncs = [e.name() for e in evs if a <= e.start_ns() <= b and e.name() in
+             ("cudaStreamSynchronize", "cudaDeviceSynchronize",
+              "cudaEventSynchronize")]
+    cuda = torch.autograd.DeviceType.CUDA
+    k1_names = [e.name() for e in evs if e.device_type() == cuda
+                and "msda_fwd_" in e.name()]
+    stages = sorted({e.name() for e in evs if e.name().startswith("rscotr.")})
+    log(f"  profiled request: {len(syncs)} host syncs, {len(k1_names)} K1 "
+        f"kernels on the device timeline, spans {stages}")
+    if len(syncs) != 10:
+        fail(f"det graph: {len(syncs)} host syncs in a request, want 10")
+    if len(k1_names) != 12:
+        fail(f"det graph: {len(k1_names)} K1 kernels traced, want 12")
+    res.update(gaps=gaps, syncs=len(syncs))
+    return res
+
+
+def _key_s(head, memory, shapes, n=50) -> float:
+    """Host seconds of one graph key."""
+    t0 = time.perf_counter()
+    for _ in range(n):
+        head._graph_key(memory, shapes)
+    return (time.perf_counter() - t0) / n
 
 
 def flagship_det_batch(rng):
@@ -5987,6 +6195,7 @@ def main(argv) -> int:
     slice_parity_phase()
     train_parity_phase()
     slaunches, lat = serving_phase()
+    det_graph_phase()
     launches, train, det_cost = train_phase()
     stages = augment_phase()
     zlaunches, zoo = zoo_phase()

@@ -12,27 +12,55 @@ matching queries under the CDN self-attention mask; the top-k proposal
 coordinates are detached, and so is the reference passed between decoder
 layers, while the per-layer outputs keep the non-detached refinement (look
 forward twice). Serving runs the ``num_query`` matching queries only.
+
+In serving, everything after the encoder (``DINOHead._decode``: proposals,
+top-k, decoder, branches) runs as one CUDA graph replay. The region's shapes
+are fixed by the input key (device, batch, level sizes, dtype, query count,
+inference mode, and where each parameter's data lies), so its ~1,000 small
+launches, which the host would otherwise issue one by one while the card
+waits, are recorded once and launched as one. The first call with a key
+runs eagerly (it warms up cuBLAS and the allocator), the second captures the
+graph in a memory pool of its own and replays it, every later call copies
+its inputs into the graph's buffers and replays. The head keeps the graphs
+of its ``GRAPH_KEYS`` most recently used keys and releases the others. A
+weight loaded in place keeps the key, and the replay reads the new weights;
+a parameter given new storage makes a new key. Training, grad mode, the CDN
+queries, the CPU, ``torch.compile`` / ``torch.export`` tracing, a dispatch
+mode (``FlopCounterMode``, a fake tensor mode) and a stream that is already
+capturing run the region eagerly, as written. A replay writes shared
+buffers, so one thread at a time may call a head; it returns copies of the
+graph's outputs.
 """
 
 from __future__ import annotations
 
+import collections
 import math
 from typing import Callable, Optional, Sequence
 
 import torch
 from torch import nn
+from torch.utils._python_dispatch import _get_current_dispatch_mode
 
 from rscotr_tpu_torch.models.layers.common import (Embedding, LayerNorm,
                                                    Linear, Mlp, constant_,
                                                    normal_)
 from rscotr_tpu_torch.models.layers.transformer import DinoDecoderLayer
 from rscotr_tpu_torch.ops.box_ops import inverse_sigmoid
+from rscotr_tpu_torch.ops.layer_norm import layer_norm
+from rscotr_tpu_torch.ops.ms_deform_attn import ms_deform_attn
 from rscotr_tpu_torch.ops.point_generator import encoder_reference_points
 from rscotr_tpu_torch.ops.pos_encoding import (coordinate_sine_embedding,
                                                sine_positional_encoding)
 from rscotr_tpu_torch.utils import trace
 
 BIG = 1e4  # finite stand-in for the reference's masked_fill(inf)
+GRAPH_KEYS = 4  # input keys whose graphs a head keeps, least recently used out
+
+# The launch counters of the kernels ``DINOHead._decode`` launches (K1, K7):
+# a replay launches them again, so it adds what its capture counted.
+_COUNTERS = ((ms_deform_attn, "launches"), (ms_deform_attn, "vec_launches"),
+             (layer_norm, "launches"))
 
 
 def mlvl_masks_and_ratios(spatial_shapes, strides, img_hw):
@@ -82,7 +110,77 @@ class DinoTransformer(nn.Module):
         normal_(self.level_embeds, 1.0, g)
 
 
+def _replayable(memory: torch.Tensor) -> bool:
+    """Whether a serving call whose encoder gave ``memory`` may run
+    ``DINOHead._decode`` as a CUDA graph: a CUDA tensor, grad mode off, no
+    ``torch.compile`` or ``torch.export`` tracing, no dispatch mode (which
+    sees each op) and no capture already under way on the stream."""
+    return (memory.is_cuda and not torch.is_grad_enabled()
+            and not torch.compiler.is_compiling()
+            and not torch.compiler.is_exporting()
+            and _get_current_dispatch_mode() is None
+            and not torch.cuda.is_current_stream_capturing())
+
+
+class _Graph:
+    """``DINOHead._decode`` of one input key as a CUDA graph, captured in a
+    memory pool of its own, with its input buffers, its outputs and the
+    kernel launches its capture counted. Made, it has run once."""
+
+    def __init__(self, head, memory, mask_flat, valid_ratios, shapes):
+        stream = head._graphs.stream(memory.device)
+        self.inputs = (memory.clone(), mask_flat.clone(), valid_ratios.clone())
+        self.graph = torch.cuda.CUDAGraph()
+        before = [getattr(f, name) for f, name in _COUNTERS]
+        with torch.cuda.device(memory.device), torch.cuda.graph(
+                self.graph, stream=stream, capture_error_mode="thread_local"):
+            self.outputs = head._decode(*self.inputs, shapes)
+        self.launches = [getattr(f, name) - n
+                         for (f, name), n in zip(_COUNTERS, before)]
+        self.graph.replay()
+
+    def __call__(self, memory, mask_flat, valid_ratios):
+        for buf, t in zip(self.inputs, (memory, mask_flat, valid_ratios)):
+            buf.copy_(t)
+        self.graph.replay()
+        for (f, name), n in zip(_COUNTERS, self.launches):
+            setattr(f, name, getattr(f, name) + n)
+
+
+class _Graphs:
+    """A head's graphs by input key, least recently used first, at most
+    ``GRAPH_KEYS`` (a key seen once holds None: its call ran eagerly), and
+    the stream each device captures on."""
+
+    def __init__(self):
+        self.by_key = collections.OrderedDict()
+        self.streams = {}
+
+    def __contains__(self, key):
+        return key in self.by_key
+
+    def get(self, key):
+        self.by_key.move_to_end(key)
+        return self.by_key[key]
+
+    def add(self, key, graph=None):
+        self.by_key[key] = graph
+        self.by_key.move_to_end(key)
+        while len(self.by_key) > GRAPH_KEYS:
+            self.by_key.popitem(last=False)
+
+    def stream(self, device):
+        if device not in self.streams:
+            self.streams[device] = torch.cuda.Stream(device)
+        return self.streams[device]
+
+
 class DINOHead(nn.Module):
+    # how often ``_decode`` was captured, replayed, and run eagerly
+    graph_captures = 0
+    graph_replays = 0
+    eager_calls = 0
+
     def __init__(self, num_classes: int = 20, num_query: int = 600,
                  embed_dims: int = 256, num_decoder_layers: int = 6,
                  num_feature_levels: int = 4, num_heads: int = 8,
@@ -110,6 +208,7 @@ class DINOHead(nn.Module):
                           Linear(C, C, dtype=dtype, device=device), nn.ReLU(),
                           Linear(C, 4, dtype=dtype, device=device))
             for _ in range(L + 1))
+        self._graphs = _Graphs()
 
     def _init_params(self, g):
         prior = -math.log((1 - 0.01) / 0.01)
@@ -161,6 +260,30 @@ class DINOHead(nn.Module):
             memory = encode_fn(tokens, pos_flat, enc_ref, shapes,
                                key_padding_mask=mask_flat)
 
+        key = None
+        if dn_label_query is None and attn_mask is None and \
+                not self.training and _replayable(memory):
+            key = self._graph_key(memory, shapes)
+        if key is not None and key in self._graphs:
+            with trace.span(trace.DET_DECODER):
+                return self._replay(key, memory, mask_flat, valid_ratios,
+                                    shapes)
+        if key is not None:
+            self._graphs.add(key)
+        DINOHead.eager_calls += 1
+        return self._decode(memory, mask_flat, valid_ratios, shapes,
+                            dn_label_query, dn_bbox_query, attn_mask)
+
+    def _decode(self, memory, mask_flat, valid_ratios, shapes,
+                dn_label_query=None, dn_bbox_query=None, attn_mask=None):
+        """Everything after the encoder: the two-stage proposals and top-k
+        selection, the decoder queries (CDN first) with box refinement, and
+        the per-layer branches; ``forward``'s outputs. Run eagerly, or
+        captured into a CUDA graph that later calls replay."""
+        tr = self.transformer
+        B = memory.shape[0]
+        C = self.embed_dims
+
         # ---- two-stage proposals and top-k selection ---------------------
         with trace.span(trace.DET_SELECT):
             out_memory, out_proposals = self._gen_proposals(
@@ -209,6 +332,33 @@ class DINOHead(nn.Module):
                                    ).sigmoid())
             return (torch.stack(all_cls), torch.stack(all_coords), topk_score,
                     topk_anchor)
+
+    def _graph_key(self, memory, shapes):
+        """The key of the graph a serving call may replay: device, batch,
+        level sizes, dtype, query count, inference mode and each
+        parameter's data pointer; None where a parameter is a DTensor."""
+        ptrs = []
+        for p in self.parameters():
+            if type(p).__name__ == "DTensor":
+                return None
+            ptrs.append(p.data_ptr())
+        return (memory.device, memory.shape[0], shapes, memory.dtype,
+                self.num_query, torch.is_inference_mode_enabled(),
+                tuple(ptrs))
+
+    def _replay(self, key, memory, mask_flat, valid_ratios, shapes):
+        """``_decode`` by the key's graph, captured at the key's second
+        call. Returns copies: the next replay overwrites the graph's own
+        outputs."""
+        graph = self._graphs.get(key)
+        if graph is None:
+            graph = _Graph(self, memory, mask_flat, valid_ratios, shapes)
+            self._graphs.add(key, graph)
+            DINOHead.graph_captures += 1
+        else:
+            graph(memory, mask_flat, valid_ratios)
+        DINOHead.graph_replays += 1
+        return tuple(t.clone() for t in graph.outputs)
 
     def _gen_proposals(self, memory, mask_flat, shapes, valid_ratios):
         """mmdet gen_encoder_output_proposals with finite masking."""

@@ -94,8 +94,7 @@ class MultiheadAttention(nn.Module):
         kp = self._proj(k, 1).reshape(B, Nk, H, hd).transpose(1, 2)
         vp = self._proj(value, 2).reshape(B, Nk, H, hd).transpose(1, 2)
 
-        logits = torch.matmul(qp, kp.transpose(-1, -2)) / torch.sqrt(
-            torch.tensor(float(hd), dtype=qp.dtype, device=qp.device))
+        logits = scaled_logits(qp, kp)
         if attn_mask is not None or key_padding_mask is not None:
             if attn_mask is not None:
                 m = (attn_mask[None, None] if attn_mask.dim() == 2
@@ -109,6 +108,17 @@ class MultiheadAttention(nn.Module):
         attn = torch.softmax(logits, dim=-1)
         out = torch.matmul(attn, vp).transpose(1, 2).reshape(B, Nq, H * hd)
         return identity + self.attn.out_proj(out)
+
+
+def scaled_logits(qp: torch.Tensor, kp: torch.Tensor) -> torch.Tensor:
+    """qp kp^T / sqrt(head width), the root taken in qp's dtype on qp's
+    device. Its operand is filled there: one copied from host memory would
+    synchronise the stream (and so end a CUDA graph's capture), and a host
+    scalar divisor would divide on the card by multiplying with its
+    reciprocal, which can miss the quotient by a bit."""
+    root = torch.sqrt(torch.full((), float(qp.shape[-1]), dtype=qp.dtype,
+                                 device=qp.device))
+    return torch.matmul(qp, kp.transpose(-1, -2)) / root
 
 
 def _local_rank(w: torch.Tensor) -> int:

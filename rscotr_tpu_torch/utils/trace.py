@@ -30,6 +30,10 @@ it (``bench_h100/metrics/``, on a traced run):
 - ``rscotr.det.select`` (two-stage proposals and top-k),
   ``rscotr.det.decoder`` (the decoder and its branches) and
   ``rscotr.det.boxes`` (``dino_get_bboxes``): ``dethead_idle_ms.infer``.
+  A served request on the card replays selection, decoder and branches as
+  one CUDA graph inside ``rscotr.det.decoder``; ``rscotr.det.select`` is
+  entered only where they run eagerly (a key's first call, training, the
+  CPU, export).
 - ``rscotr.seg.pixel_decoder`` (input convs, level flattening, FPN, mask
   feature; the encoder inside it has its own span):
   ``seg_pixdec_idle_ms.infer`` (with ``rscotr.encoder``).
@@ -49,10 +53,16 @@ Launch counters, function attributes counted per call on the card:
 ``tc144_launches`` (K2; the last its long-window body),
 ``window_attention_bwd.launches`` / ``tc_launches`` / ``ordered_launches``
 (K2b), ``scatter_add_mm.launches`` / ``vec_launches`` (K3'),
-``ws_fwd.launches`` / ``vec_launches`` (K4) and ``ws_bwd.launches`` /
-``vec_launches`` (K5). The serve driver of ``bench_h100`` prints the K1
-and K2 counts of its window; ``chip_smoke.py`` and the kernel tests read
-the rest.
+``ws_fwd.launches`` / ``vec_launches`` (K4), ``ws_bwd.launches`` /
+``vec_launches`` (K5) and ``layer_norm.launches`` (K7). A CUDA-graph
+replay of the DINO head adds the K1 and K7 launches its capture counted.
+The serve driver of ``bench_h100`` prints the K1 and K2 counts of its
+window; ``chip_smoke.py`` and the kernel tests read the rest.
+
+Graph counters, class attributes of ``models.heads.dino_head.DINOHead``:
+``graph_captures``, ``graph_replays`` and ``eager_calls``, how often its
+selection and decoder were captured, replayed and run eagerly.
+``chip_smoke.py`` (its ``det_graph`` phase) and the tests read them.
 """
 
 from __future__ import annotations
